@@ -1,0 +1,171 @@
+"""Eigensolvers for symmetric tridiagonal matrices.
+
+Port of ``repro.core.tridiag_eig``: Sturm-sequence bisection for the
+eigenvalues and pivoted inverse iteration plus a QR polish for the
+eigenvectors.  The JAX package writes the recurrences as ``lax.scan``; here
+they are Python loops over the n rows, each step vectorized across the
+eigenvalue lanes.  One deliberate difference: the shift perturbation of
+:func:`eigvecs_inverse_iteration` stays bounded at large k (see there).
+They run on the plan's device (no Pallas kernel exists for them, so none is
+ported in this slice).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = [
+    "sturm_count",
+    "eigvalsh_tridiag_range",
+    "eigvecs_inverse_iteration",
+]
+
+
+def _pivmin(e: torch.Tensor, dtype) -> torch.Tensor:
+    tiny = torch.finfo(dtype).tiny
+    e2max = (e * e).max() if e.numel() else torch.zeros((), dtype=dtype, device=e.device)
+    return torch.clamp(e2max * tiny, min=tiny)
+
+
+def sturm_count(d: torch.Tensor, e: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Number of eigenvalues of tridiag(d, e) strictly below each x (int32).
+
+    The safeguarded LDL^T sign-count recurrence (LAPACK dstebz style).
+    """
+    n = d.shape[0]
+    e2 = torch.cat([torch.zeros((1,), dtype=d.dtype, device=d.device), e * e])
+    pivmin = _pivmin(e, d.dtype)
+    neg_pivmin = -pivmin
+    dmx = d[:, None] - x[None, :]
+    neg = torch.empty((n, x.shape[0]), dtype=torch.bool, device=d.device)
+    q = torch.ones_like(x)
+    for i in range(n):
+        q = torch.addcdiv(dmx[i], e2[i], q, value=-1.0)
+        q = torch.where(q.abs() < pivmin, neg_pivmin, q)
+        torch.lt(q, 0, out=neg[i])
+    return neg.sum(0, dtype=torch.int32)
+
+
+def _bisect_indices(d: torch.Tensor, e: torch.Tensor, ks: torch.Tensor, max_iter: int):
+    """Bisection lanes for eigenvalue indices ``ks`` (ascending order)."""
+    dtype = d.dtype
+    zero = torch.zeros((1,), dtype=dtype, device=d.device)
+    e_abs = torch.cat([zero, e.abs()])
+    r = e_abs + torch.cat([e.abs(), zero])
+    lo0 = (d - r).min()
+    hi0 = (d + r).max()
+    span = torch.clamp(hi0 - lo0, min=torch.finfo(dtype).eps)
+    lo = (lo0 - 0.001 * span).expand(ks.shape[0]).clone()
+    hi = (hi0 + 0.001 * span).expand(ks.shape[0]).clone()
+    for _ in range(max_iter):
+        mid = 0.5 * (lo + hi)
+        go_up = sturm_count(d, e, mid) <= ks
+        lo = torch.where(go_up, mid, lo)
+        hi = torch.where(go_up, hi, mid)
+    return 0.5 * (lo + hi)
+
+
+def eigvalsh_tridiag_range(
+    d: torch.Tensor,
+    e: torch.Tensor,
+    *,
+    start: int = 0,
+    count: Optional[int] = None,
+    max_iter: int = 48,
+) -> torch.Tensor:
+    """Eigenvalues ``start .. start+count-1`` (ascending) of tridiag(d, e);
+    one bisection lane per requested eigenvalue."""
+    n = d.shape[0]
+    count = n - start if count is None else count
+    if not (0 <= start and start + count <= n and count >= 1):
+        raise ValueError(f"invalid spectrum window [start={start}, count={count}) for n={n}")
+    ks = start + torch.arange(count, dtype=torch.int32, device=d.device)
+    return _bisect_indices(d, e, ks, max_iter)
+
+
+def _tridiag_solve_pivoted(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor, rhs: torch.Tensor):
+    """Solve tridiag(dl, d, du) x = rhs with partial pivoting (dgtsv-style)
+    for every lane at once.
+
+    ``dl``/``du`` (n-1,) are shared; ``d`` and ``rhs`` are (n, m), one
+    column per lane.  Returns x (n, m).
+    """
+    n, m = d.shape
+    dtype, dev = d.dtype, d.device
+    tiny = torch.finfo(dtype).tiny * 16
+    if n == 1:
+        b0 = d[0]
+        return (rhs[0] / torch.where(b0.abs() < tiny, torch.where(b0 < 0, -tiny, tiny), b0))[None]
+    zrow = torch.zeros((1, m), dtype=dtype, device=dev)
+    # Row i+1 of the matrix in columns (i, i+1, i+2) and its rhs, per step i.
+    nxt = torch.stack(
+        [
+            dl[:, None].expand(n - 1, m),
+            d[1:],
+            torch.cat([du[1:], du.new_zeros(1)])[:, None].expand(n - 1, m),
+            rhs[1:],
+        ],
+        dim=1,
+    )
+    absa = dl.abs()
+    # cur = the running pivot-candidate row (b_cur, c_cur, 0, r_cur).
+    cur = torch.stack([d[0], du[0].expand(m), zrow[0], rhs[0]])
+    U = torch.empty((n - 1, 4, m), dtype=dtype, device=dev)
+    for i in range(n - 1):
+        swap = absa[i] > cur[0].abs()
+        P = torch.where(swap, nxt[i], cur)   # pivot row: (p1, p2, p3, pr)
+        E = torch.where(swap, cur, nxt[i])   # eliminated row: (e1, e2, e3, er)
+        p1 = P[0]
+        U[i] = P
+        torch.where(p1.abs() < tiny, torch.where(p1 < 0, -tiny, tiny), p1, out=U[i, 0])
+        mfac = E[0] / U[i, 0]
+        new = torch.addcmul(E[1:], mfac, P[1:], value=-1.0)  # (nb, nc, nr)
+        cur = torch.cat([new[:2], zrow, new[2:]])
+    b_last = cur[0]
+    b_safe = torch.where(b_last.abs() < tiny, torch.where(b_last < 0, -tiny, tiny), b_last)
+    x = torch.empty((n, m), dtype=dtype, device=dev)
+    x[n - 1] = cur[3] / b_safe
+    x2 = torch.zeros((m,), dtype=dtype, device=dev)
+    for i in range(n - 2, -1, -1):
+        u = U[i]
+        t = torch.addcmul(u[3], u[1], x[i + 1], value=-1.0)
+        t = torch.addcmul(t, u[2], x2, value=-1.0)
+        torch.div(t, u[0], out=x[i])
+        x2 = x[i + 1]
+    return x
+
+
+def eigvecs_inverse_iteration(
+    d: torch.Tensor, e: torch.Tensor, lams: torch.Tensor, n_iter: int = 3
+) -> torch.Tensor:
+    """Eigenvectors of tridiag(d, e) for ascending eigenvalues ``lams``.
+
+    One inverse-iteration lane per eigenvalue, then a thin QR that
+    re-orthogonalizes clustered vectors.  Returns (n, k).
+    """
+    n = d.shape[0]
+    m = lams.shape[0]
+    dtype, dev = d.dtype, d.device
+    i = torch.arange(n, dtype=dtype, device=dev)
+    v0 = torch.cos(17.0 * (i + 1.0)) + 0.5
+    v0 = v0 / torch.linalg.norm(v0)
+    # A tiny perturbation splits exactly repeated shifts.  The JAX package
+    # offsets lane j by (j - m/2)·8ulp·scale, which grows with m: at
+    # n = 2048 it moves the outer shifts by more than the eigenvalue gap and
+    # inverse iteration converges to a neighbour's vector (ROADMAP Queue 3).
+    # Here the offset cycles over 8 values, so it stays a few ulps at any m.
+    ulp = torch.finfo(dtype).eps
+    scale = torch.clamp(lams.abs().max(), min=1.0)
+    lane = torch.arange(m, dtype=dtype, device=dev)
+    lams_p = lams + (torch.remainder(lane, 8) - 3.5) * (8 * ulp) * scale
+    dsh = d[:, None] - lams_p[None, :]
+    V = v0[:, None].expand(n, m).contiguous()
+    tiny = torch.finfo(dtype).tiny
+    for _ in range(n_iter):
+        X = _tridiag_solve_pivoted(e, dsh, e, V)
+        V = X / torch.clamp(torch.linalg.norm(X, dim=0), min=tiny)[None, :]
+    Q, R = torch.linalg.qr(V)
+    signs = torch.sign(torch.diagonal(R))
+    signs = torch.where(signs == 0, 1.0, signs)
+    return Q * signs[None, :]

@@ -1,0 +1,84 @@
+"""Carry the JAX package's state across, as numpy arrays and plain dicts.
+
+The EVD has no weights; its carried state is the factor structures one
+stage hands the next.  These functions turn what the JAX package produced
+(``BandReflectors``, ``ChaseLog``, ``EvdConfig``, converted by the caller
+to numpy arrays and dicts) into the port's objects, so a test can feed one
+stage of the port the exact factors JAX made for it.  Nothing here imports
+JAX.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from .core.band_reduction import BandReflectors
+from .core.bulge_chasing import ChaseLog, max_active_sweeps
+from .solver.config import EvdConfig, Spectrum
+
+__all__ = ["band_reflectors", "chase_log", "evd_config"]
+
+# The JAX registry's backend names and their counterparts here.
+_BACKENDS = {None: None, "jnp": "torch", "pallas": "cuda"}
+
+Device = Union[str, torch.device]
+
+
+def _t(x, device: Device, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(np.array(x), device=device, dtype=dtype)
+
+
+def band_reflectors(d: Mapping, device: Device = "cpu") -> BandReflectors:
+    """``{"V", "T", "b", "blocks", "Tm"}`` -> :class:`BandReflectors`."""
+    Tm = d.get("Tm")
+    return BandReflectors(
+        V=_t(d["V"], device),
+        T=_t(d["T"], device),
+        b=int(d["b"]),
+        blocks=tuple((int(p0), int(q)) for p0, q in d.get("blocks", ())),
+        Tm=None if Tm is None else tuple(_t(t, device) for t in Tm),
+    )
+
+
+def chase_log(d: Mapping, device: Device = "cpu") -> ChaseLog:
+    """``{"vs", "taus", "row0", "n", "b"}`` -> :class:`ChaseLog`.
+
+    A wavefront log of the JAX Pallas kernel has ``S*G >= A`` slots per
+    wavefront; the slots past ``A = max_active_sweeps(n, b)`` must be
+    inactive (``row0 == n``, ``tau == 0``) and are dropped.
+    """
+    n, b = int(d["n"]), int(d["b"])
+    vs, taus, row0 = np.asarray(d["vs"]), np.asarray(d["taus"]), np.asarray(d["row0"])
+    if vs.ndim == 3 and n >= 3:
+        A = max_active_sweeps(n, b)
+        extra_row0, extra_tau = row0[:, A:], taus[:, A:]
+        if not ((extra_row0 == n).all() and (extra_tau == 0).all()):
+            raise ValueError(f"log slots past A={A} must be inactive")
+        vs, taus, row0 = vs[:, :A], taus[:, :A], row0[:, :A]
+    return ChaseLog(
+        vs=_t(vs, device),
+        taus=_t(taus, device),
+        row0=_t(row0, device, torch.int32),
+        n=n,
+        b=b,
+    )
+
+
+def evd_config(d: Mapping) -> EvdConfig:
+    """``dataclasses.asdict(jax_config)`` -> :class:`EvdConfig`.
+
+    The JAX backend names map to the port's: ``jnp`` -> ``torch`` (the plain
+    versions), ``pallas`` -> ``cuda`` (the kernels).
+    """
+    fields = dict(d)
+    spec = fields.pop("spectrum", None)
+    backend: Optional[str] = fields.pop("backend", None)
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown JAX backend {backend!r}")
+    return EvdConfig(
+        backend=_BACKENDS[backend],
+        spectrum=Spectrum(**spec) if spec is not None else Spectrum(),
+        **fields,
+    )

@@ -1,0 +1,31 @@
+"""Plain PyTorch versions of the hand-written kernels' block-level ops.
+
+Each is the transparent version of its kernel: the CPU path, and what
+``chip_smoke.py`` and the ``cuda``-marked tests hold the kernel against on
+the card.  Port of the matching ``repro.kernels.ref`` oracles.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["trailing_update_ref", "fused_panel_update_ref"]
+
+
+def trailing_update_ref(C: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
+    """The DBR trailing update: C - Z Y^T - Y Z^T."""
+    return C - Z @ Y.T - Y @ Z.T
+
+
+def fused_panel_update_ref(Bv: torch.Tensor, b: int, w: int):
+    """Plain ``fused_panel_update``: the geqrf panel QRs plus the trailing
+    update of ``repro_torch.core.band_reduction._reduce_block``.
+
+    Like the kernel, it updates the trailing view ``Bv`` in place and
+    returns ``(Bv, Vbuf (m, w), Ts (w//b, b, b))``.
+    """
+    from repro_torch.core.band_reduction import _reduce_block
+    from repro_torch.core.panel_qr import panel_qr_geqrf
+
+    new_view, Vbuf, Ts = _reduce_block(Bv, b, w, panel_qr_geqrf, trailing_update_ref)
+    Bv.copy_(new_view)
+    return Bv, Vbuf, Ts
