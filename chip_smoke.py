@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA H100 and check it.
+"""Drive the PyTorch port's paths on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py          # from the root of a checkout; needs one card
 
@@ -9,10 +9,12 @@ Phases, each printing its own lines:
    every hand-written kernel from ``src/repro_torch/csrc`` (one nvcc per
    source, all started together) and its time.
 2. Each kernel against its plain PyTorch version on the card, at the shapes
-   the n = 4096 main path gives it: max abs / rel error and the tolerance,
+   the n = 4096 paths give it: max abs / rel error and the tolerance,
    the kernel's time (CUDA events, warm), the plain version's time, a
    library yardstick where one exists, and the least time the card could
    take for the same work (``bound_ms``, from bytes and fp32 operations).
+   Kernels A-C (fused path), D (``syr2k`` / ``trailing_update``) and E
+   (the standalone ``panel_qr``).
 3. The main path, ``plan(4096, float32, EvdConfig())(A)`` and ``.eigvals(A)``
    on a seeded random symmetric A: launch counters reset just before and
    read just after (each kernel must have run), eigenvalues against
@@ -21,6 +23,13 @@ Phases, each printing its own lines:
    ``torch.linalg.eigh`` / ``eigvalsh`` (cuSOLVER) and the peak memory.
 4. ``inverse_pth_root`` at n = 1024, p = 4 on a seeded PSD matrix, against
    V diag(w^-1/4) V^T from ``torch.linalg.eigh`` in float64.
+5. The unfused first stage at n = 4096: ``plan(4096, float32,
+   EvdConfig(tridiag="unfused"))(A)`` and ``.eigvals(A)`` against the gates
+   of phase 3, each with the counters reset just before and read just after
+   (one ``trailing_update`` launch per DBR block, kernel B once for the
+   eigvals run), its stage times, and ``band_reduce(A, 8, 256,
+   panel_method="kernel")`` (one ``panel_qr`` launch per panel) with the
+   band's eigenvalues against ``torch.linalg.eigvalsh(A)``.
 
 Then one JSON line with the kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -54,6 +63,11 @@ PEAK_FP32_FLOP_PER_S = 67e12
 TOL_A = 1e-5 * max(8.0, N_MAIN ** 0.5)
 TOL_B = 5e-4  # ~3n/b dependent window updates per entry in fp32
 TOL_C = 1e-5 * max(8.0, N_MAIN ** 0.5)
+# Kernels D and E: the JAX package's own kernel tolerances
+# (tests/test_kernels.py): 2e-5 max|ref| for syr2k, and 5e-5 max(|ref|, 1)
+# for each of the panel QR's V, T, taus and R.
+TOL_D = 2e-5
+TOL_E = 5e-5
 # Main-path checks: eigenvalues as tests/test_core_eigh.py (3e-4 max|w|);
 # ||A V - V diag(w)||_F / ||A||_F and max |V^T V - I|.
 TOL_EIG = 3e-4
@@ -76,19 +90,22 @@ def card_line() -> str:
 
 
 def cuda_ms(torch, fn, reps: int, setup=None) -> float:
-    """Mean device time of ``fn(*setup())`` over ``reps`` calls (CUDA events
-    around each call; ``setup`` runs outside the timed window)."""
-    total = 0.0
-    for _ in range(reps):
-        args = setup() if setup else ()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(*args)
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+    """Mean time of ``fn(*setup())`` over ``reps`` calls issued back to back
+    between two CUDA events, after one warm-up call; ``setup`` runs for
+    every call before the timed window.  Back to back, a call's host-side
+    work overlaps the device work queued before it, so a kernel that runs
+    longer than its launcher's host work is timed on the device alone."""
+    args = [setup() if setup else () for _ in range(reps + 1)]
+    fn(*args[0])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for a in args[1:]:
+        fn(*a)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def wall_ms(torch, fn) -> float:
@@ -136,6 +153,9 @@ def phase_kernels(torch, gen):
     from repro_torch.kernels.backtransform import backtransform_wy_cuda
     from repro_torch.kernels.bulge import bulge_wavefront_cuda
     from repro_torch.kernels.fused_panel import fused_panel_update_cuda
+    from repro_torch.kernels.limits import limit
+    from repro_torch.kernels.panel import panel_qr_body, panel_qr_cuda
+    from repro_torch.kernels.syr2k import syr2k_cuda, trailing_update_cuda
     from repro_torch.solver import resolve_blocking
 
     n = N_MAIN
@@ -248,14 +268,114 @@ def phase_kernels(torch, gen):
     rows["backtransform_wy"] = dict(max_abs_err=max_abs, compared="Q2 X and Q2^T X entrywise",
                                     ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                     bound_by=by, library_ms=None)
+
+    # --- kernel D: the first trailing update of the unfused path ----------
+    # C is the strided trailing view A[w:, w:], as band_reduce hands it over.
+    C = A[w:, w:]
+    Y = torch.randn((mt, w), generator=gen, device="cuda")
+    Z = torch.randn((mt, w), generator=gen, device="cuda")
+    errs, max_abs = [], 0.0
+    for label, Dk, Dp in (
+        ("C - Z Y^T - Y Z^T", trailing_update_cuda(C, Y, Z), ref.syr2k_ref(Z, Y, C, alpha=-1.0)),
+        ("Z Y^T + Y Z^T (C absent)", syr2k_cuda(Z, Y), ref.syr2k_ref(Z, Y)),
+    ):
+        torch.cuda.synchronize()
+        require(torch.equal(Dk, Dk.T), f"kernel D output not exactly symmetric ({label})")
+        errs.append(float((Dk - Dp).abs().max()) / float(Dp.abs().max()))
+        max_abs = max(max_abs, float((Dk - Dp).abs().max()))
+    require(max(errs) < TOL_D, f"kernel D vs plain rel err {errs} >= {TOL_D}")
+    ms = cuda_ms(torch, lambda: trailing_update_cuda(C, Y, Z), 10)
+    plain_ms = cuda_ms(torch, lambda: ref.syr2k_ref(Z, Y, C, alpha=-1.0), 5)
+    lib_ms = cuda_ms(torch, lambda: C - Z @ Y.T - Y @ Z.T, 10)
+    lower = mt * (mt + 1) / 2
+    bms, by = bound((2.0 * mt * w + lower + mt * mt) * 4, 4.0 * w * lower)
+    print(f"phase 2 kernel D trailing_update (n, k)=({mt}, {w}): rel err with C / C absent "
+          f"{errs[0]:.3e}/{errs[1]:.3e} (tol {TOL_D:.0e}) max_abs_err={max_abs:.3e}; "
+          f"exactly symmetric")
+    print(f"phase 2 kernel D ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}) "
+          f"library C - Z Y^T - Y Z^T (2 torch.matmul) ms={lib_ms:.4f}")
+    rows["syr2k"] = dict(max_abs_err=max_abs, compared="C + alpha (A B^T + B A^T) entrywise, with "
+                         "and without C; exact symmetry", ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                         bound_by=by, library_ms=lib_ms,
+                         library="C - Z @ Y.T - Y @ Z.T (2 torch.matmul)")
+
+    # --- kernel E: the path's largest panel, and one above the smem budget -
+    for m_e in (n - b, 2 * n):
+        P = torch.randn((m_e, b), generator=gen, device="cuda")
+        got = panel_qr_cuda(P)
+        want = panel_qr_body(P, b, lapack_sign=False)
+        torch.cuda.synchronize()
+        errs = [float((x - y).abs().max()) / max(float(y.abs().max()), 1.0) for x, y in zip(got, want)]
+        max_abs = max(float((x - y).abs().max()) for x, y in zip(got, want))
+        require(max(errs) < TOL_E, f"kernel E (m={m_e}) vs plain rel err V/T/taus/R {errs} >= {TOL_E}")
+        ms = cuda_ms(torch, lambda: panel_qr_cuda(P), 20)
+        plain_ms = cuda_ms(torch, lambda: panel_qr_body(P, b, lapack_sign=False), 3)
+        geqrf_ms = cuda_ms(torch, lambda: torch.geqrf(P), 10)
+        flops = sum(3.0 * (m_e - j) + 4.0 * (m_e - j) * (b - 1 - j) + 2.0 * (m_e - j) * j
+                    for j in range(b)) + b ** 3 / 3.0
+        bms, by = bound((2.0 * m_e * b + 2.0 * b * b + b) * 4, flops)
+        in_smem = m_e * b * 4 <= limit("PANEL_QR_SMEM")
+        print(f"phase 2 kernel E panel_qr (m, b)=({m_e}, {b}) panel in "
+              f"{'shared' if in_smem else 'global'} memory: rel err V/T/taus/R "
+              + "/".join(f"{e:.3e}" for e in errs) + f" (tol {TOL_E:.0e}) max_abs_err={max_abs:.3e}")
+        print(f"phase 2 kernel E ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.6f} ({by}) "
+              f"nearest call torch.geqrf (LAPACK signs, no T) ms={geqrf_ms:.4f}")
+        if m_e == n - b:
+            rows["panel_qr"] = dict(max_abs_err=max_abs, compared="V, T, taus and R entrywise",
+                                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                                    library_ms=geqrf_ms,
+                                    library="torch.geqrf, the nearest call: LAPACK signs, no T")
     return rows
+
+
+def max_eig_err(w, w_ref) -> float:
+    return float((w.double() - w_ref).abs().max()) / float(w_ref.abs().max())
+
+
+def check_evd(torch, phase: str, A, w, V):
+    """The main-path gates on ``w, V = plan(A)``; returns eigvalsh(A) in
+    float64."""
+    n = A.shape[0]
+    w_ref = torch.linalg.eigvalsh(A.double())
+    scale = float(w_ref.abs().max())
+    e_eig = max_eig_err(w, w_ref)
+    Ad, Vd = A.double(), V.double()
+    resid = float(torch.linalg.norm(Ad @ Vd - Vd * w.double()[None, :]) / torch.linalg.norm(Ad))
+    col = float(torch.linalg.norm(Ad @ Vd - Vd * w.double()[None, :], dim=0).max()) / scale
+    orth = float((Vd.T @ Vd - torch.eye(n, dtype=torch.float64, device="cuda")).abs().max())
+    print(f"{phase} eigenvalues max|w - w_ref|/max|w| = {e_eig:.3e} (tol {TOL_EIG:.0e}); "
+          f"||AV - VW||_F/||A||_F = {resid:.3e} (tol {TOL_RESID:.0e}); worst column "
+          f"||Av - wv||/||A||_2 = {col:.3e}; max|V^T V - I| = {orth:.3e} (tol {TOL_ORTH:.0e})")
+    require(e_eig < TOL_EIG, f"{phase} eigenvalues")
+    require(resid < TOL_RESID, f"{phase} residual")
+    require(orth < TOL_ORTH, f"{phase} orthogonality")
+    require(bool(torch.isfinite(V).all()) and tuple(V.shape) == (n, n), f"{phase} V finite, (n, n)")
+    return w_ref
+
+
+def stage_times(torch, phase: str, A, pl) -> None:
+    """One more EVD through the plan's stages, each closed by a synchronize."""
+    from repro_torch.solver.plan import _execute
+
+    stages = {}
+    last = [time.perf_counter()]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[name] = (now - last[0]) * 1e3
+        last[0] = now
+
+    torch.cuda.synchronize()
+    last[0] = time.perf_counter()
+    _execute(A, pl, True, on_stage=mark)
+    print(f"{phase} stages ms: " + ", ".join(f"{k}={v:.1f}" for k, v in stages.items()))
 
 
 def phase_main_path(torch, gen):
     """Phase 3: the main path at n = 4096 through the plan API."""
     from repro_torch.kernels import cuda_lib
     from repro_torch.solver import EvdConfig, plan
-    from repro_torch.solver.plan import _execute
 
     n = N_MAIN
     A = torch.randn((n, n), generator=gen, device="cuda")
@@ -273,41 +393,16 @@ def phase_main_path(torch, gen):
     device_launches = cuda_lib.device_launch_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"phase 3 launches on the main path: {launches}; CUDA launches {device_launches}")
-    require(all(c > 0 for c in launches.values()), f"a kernel did not run on the main path: {launches}")
+    require(all(launches[op] > 0 for op in ("fused_panel_update", "bulge_wavefront", "backtransform_wy")),
+            f"a kernel did not run on the main path: {launches}")
 
-    w_ref = torch.linalg.eigvalsh(A.double())
-    scale = float(w_ref.abs().max())
-    e_eig = float((w.double() - w_ref).abs().max()) / scale
-    Ad, Vd = A.double(), V.double()
-    resid = float(torch.linalg.norm(Ad @ Vd - Vd * w.double()[None, :]) / torch.linalg.norm(Ad))
-    col = float(torch.linalg.norm(Ad @ Vd - Vd * w.double()[None, :], dim=0).max()) / scale
-    orth = float((Vd.T @ Vd - torch.eye(n, dtype=torch.float64, device="cuda")).abs().max())
-    print(f"phase 3 eigenvalues max|w - w_ref|/max|w| = {e_eig:.3e} (tol {TOL_EIG:.0e}); "
-          f"||AV - VW||_F/||A||_F = {resid:.3e} (tol {TOL_RESID:.0e}); worst column "
-          f"||Av - wv||/||A||_2 = {col:.3e}; max|V^T V - I| = {orth:.3e} (tol {TOL_ORTH:.0e})")
-    require(e_eig < TOL_EIG, "main-path eigenvalues")
-    require(resid < TOL_RESID, "main-path residual")
-    require(orth < TOL_ORTH, "main-path orthogonality")
-    require(bool(torch.isfinite(V).all()) and tuple(V.shape) == (n, n), "main-path V finite, (n, n)")
-
-    stages = {}
-    last = [time.perf_counter()]
-
-    def mark(name):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        stages[name] = (now - last[0]) * 1e3
-        last[0] = now
-
-    torch.cuda.synchronize()
-    last[0] = time.perf_counter()
-    _execute(A, pl, True, on_stage=mark)
-    print("phase 3 stages ms: " + ", ".join(f"{k}={v:.1f}" for k, v in stages.items()))
+    w_ref = check_evd(torch, "phase 3", A, w, V)
+    stage_times(torch, "phase 3", A, pl)
 
     out = {}
     ev_ms = wall_ms(torch, lambda: out.setdefault("w", pl.eigvals(A)))
     w2 = out["w"]
-    require(float((w2.double() - w_ref).abs().max()) / scale < TOL_EIG, "main-path eigvals()")
+    require(max_eig_err(w2, w_ref) < TOL_EIG, "main-path eigvals()")
     torch.linalg.eigh(A)  # warm cuSOLVER
     eigh_ms = wall_ms(torch, lambda: torch.linalg.eigh(A))
     eigvalsh_ms = wall_ms(torch, lambda: torch.linalg.eigvalsh(A))
@@ -331,6 +426,73 @@ def phase_inverse_root(torch, gen):
     err = rel_err(X, X_ref)
     print(f"phase 4 inverse_pth_root n={n} p={p}: rel err vs float64 eigh {err:.3e} (tol {TOL_ROOT:.0e})")
     require(err < TOL_ROOT and bool(torch.isfinite(X).all()), "inverse_pth_root")
+
+
+def phase_unfused(torch, gen):
+    """Phase 5: the unfused first stage at n = 4096 (kernels D, B, C and,
+    through ``panel_method="kernel"``, E)."""
+    from repro_torch.core.band_reduction import band_reduce, build_stage_schedule
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.solver import EvdConfig, plan
+
+    n = N_MAIN
+    A = torch.randn((n, n), generator=gen, device="cuda")
+    A = A + A.T
+    pl = plan(n, torch.float32, EvdConfig(tridiag="unfused"))
+    schedule = build_stage_schedule(n, pl.b, pl.nb)
+    blocks = len(schedule.entries)
+    print(f"phase 5 {pl.describe()}; {blocks} DBR blocks, {schedule.num_panels} panels")
+
+    def expect(label, launches, want):
+        got = {op: launches[op] for op in launches if launches[op] or op in want}
+        print(f"phase 5 launches, {label}: {got}")
+        require(got == want, f"phase 5 {label}: launches {got}, expected {want}")
+
+    cuda_lib.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w, V = pl(A)
+    torch.cuda.synchronize()
+    e2e_ms = (time.perf_counter() - t0) * 1e3
+    launches = cuda_lib.launch_counts()
+    device_launches = cuda_lib.device_launch_counts()
+    # The chase with a log is plain tensor code on the card (chase_wavefront).
+    expect("plan(A)", launches, {"trailing_update": blocks, "backtransform_wy": 1})
+    w_ref = check_evd(torch, "phase 5", A, w, V)
+    stage_times(torch, "phase 5", A, pl)
+
+    out = {}
+    cuda_lib.reset_launch_counts()
+    ev_ms = wall_ms(torch, lambda: out.setdefault("w", pl.eigvals(A)))
+    expect(".eigvals(A)", cuda_lib.launch_counts(),
+           {"trailing_update": blocks, "bulge_wavefront": 1})
+    e_ev = max_eig_err(out["w"], w_ref)
+    print(f"phase 5 eigvals max|w - w_ref|/max|w| = {e_ev:.3e} (tol {TOL_EIG:.0e})")
+    require(e_ev < TOL_EIG, "phase 5 eigvals()")
+    print(f"phase 5 end to end n={n} fp32, tridiag=unfused: plan(A) {e2e_ms:.1f} ms, "
+          f"eigvals {ev_ms:.1f} ms")
+
+    cuda_lib.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Bband = band_reduce(A, pl.b, pl.nb, panel_method="kernel")
+    torch.cuda.synchronize()
+    br_ms = (time.perf_counter() - t0) * 1e3
+    panel_launches = cuda_lib.launch_counts()
+    expect('band_reduce(panel_method="kernel")', panel_launches,
+           {"trailing_update": blocks, "panel_qr": schedule.num_panels})
+    e_band = max_eig_err(torch.linalg.eigvalsh(Bband.double()), w_ref)
+    i = torch.arange(n, device="cuda")
+    require(bool((Bband[(i[:, None] - i[None, :]).abs() > pl.b] == 0).all()),
+            "phase 5 band_reduce output is not banded")
+    print(f"phase 5 band_reduce(A, {pl.b}, {pl.nb}, panel_method=\"kernel\") {br_ms:.1f} ms: "
+          f"eigenvalues of the band vs eigvalsh(A) {e_band:.3e} (tol {TOL_EIG:.0e})")
+    require(e_band < TOL_EIG, "phase 5 band_reduce(panel_method='kernel') eigenvalues")
+    return (
+        {"syr2k": launches["syr2k"] + launches["trailing_update"], "panel_qr": panel_launches["panel_qr"]},
+        {"syr2k": device_launches["syr2k"] + device_launches["trailing_update"],
+         "panel_qr": cuda_lib.device_launch_counts()["panel_qr"]},
+    )
 
 
 def main() -> int:
@@ -363,11 +525,18 @@ def main() -> int:
     rows = phase_kernels(torch, gen)
     launches, device_launches = phase_main_path(torch, gen)
     phase_inverse_root(torch, gen)
+    unfused, unfused_device = phase_unfused(torch, gen)
+    launches.update(unfused)
+    device_launches.update(unfused_device)
 
+    # Kernel D serves two registry ops (syr2k, trailing_update); its launches
+    # are the sum of both counters over the unfused plan(A) run.
     meta = {
         "fused_panel_update": ("src/repro_torch/csrc/fused_panel.cu", "src/repro/kernels/fused_panel.py:136"),
         "bulge_wavefront": ("src/repro_torch/csrc/bulge.cu", "src/repro/kernels/bulge.py:128"),
         "backtransform_wy": ("src/repro_torch/csrc/backtransform.cu", "src/repro/kernels/backtransform.py:67"),
+        "syr2k": ("src/repro_torch/csrc/syr2k.cu", "src/repro/kernels/syr2k.py:74"),
+        "panel_qr": ("src/repro_torch/csrc/panel.cu", "src/repro/kernels/panel.py:107"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

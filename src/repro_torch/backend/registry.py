@@ -13,9 +13,14 @@ There is no fallback between them.  A plan resolves its backend once
 else ``"cuda"`` on a CUDA device and ``"torch"`` on the CPU), and an
 explicit ``"torch"`` on a CUDA device is an opt-in pin.
 
-This slice registers ``fused_panel_update``, ``bulge_wavefront`` and
-``backtransform_wy``; the other ops raise ``NotImplementedError`` that
-names the ROADMAP item that ports them.
+Every op is registered on both backends.  Where the port pairs differently
+from the JAX registry: JAX's jnp ``panel_qr`` is ``panel_qr_geqrf`` (LAPACK
+signs) beside a Pallas kernel with beta = +|x|, the two equal only up to
+column signs.  Here the plain ``panel_qr`` is ``panel_qr_body(...,
+lapack_sign=False)``, the very recurrence kernel E runs, so the kernel is
+held to its plain version entry by entry (V, T, taus and R).  The plain
+``syr2k`` / ``trailing_update`` mirror their lower triangle, as kernel D
+and JAX's ``ops.syr2k`` do, so both backends are exactly symmetric.
 """
 from __future__ import annotations
 
@@ -44,12 +49,6 @@ OPS = (
     "panel_qr",
     "backtransform_wy",
 )
-_LATER = {
-    "trailing_update": "ROADMAP Queue 2 item 4 (syr2k)",
-    "syr2k": "ROADMAP Queue 2 item 4 (syr2k)",
-    "bulge_chase": "ROADMAP Queue 1 item 4 (tridiag='unfused')",
-    "panel_qr": "ROADMAP Queue 2 item 5 (standalone panel QR)",
-}
 
 _IMPLS: Dict[Tuple[str, str], Callable] = {}
 
@@ -70,18 +69,39 @@ def default_backend(device: torch.device) -> str:
 
 def _build_impls() -> None:
     from repro_torch.core.backtransform import backtransform_wy_xla
-    from repro_torch.core.bulge_chasing import chase_wavefront_slices
+    from repro_torch.core.bulge_chasing import chase_wavefront, chase_wavefront_slices
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.panel import panel_qr_body
+
+    def torch_trailing_update(C, Y, Z):
+        return ref.syr2k_ref(Z, Y, C, alpha=-1.0)
+
+    def torch_bulge_chase(B, b):
+        return chase_wavefront(B, b)
 
     def torch_bulge_wavefront(B, b, *, return_log=False):
         return chase_wavefront_slices(B, b, return_log)
 
+    def torch_panel_qr(panel):
+        return panel_qr_body(panel, panel.shape[1], lapack_sign=False)
+
+    def cuda_bulge_chase(B, b):
+        return ops.bulge_wavefront_cuda(B, b)
+
     _IMPLS.update({
+        ("trailing_update", "torch"): torch_trailing_update,
+        ("syr2k", "torch"): ref.syr2k_ref,
         ("fused_panel_update", "torch"): ref.fused_panel_update_ref,
+        ("bulge_chase", "torch"): torch_bulge_chase,
         ("bulge_wavefront", "torch"): torch_bulge_wavefront,
+        ("panel_qr", "torch"): torch_panel_qr,
         ("backtransform_wy", "torch"): backtransform_wy_xla,
+        ("trailing_update", "cuda"): ops.trailing_update_cuda,
+        ("syr2k", "cuda"): ops.syr2k_cuda,
         ("fused_panel_update", "cuda"): ops.fused_panel_update_cuda,
+        ("bulge_chase", "cuda"): cuda_bulge_chase,
         ("bulge_wavefront", "cuda"): ops.bulge_wavefront_cuda,
+        ("panel_qr", "cuda"): ops.panel_qr_cuda,
         ("backtransform_wy", "cuda"): ops.backtransform_wy_cuda,
     })
 
@@ -91,8 +111,6 @@ def resolve(op: str, backend: str) -> Callable:
     if op not in OPS:
         raise KeyError(f"unknown op {op!r}; expected one of {OPS}")
     validate_backend(backend)
-    if op in _LATER:
-        raise NotImplementedError(f"op {op!r} is not ported yet: {_LATER[op]}")
     if not _IMPLS:
         _build_impls()
     return _IMPLS[(op, backend)]

@@ -1,6 +1,6 @@
-"""The two-stage symmetric EVD pipeline of the port (fused generation)."""
+"""The two-stage symmetric EVD pipeline of the port (fused and unfused generations)."""
 from .householder import house, larft, wy_apply_left, wy_apply_right
-from .panel_qr import panel_qr_geqrf
+from .panel_qr import panel_qr_geqrf, panel_qr_householder
 from .band_reduction import (
     BandReflectors,
     StageEntry,
@@ -8,10 +8,12 @@ from .band_reduction import (
     apply_q_left,
     band_reduce,
     build_stage_schedule,
+    form_q,
 )
 from .bulge_chasing import (
     ChaseLog,
     band_to_tridiag,
+    chase_wavefront,
     chase_wavefront_slices,
     extract_tridiag,
     max_active_sweeps,
@@ -32,14 +34,17 @@ __all__ = [
     "wy_apply_left",
     "wy_apply_right",
     "panel_qr_geqrf",
+    "panel_qr_householder",
     "BandReflectors",
     "StageEntry",
     "StageSchedule",
     "apply_q_left",
     "band_reduce",
     "build_stage_schedule",
+    "form_q",
     "ChaseLog",
     "band_to_tridiag",
+    "chase_wavefront",
     "chase_wavefront_slices",
     "extract_tridiag",
     "max_active_sweeps",

@@ -1,9 +1,13 @@
 """Band reduction: dense symmetric -> banded symmetric (the paper's DBR).
 
-Port of ``repro.core.band_reduction`` for ``mode="fused"``: the static
-:class:`StageSchedule` walks the matrix in blocks of ``w = nb`` columns,
-and each block is one ``fused_panel_update`` registry op (q = w/b
-compensated panel QRs plus one rank-2w trailing update).
+Port of ``repro.core.band_reduction``.  The static :class:`StageSchedule`
+walks the matrix in blocks of ``w = nb`` columns; each block is q = w/b
+compensated panel QRs plus one rank-2w trailing update, run as
+
+* ``mode="fused"``: one ``fused_panel_update`` registry op (kernel A);
+* ``mode="unfused"``: the legacy composition :func:`_reduce_block`, a
+  panel QR per panel (``panel_method``) and one ``trailing_update``
+  registry op (kernel D) per block.
 
 The port works on its own copy of A and updates each trailing view
 ``B[ci:, ci:]`` in place (the JAX package rebuilds B functionally).
@@ -17,6 +21,8 @@ import torch
 
 from repro_torch.backend import registry
 
+from .panel_qr import panel_qr_geqrf, panel_qr_householder
+
 __all__ = [
     "band_reduce",
     "BandReflectors",
@@ -24,6 +30,7 @@ __all__ = [
     "StageSchedule",
     "build_stage_schedule",
     "apply_q_left",
+    "form_q",
 ]
 
 
@@ -140,33 +147,61 @@ def band_reduce(
     b: int,
     nb: Optional[int] = None,
     *,
+    panel_method: str = "geqrf",
+    syr2k_update: Optional[Callable] = None,
     return_reflectors: bool = False,
     merge_ts: bool = False,
-    mode: str = "fused",
+    mode: Optional[str] = None,
     backend: Optional[str] = None,
 ):
     """Reduce a symmetric (n, n) matrix to band form with bandwidth ``b``.
 
     ``nb`` (a multiple of ``b``, default ``b``) is the DBR update block.
-    ``backend`` picks the ``fused_panel_update`` implementation (default:
-    ``cuda`` for a CUDA tensor, ``torch`` on the CPU).  ``A`` is not
-    modified.  Returns ``Bband`` and, with ``return_reflectors``, the
-    :class:`BandReflectors` of Q1 (``merge_ts`` also fills ``Tm``).
+    ``backend`` picks the registry ops' implementations (default: ``cuda``
+    for a CUDA tensor, ``torch`` on the CPU).
+
+    ``mode`` is ``"fused"`` (the default) or ``"unfused"``.  The unfused
+    composition takes ``panel_method``: ``"geqrf"`` (``panel_qr_geqrf``),
+    ``"householder"`` (``panel_qr_householder``) or ``"kernel"`` (the
+    ``panel_qr`` op on ``backend``: kernel E on ``cuda``; JAX names it
+    ``"pallas"``), and ``syr2k_update``, a callable ``(C, Y, Z) ->
+    C - Z Y^T - Y Z^T`` (default: the ``trailing_update`` op on
+    ``backend``).  Injecting either implies ``"unfused"``, and asking for
+    ``"fused"`` beside them raises ``ValueError``, as in the JAX package.
+
+    ``A`` is not modified.  Returns ``Bband`` and, with
+    ``return_reflectors``, the :class:`BandReflectors` of Q1 (``merge_ts``
+    also fills ``Tm``).
     """
-    if mode != "fused":
-        raise NotImplementedError(
-            f"band_reduce(mode={mode!r}) is not ported yet: ROADMAP Queue 1 "
-            "item 8 (tridiag='unfused')"
-        )
     n = A.shape[0]
     nb = b if nb is None else nb
     if n % b != 0:
         raise ValueError(f"n={n} must be a multiple of b={b}")
     if nb % b != 0:
         raise ValueError(f"nb={nb} must be a multiple of b={b}")
-    fused_update = registry.resolve(
-        "fused_panel_update", backend or registry.default_backend(A.device)
-    )
+    custom_phases = syr2k_update is not None or panel_method != "geqrf"
+    if mode is None:
+        mode = "unfused" if custom_phases else "fused"
+    if mode not in ("fused", "unfused"):
+        raise ValueError(f"unknown band-reduction mode: {mode!r}")
+    if mode == "fused" and custom_phases:
+        raise ValueError(
+            "mode='fused' executes panel QR and the trailing update as one "
+            "op; syr2k_update/panel_method injection requires mode='unfused'"
+        )
+    backend = backend or registry.default_backend(A.device)
+    if mode == "fused":
+        fused_update = registry.resolve("fused_panel_update", backend)
+    else:
+        if panel_method == "geqrf":
+            panel_qr_fn = panel_qr_geqrf
+        elif panel_method == "householder":
+            panel_qr_fn = panel_qr_householder
+        elif panel_method == "kernel":
+            panel_qr_fn = registry.resolve("panel_qr", backend)
+        else:
+            raise ValueError(f"unknown panel_method: {panel_method!r}")
+        syr2k_update = syr2k_update or registry.resolve("trailing_update", backend)
 
     B = A.contiguous().clone()
     schedule = build_stage_schedule(n, b, nb)
@@ -174,7 +209,12 @@ def band_reduce(
     Vall = torch.zeros((n, p * b), dtype=A.dtype, device=A.device)
     Tall = torch.zeros((p, b, b), dtype=A.dtype, device=A.device)
     for e in schedule.entries:
-        _, Vbuf, Ts = fused_update(B[e.ci :, e.ci :], b, e.w)
+        view = B[e.ci :, e.ci :]
+        if mode == "fused":
+            _, Vbuf, Ts = fused_update(view, b, e.w)
+        else:
+            new_view, Vbuf, Ts = _reduce_block(view, b, e.w, panel_qr_fn, syr2k_update)
+            view.copy_(new_view)
         Vall[e.ci :, e.panel0 * b : (e.panel0 + e.q) * b] = Vbuf
         Tall[e.panel0 : e.panel0 + e.q] = Ts
     if not return_reflectors:
@@ -197,3 +237,8 @@ def apply_q_left(refl: BandReflectors, X: torch.Tensor, transpose: bool = False)
         Tp = refl.T[p].T if transpose else refl.T[p]
         X = X - V @ (Tp @ (V.T @ X))
     return X
+
+
+def form_q(refl: BandReflectors, n: int) -> torch.Tensor:
+    """The dense orthogonal factor Q1 (n, n)."""
+    return apply_q_left(refl, torch.eye(n, dtype=refl.V.dtype, device=refl.V.device))

@@ -1,6 +1,7 @@
 """Bulge chasing: symmetric band matrix -> tridiagonal (wavefront schedule).
 
-Port of ``repro.core.bulge_chasing`` for the fused generation.  Op (s, k)
+Port of ``repro.core.bulge_chasing`` for both generations (the sequential
+executor is not ported: ROADMAP Queue 1 item 8).  Op (s, k)
 of sweep ``s`` eliminates column ``s`` (k = 0) or ``s+1+(k-1)b`` (k >= 1)
 with one reflector on rows ``[s+1+kb, s+1+(k+1)b)``, as a two-sided update
 of the 3b-wide window starting at row ``s+1+(k-1)b``.  Op (s, k) runs at
@@ -8,8 +9,9 @@ wavefront ``w = 3s + k``; the ops of one wavefront touch windows that share
 at most one corner element that neither changes, so a wavefront is one
 batched update.
 
-:func:`chase_wavefront_slices` is the plain version of the
-``bulge_wavefront`` op; the kernel is ``csrc/bulge.cu``.
+:func:`chase_wavefront` is the executor: the plain version of the
+``bulge_wavefront`` and ``bulge_chase`` ops, whose kernel is
+``csrc/bulge.cu``, and the unfused generation's chase when a log is needed.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from .householder import house
 
 __all__ = [
     "ChaseLog",
+    "chase_wavefront",
     "chase_wavefront_slices",
     "band_to_tridiag",
     "extract_tridiag",
@@ -130,9 +133,13 @@ def _trivial_log(B: torch.Tensor, b: int) -> ChaseLog:
     )
 
 
-def chase_wavefront_slices(B: torch.Tensor, b: int, return_log: bool = False):
-    """Plain ``bulge_wavefront``: one batched window update per wavefront on
-    a zero-padded copy of ``B``; the reflector log in (W, A, b) layout."""
+def chase_wavefront(B: torch.Tensor, b: int, return_log: bool = False):
+    """The wavefront executor: per wavefront, the windows of all
+    A = ``max_active_sweeps`` slots are gathered from a zero-padded copy of
+    ``B``, updated by one batched :func:`_window_op` and scattered back
+    (the windows are disjoint; inactive slots all target one zero scratch
+    block and write zeros).  Returns ``T`` or ``(T, ChaseLog)`` with the log
+    in (W, A, b) layout."""
     n = B.shape[0]
     if n < 3 or b <= 1:
         out = B.clone()
@@ -164,6 +171,19 @@ def chase_wavefront_slices(B: torch.Tensor, b: int, return_log: bool = False):
     return out, ChaseLog(vs=vs, taus=taus, row0=row0, n=n, b=b)
 
 
+def chase_wavefront_slices(B: torch.Tensor, b: int, return_log: bool = False):
+    """Plain ``bulge_wavefront``: :func:`chase_wavefront`.
+
+    JAX's ``chase_wavefront_slices`` differs from its ``chase_wavefront``
+    only in the write-back (one ``dynamic_update_slice`` per slot, because
+    XLA lowers the scatter badly off the TPU) and is bitwise equal to it.
+    In eager PyTorch the scatter is one call and a per-slot write-back a
+    Python loop over the slots, so the port runs one executor under both
+    names.
+    """
+    return chase_wavefront(B, b, return_log)
+
+
 def band_to_tridiag(
     B: torch.Tensor,
     b: int,
@@ -173,20 +193,28 @@ def band_to_tridiag(
     mode: str = "fused",
     backend: Optional[str] = None,
 ):
-    """Reduce a symmetric band matrix (dense storage) to tridiagonal form
-    through the ``bulge_wavefront`` registry op."""
+    """Reduce a symmetric band matrix (dense storage) to tridiagonal form.
+
+    ``mode="fused"`` runs the ``bulge_wavefront`` registry op (kernel B on
+    the ``cuda`` backend, log included).  ``mode="unfused"`` is the legacy
+    composition, as in the JAX package: the ``bulge_chase`` op (kernel B
+    without the log) for values only, and :func:`chase_wavefront` (plain
+    tensor code on any device) when the log is needed.  ``backend``
+    defaults to ``cuda`` for a CUDA tensor and ``torch`` on the CPU.
+    """
     if method != "wavefront":
         raise NotImplementedError(
             f"band_to_tridiag(method={method!r}) is not ported yet: ROADMAP "
             "Queue 1 item 8 (chase='sequential')"
         )
-    if mode != "fused":
-        raise NotImplementedError(
-            f"band_to_tridiag(mode={mode!r}) is not ported yet: ROADMAP Queue 1 "
-            "item 8 (tridiag='unfused')"
-        )
-    fn = registry.resolve("bulge_wavefront", backend or registry.default_backend(B.device))
-    return fn(B, b, return_log=return_log)
+    if mode not in ("fused", "unfused"):
+        raise ValueError(f"unknown tridiag mode: {mode!r}")
+    backend = backend or registry.default_backend(B.device)
+    if mode == "fused":
+        return registry.resolve("bulge_wavefront", backend)(B, b, return_log=return_log)
+    if not return_log:
+        return registry.resolve("bulge_chase", backend)(B, b)
+    return chase_wavefront(B, b, return_log=True)
 
 
 def extract_tridiag(T: torch.Tensor):

@@ -1,17 +1,23 @@
-"""Panel QR in compact-WY form, LAPACK sign convention.
+"""Panel QR in compact-WY form.
 
-``panel_qr_geqrf`` factors a tall (m, b) panel as ``Q [R; 0]`` with
-``Q = I - V T V^T``: ``torch.geqrf`` (LAPACK / cuSOLVER) for the columns,
-then ``larft`` for T.  Port of ``repro.core.panel_qr.panel_qr_geqrf``; it
-is the panel factor of the plain ``fused_panel_update``.
+Both functions factor a tall (m, b) panel as ``Q [R; 0]`` with
+``Q = I - V T V^T`` and return ``(V, T, taus, R)``; ports of
+``repro.core.panel_qr``:
+
+* ``panel_qr_geqrf`` — ``torch.geqrf`` (LAPACK / cuSOLVER) for the
+  columns, then ``larft`` for T; LAPACK signs.  It is the panel factor of
+  the plain ``fused_panel_update`` and ``band_reduce``'s default.
+* ``panel_qr_householder`` — b column steps of :func:`house`, beta = +|x|
+  (the JAX package's historical sign); ``band_reduce(panel_method=
+  "householder")``.
 """
 from __future__ import annotations
 
 import torch
 
-from .householder import larft
+from .householder import house, larft
 
-__all__ = ["panel_qr_geqrf"]
+__all__ = ["panel_qr_geqrf", "panel_qr_householder"]
 
 
 def panel_qr_geqrf(panel: torch.Tensor):
@@ -24,3 +30,22 @@ def panel_qr_geqrf(panel: torch.Tensor):
     V = torch.where(rows > cols, a_fact, 0.0)
     V = torch.where(rows == cols, 1.0, V)
     return V, larft(V, taus), taus, R
+
+
+def panel_qr_householder(panel: torch.Tensor):
+    """Column-by-column Householder QR of a (m, b) panel with :func:`house`
+    (beta = +|x|).  Returns ``(V, T, taus, R)``."""
+    m, b = panel.shape
+    A = panel.clone()
+    V = torch.zeros_like(A)
+    taus = torch.zeros((b,), dtype=A.dtype, device=A.device)
+    for j in range(b):
+        v_tail, tau, beta = house(A[j:, j])
+        # Apply H = I - tau v v^T to columns j.. of rows j..; column j is
+        # then exactly (beta, 0, ..., 0).
+        A[j:, j:] -= tau * torch.outer(v_tail, v_tail @ A[j:, j:])
+        A[j, j] = beta
+        A[j + 1 :, j] = 0.0
+        V[j:, j] = v_tail
+        taus[j] = tau
+    return V, larft(V, taus), taus, A[:b, :].clone()

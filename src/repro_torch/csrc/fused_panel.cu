@@ -30,19 +30,19 @@
 //   K5 panel_zfinal  many CTAs  Z_j = MT - 1/2 Vhat (T_j^T Y)
 // then, once per block:
 //   K6 trailing_lower  one CTA per lower 64x64 tile of the trailing block,
-//                      k = w in 16-wide shared-memory strips; writes the tile
-//                      and its mirror
+//                      k = w in 16-wide shared-memory strips (the tile walk
+//                      of csrc/syr2k_tile.cuh); writes the tile and its mirror
 //   K7 write_f         the exact banded values F into Bv[:, :w] and F^T into
 //                      Bv[:w, w:]
 // Every product of the TPU kernel's body stays inside these kernels (no
 // cuBLAS).  Tensor cores, TMA and wgmma are later work.
-#include "common.cuh"
+#include "panel_qr.cuh"
+#include "syr2k_tile.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 64;
-constexpr int kStrip = 16;
+constexpr int kTile = repro::kSyr2kTile;
 constexpr int kGemvSmemMax = 96 * 1024;
 
 __global__ void panel_prep(const float* __restrict__ Bv, long long ldb, int m, int w,
@@ -69,7 +69,7 @@ __global__ void panel_prep(const float* __restrict__ Bv, long long ldb, int m, i
 }
 
 // Householder QR of the (rows, b) panel P[r0:m] with LAPACK signs (port of
-// panel_qr_body(lapack_sign=True)), then larft.  One CTA.
+// panel_qr_body(lapack_sign=True), csrc/panel_qr.cuh), then larft.  One CTA.
 template <int BM>
 __global__ void panel_qr(float* __restrict__ P, int m, int w, int b, int c0, int jpanel,
                          int use_smem, float* __restrict__ V, float* __restrict__ Vh,
@@ -87,85 +87,9 @@ __global__ void panel_qr(float* __restrict__ P, int m, int w, int b, int c0, int
   float* Wk = use_smem ? smem : P + (long long)r0 * b;
   if (use_smem)
     for (int e = tid; e < rows * b; e += nt) Wk[e] = P[(long long)r0 * b + e];
-  for (int e = tid; e < BM * BM; e += nt) {
-    s_T[e] = 0.f;
-    s_VtV[e] = 0.f;
-  }
   __syncthreads();
-
-  for (int j = 0; j < b; ++j) {
-    float sig[1] = {0.f};
-    for (int i = j + 1 + tid; i < rows; i += nt) {
-      const float x = Wk[i * b + j];
-      sig[0] += x * x;
-    }
-    repro::block_sum<1>(sig, 1, red);
-    if (tid == 0) {
-      const float alpha = Wk[j * b + j];
-      const float sigma = sig[0];
-      const float mu = sqrtf(alpha * alpha + sigma);
-      const bool degenerate = sigma == 0.f;
-      const float sign_a = alpha >= 0.f ? 1.f : -1.f;
-      const float beta_nd = -sign_a * mu;
-      const float safe_beta = beta_nd == 0.f ? 1.f : beta_nd;
-      s_tau[j] = degenerate ? 0.f : (beta_nd - alpha) / safe_beta;
-      s_scal[1] = degenerate ? alpha : beta_nd;
-      const float denom = alpha - beta_nd;  // sign(alpha)(|alpha| + mu): no cancellation
-      s_scal[0] = denom == 0.f ? 1.f : denom;
-    }
-    __syncthreads();
-    const float v0s = s_scal[0];
-    const float tau = s_tau[j];
-    for (int i = j + 1 + tid; i < rows; i += nt) Wk[i * b + j] = Wk[i * b + j] / v0s;
-    __syncthreads();
-    float acc[BM];
-#pragma unroll
-    for (int c = 0; c < BM; ++c) acc[c] = 0.f;
-    for (int i = j + tid; i < rows; i += nt) {
-      const float vi = (i == j) ? 1.f : Wk[i * b + j];
-#pragma unroll
-      for (int c = 0; c < BM; ++c)
-        if (c > j && c < b) acc[c] += vi * Wk[i * b + c];
-    }
-    repro::block_sum<BM>(acc, b, red);
-    for (int i = j + tid; i < rows; i += nt) {
-      const float vi = (i == j) ? 1.f : Wk[i * b + j];
-#pragma unroll
-      for (int c = 0; c < BM; ++c)
-        if (c > j && c < b) Wk[i * b + c] -= tau * vi * acc[c];
-    }
-    __syncthreads();
-    if (tid == 0) Wk[j * b + j] = s_scal[1];  // beta; v stays packed below
-    __syncthreads();
-  }
-
-  // larft: VtV[a][c] = v_a . v_c for a < c (v_c is zero above row c).
-  for (int c = 1; c < b; ++c) {
-    float acc[BM];
-#pragma unroll
-    for (int a = 0; a < BM; ++a) acc[a] = 0.f;
-    for (int i = c + tid; i < rows; i += nt) {
-      const float vc = (i == c) ? 1.f : Wk[i * b + c];
-#pragma unroll
-      for (int a = 0; a < BM; ++a)
-        if (a < c) acc[a] += Wk[i * b + a] * vc;
-    }
-    repro::block_sum<BM>(acc, c, red);
-    if (tid == 0)
-      for (int a = 0; a < c; ++a) s_VtV[a * BM + c] = acc[a];
-  }
-  __syncthreads();
-  if (tid == 0) {
-    for (int j = 0; j < b; ++j) {
-      for (int a = 0; a < j; ++a) {
-        float s = 0.f;
-        for (int t = 0; t < j; ++t) s += s_T[a * BM + t] * s_VtV[t * BM + j];
-        s_T[a * BM + j] = -s_tau[j] * s;
-      }
-      s_T[j * BM + j] = s_tau[j];
-    }
-  }
-  __syncthreads();
+  repro::householder_panel<BM, true>(Wk, rows, b, red, s_tau, s_scal);
+  repro::larft_panel<BM>(Wk, rows, b, red, s_tau, s_VtV, s_T);
   for (int e = tid; e < b * b; e += nt)
     Ts[(long long)jpanel * b * b + e] = s_T[(e / b) * BM + (e % b)];
 
@@ -320,59 +244,15 @@ __global__ void panel_zfinal(const float* __restrict__ MT, const float* __restri
 // to the tile and its mirror.
 __global__ void trailing_lower(float* __restrict__ Bv, long long ldb, int m, int w,
                                const float* __restrict__ V, const float* __restrict__ Z) {
-  __shared__ float sZi[kStrip][kTile + 1];
-  __shared__ float sVi[kStrip][kTile + 1];
-  __shared__ float sZj[kStrip][kTile + 1];
-  __shared__ float sVj[kStrip][kTile + 1];
-  const long long t = blockIdx.x;
-  int ti = (int)((sqrt(8.0 * (double)t + 1.0) - 1.0) * 0.5);
-  while ((long long)ti * (ti + 1) / 2 > t) --ti;
-  while ((long long)(ti + 1) * (ti + 2) / 2 <= t) ++ti;
-  const int tj = (int)(t - (long long)ti * (ti + 1) / 2);
+  int ti, tj;
+  repro::lower_tile(blockIdx.x, ti, tj);
   const int mt = m - w;
   const int gi0 = ti * kTile;
   const int gj0 = tj * kTile;
+  float acc[4][4];
+  repro::syr2k_tile_acc(Z + (long long)w * w, V + (long long)w * w, w, mt, w, gi0, gj0, acc);
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
-  for (int k0 = 0; k0 < w; k0 += kStrip) {
-    for (int e = threadIdx.x; e < kTile * kStrip; e += blockDim.x) {
-      const int r = e / kStrip;
-      const int kk = e % kStrip;
-      const int k = k0 + kk;
-      const int gi = gi0 + r;
-      const int gj = gj0 + r;
-      const bool ok_i = k < w && gi < mt;
-      const bool ok_j = k < w && gj < mt;
-      const long long oi = (long long)(w + gi) * w + k;
-      const long long oj = (long long)(w + gj) * w + k;
-      sZi[kk][r] = ok_i ? Z[oi] : 0.f;
-      sVi[kk][r] = ok_i ? V[oi] : 0.f;
-      sZj[kk][r] = ok_j ? Z[oj] : 0.f;
-      sVj[kk][r] = ok_j ? V[oj] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kStrip; ++kk) {
-      float zi[4], vi[4], zj[4], vj[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        zi[a] = sZi[kk][ty * 4 + a];
-        vi[a] = sVi[kk][ty * 4 + a];
-        zj[a] = sZj[kk][tx * 4 + a];
-        vj[a] = sVj[kk][tx * 4 + a];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] += zi[a] * vj[c] + vi[a] * zj[c];
-    }
-    __syncthreads();
-  }
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
 #pragma unroll

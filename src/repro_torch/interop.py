@@ -47,7 +47,9 @@ def chase_log(d: Mapping, device: Device = "cpu") -> ChaseLog:
 
     A wavefront log of the JAX Pallas kernel has ``S*G >= A`` slots per
     wavefront; the slots past ``A = max_active_sweeps(n, b)`` must be
-    inactive (``row0 == n``, ``tau == 0``) and are dropped.
+    inactive (``row0 == n``, ``tau == 0``) and are dropped.  The logs of
+    JAX's ``chase_wavefront`` and ``chase_wavefront_slices`` have exactly A
+    slots and pass unchanged.
     """
     n, b = int(d["n"]), int(d["b"])
     vs, taus, row0 = np.asarray(d["vs"]), np.asarray(d["taus"]), np.asarray(d["row0"])

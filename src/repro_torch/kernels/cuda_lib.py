@@ -39,11 +39,13 @@ __all__ = [
 ]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-# library name -> (source file, registry op it implements)
+# library name -> (source file, registry ops whose launches it counts)
 SOURCES = {
-    "fused_panel": ("fused_panel.cu", "fused_panel_update"),
-    "bulge": ("bulge.cu", "bulge_wavefront"),
-    "backtransform": ("backtransform.cu", "backtransform_wy"),
+    "fused_panel": ("fused_panel.cu", ("fused_panel_update",)),
+    "bulge": ("bulge.cu", ("bulge_wavefront",)),
+    "backtransform": ("backtransform.cu", ("backtransform_wy",)),
+    "syr2k": ("syr2k.cu", ("syr2k", "trailing_update")),
+    "panel": ("panel.cu", ("panel_qr",)),
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -52,8 +54,8 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-_launches: Dict[str, int] = {op: 0 for _, op in SOURCES.values()}
-_device_launches: Dict[str, int] = {op: 0 for _, op in SOURCES.values()}
+_launches: Dict[str, int] = {op: 0 for _, ops in SOURCES.values() for op in ops}
+_device_launches: Dict[str, int] = dict(_launches)
 
 
 def build_dir() -> Path:
@@ -72,8 +74,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (SOURCES[name][0], "common.cuh"):
-        h.update((CSRC / src).read_bytes())
+    for src in (CSRC / SOURCES[name][0], *sorted(CSRC.glob("*.cuh"))):
+        h.update(src.read_bytes())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -13,8 +13,9 @@ name                   bytes     used by
 SMEM_PER_BLOCK_MAX      232448   the hardware ceiling (227 KB) for one block;
                                  kernel B's 3b x 3b window must fit it
 PANEL_QR_SMEM           204800   kernel A's panel QR keeps the (m - r0, b)
-                                 panel in shared memory up to this size, and
-                                 works on it in global memory above it
+                                 panel, and kernel E its (m, b) panel, in
+                                 shared memory up to this size, and works on
+                                 it in global memory above it
 BACKTRANSFORM_SMEM      114688   kernel C keeps its (n, cw) column strip in
                                  shared memory up to this size (two blocks per
                                  SM), and works in global memory above it

@@ -1,4 +1,4 @@
-"""Device-dispatching wrappers of the three kernels of this slice.
+"""Device-dispatching wrappers of the port's kernels.
 
 A CUDA tensor goes to the hand-written kernel (which launches or raises);
 a CPU tensor goes to the plain PyTorch version.  Nothing else decides: no
@@ -13,13 +13,22 @@ import torch
 from .backtransform import backtransform_wy_cuda
 from .bulge import bulge_wavefront_cuda
 from .fused_panel import fused_panel_update_cuda
+from .panel import panel_qr_body, panel_qr_cuda
+from .syr2k import syr2k_cuda, trailing_update_cuda
 
 __all__ = [
+    "syr2k",
+    "trailing_update",
     "fused_panel_update",
+    "bulge_chase",
     "bulge_wavefront",
+    "panel_qr",
     "backtransform_wy",
+    "syr2k_cuda",
+    "trailing_update_cuda",
     "fused_panel_update_cuda",
     "bulge_wavefront_cuda",
+    "panel_qr_cuda",
     "backtransform_wy_cuda",
 ]
 
@@ -28,6 +37,31 @@ def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {t.device}")
     return t.device.type == "cuda"
+
+
+def syr2k(A: torch.Tensor, B: torch.Tensor, C=None, *, alpha: float = 1.0) -> torch.Tensor:
+    """Symmetric ``C + alpha (A B^T + B A^T)`` (``C`` absent: zeros)."""
+    if _on_cuda(A):
+        return syr2k_cuda(A, B, C, alpha=alpha)
+    from .ref import syr2k_ref
+
+    return syr2k_ref(A, B, C, alpha=alpha)
+
+
+def trailing_update(C: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
+    """The DBR trailing update ``C - Z Y^T - Y Z^T`` (syr2k, alpha = -1)."""
+    if _on_cuda(C):
+        return trailing_update_cuda(C, Y, Z)
+    from .ref import syr2k_ref
+
+    return syr2k_ref(Z, Y, C, alpha=-1.0)
+
+
+def panel_qr(panel: torch.Tensor):
+    """Householder QR (beta = +|x|) of an (m, b) panel: ``(V, T, taus, R)``."""
+    if _on_cuda(panel):
+        return panel_qr_cuda(panel)
+    return panel_qr_body(panel, panel.shape[1], lapack_sign=False)
 
 
 def fused_panel_update(Bv: torch.Tensor, b: int, w: int):
@@ -46,6 +80,16 @@ def bulge_wavefront(B: torch.Tensor, b: int, *, return_log: bool = False):
     from repro_torch.core.bulge_chasing import chase_wavefront_slices
 
     return chase_wavefront_slices(B, b, return_log)
+
+
+def bulge_chase(B: torch.Tensor, b: int) -> torch.Tensor:
+    """Band -> tridiagonal without the log (kernel B, as JAX's
+    ``ops.bulge_chase`` runs ``bulge_wavefront_pallas`` without it)."""
+    if _on_cuda(B):
+        return bulge_wavefront_cuda(B, b)
+    from repro_torch.core.bulge_chasing import chase_wavefront
+
+    return chase_wavefront(B, b)
 
 
 def backtransform_wy(X, vs, taus, *, b: int, group=None, transpose: bool = False):

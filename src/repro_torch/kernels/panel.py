@@ -1,16 +1,27 @@
-"""Plain version of the in-kernel panel QR (``repro.kernels.panel``).
+"""The panel QR: plain version and the launcher of kernel E.
 
-:func:`panel_qr_body` is the column recurrence that kernel A
-(``csrc/fused_panel.cu``, device function ``panel_qr_lapack``) runs inside
-its panel phase, written as tensor code: b Householder steps with LAPACK
-signs (beta = -sign(alpha)·|x|), then the ``larft`` T recurrence.  The
-CUDA kernel is held against it and against ``panel_qr_geqrf``.
+:func:`panel_qr_body` (port of ``repro.kernels.panel.panel_qr_body``) is the
+column recurrence of ``csrc/panel_qr.cuh`` written as tensor code: b
+Householder steps, then the ``larft`` T recurrence.  With LAPACK signs
+(beta = -sign(alpha)·|x|) it is the plain version of kernel A's panel phase
+(``csrc/fused_panel.cu``); with ``lapack_sign=False`` (beta = +|x|) it is
+the plain version of kernel E, :func:`panel_qr_cuda` (``csrc/panel.cu``),
+which replaces ``repro.kernels.panel.panel_qr_pallas``.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-__all__ = ["panel_qr_body"]
+from . import cuda_lib
+from .limits import limit
+
+__all__ = ["panel_qr_body", "panel_qr_cuda", "MAX_B"]
+
+MAX_B = 32
+_P = ctypes.c_void_p
+_ARGTYPES = [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int, _P]
 
 
 def panel_qr_body(A: torch.Tensor, b: int, *, lapack_sign: bool = True):
@@ -61,3 +72,38 @@ def panel_qr_body(A: torch.Tensor, b: int, *, lapack_sign: bool = True):
             T[:j, j] = -taus[j] * (T[:j, :j] @ VtV[:j, j])
         T[j, j] = taus[j]
     return V, T, taus, A[:b, :].clone()
+
+
+def _lib():
+    fn = cuda_lib.library("panel").panel_qr_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def panel_qr_cuda(panel: torch.Tensor):
+    """Kernel E: Householder QR (beta = +|x|) of a float32 CUDA panel
+    (m, b), m >= b, b <= 32.  Returns new ``(V, T, taus, R)``, the contract
+    of ``panel_qr_body(panel, b, lapack_sign=False)``."""
+    if not panel.is_cuda:
+        raise ValueError(f"panel_qr_cuda needs a CUDA tensor, got {panel.device}")
+    if panel.dtype != torch.float32:
+        raise ValueError(f"panel_qr_cuda takes float32, got {panel.dtype}")
+    if panel.ndim != 2 or not (1 <= panel.shape[1] <= MAX_B) or panel.shape[0] < panel.shape[1]:
+        raise ValueError(f"expected an (m, b) panel with m >= b and 1 <= b <= {MAX_B}, got {tuple(panel.shape)}")
+    m, b = panel.shape
+    panel = panel.contiguous()
+    kw = dict(dtype=torch.float32, device=panel.device)
+    V = torch.empty((m, b), **kw)
+    T = torch.empty((b, b), **kw)
+    taus = torch.empty((b,), **kw)
+    R = torch.empty((b, b), **kw)
+    fn = _lib()
+    with torch.cuda.device(panel.device):
+        err = fn(
+            panel.data_ptr(), m, b, V.data_ptr(), T.data_ptr(), taus.data_ptr(), R.data_ptr(),
+            limit("PANEL_QR_SMEM"), torch.cuda.current_stream().cuda_stream,
+        )
+    cuda_lib.check(err, "panel_qr")
+    cuda_lib.count("panel_qr", 1)
+    return V, T, taus, R

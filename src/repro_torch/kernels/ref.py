@@ -6,9 +6,24 @@ the card.  Port of the matching ``repro.kernels.ref`` oracles.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-__all__ = ["trailing_update_ref", "fused_panel_update_ref"]
+__all__ = ["syr2k_ref", "trailing_update_ref", "fused_panel_update_ref"]
+
+
+def syr2k_ref(
+    A: torch.Tensor, B: torch.Tensor, C: Optional[torch.Tensor] = None, *, alpha: float = 1.0
+) -> torch.Tensor:
+    """C + alpha (A B^T + B A^T), exactly symmetric: the lower triangle and
+    its mirror, as ``repro.kernels.ops.syr2k`` assembles the lower-tile
+    kernel's output (``tril(low) + tril(low, -1).T``).  ``C`` absent is
+    zeros.  The plain version of kernel D (``csrc/syr2k.cu``)."""
+    S = alpha * (A @ B.T + B @ A.T)
+    if C is not None:
+        S = C + S
+    return torch.tril(S) + torch.tril(S, -1).T
 
 
 def trailing_update_ref(C: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,8 @@ nothing of the JAX package) with the same fields, defaults and validation
 as ``repro.solver.config``, so a config built for one package converts to
 the other field by field (``repro_torch.interop.evd_config``).
 
-The option sets are the JAX package's.  Values this slice does not run
-(``method="direct"|"jacobi"``, ``tridiag="unfused"``, ``chase="sequential"``,
+The option sets are the JAX package's.  Values the port does not run yet
+(``method="direct"|"jacobi"``, ``chase="sequential"``,
 ``backtransform="scan"``) are accepted here and refused with
 ``NotImplementedError`` when a plan is built (``repro_torch.solver.plan``).
 """

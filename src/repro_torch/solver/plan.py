@@ -11,10 +11,11 @@ window) into a frozen :class:`EvdPlan`.  Plans are cached: the same
 so there is no trace to cache and no trace counter.
 
 The device defaults to ``"cuda"``; with no card, planning raises unless the
-caller passes ``device="cpu"``.  This slice runs the paper's path only
-(``two_stage``, ``tridiag="fused"``, ``chase="wavefront"``,
-``backtransform="blocked"``); the other options raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+caller passes ``device="cpu"``.  The port runs ``method="two_stage"`` with
+``chase="wavefront"`` and ``backtransform="blocked"``, in both first-stage
+generations (``tridiag="fused"``, the default, and ``"unfused"``); the
+other options raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 from __future__ import annotations
 
@@ -136,7 +137,6 @@ def _bisect_iters(tol: Optional[float]) -> int:
 def _check_scope(config: EvdConfig) -> None:
     for field, value, ported in (
         ("method", config.method, "two_stage"),
-        ("tridiag", config.tridiag or "fused", "fused"),
         ("chase", config.chase, "wavefront"),
         ("backtransform", config.backtransform, "blocked"),
     ):
@@ -193,6 +193,7 @@ def plan(
         backend=backend,
         device=str(dev),
         bt_group=backtransform_group(n, dec.b, dev.type),
+        tridiag=config.tridiag or "fused",
     )
     _PLAN_CACHE[key] = pl
     return pl
@@ -217,16 +218,17 @@ def _tridiag_pipeline(A, pl: EvdPlan, *, return_reflectors: bool, on_stage=None)
     """Symmetric A -> (d, e) [+ (BandReflectors, ChaseLog)]."""
     mark = on_stage or (lambda name: None)
     if not return_reflectors:
-        B = band_reduce(A, pl.b, pl.nb, backend=pl.backend)
+        B = band_reduce(A, pl.b, pl.nb, mode=pl.tridiag, backend=pl.backend)
         mark("band_reduce")
-        T = band_to_tridiag(B, pl.b, backend=pl.backend)
+        T = band_to_tridiag(B, pl.b, mode=pl.tridiag, backend=pl.backend)
         mark("chase")
         return extract_tridiag(T)
     B, refl1 = band_reduce(
-        A, pl.b, pl.nb, return_reflectors=True, merge_ts=True, backend=pl.backend
+        A, pl.b, pl.nb, return_reflectors=True, merge_ts=True, mode=pl.tridiag,
+        backend=pl.backend,
     )
     mark("band_reduce")
-    T, log2 = band_to_tridiag(B, pl.b, return_log=True, backend=pl.backend)
+    T, log2 = band_to_tridiag(B, pl.b, return_log=True, mode=pl.tridiag, backend=pl.backend)
     mark("chase")
     d, e = extract_tridiag(T)
     return d, e, (refl1, log2)

@@ -125,6 +125,14 @@ def test_q1_from_jax_reflectors_via_interop(transpose):
 
 
 def test_band_reduce_unported_modes_raise():
+    """As in the JAX package: an unknown mode or panel method, and the fused
+    mode beside injected phases, raise ValueError."""
     A = torch.zeros((16, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbr.band_reduce(A, 4, 8, mode="unfused")
+    with pytest.raises(ValueError, match="mode"):
+        tbr.band_reduce(A, 4, 8, mode="bogus")
+    with pytest.raises(ValueError, match="unfused"):
+        tbr.band_reduce(A, 4, 8, mode="fused", panel_method="householder")
+    with pytest.raises(ValueError, match="unfused"):
+        tbr.band_reduce(A, 4, 8, mode="fused", syr2k_update=ref.trailing_update_ref)
+    with pytest.raises(ValueError, match="panel_method"):
+        tbr.band_reduce(A, 4, 8, panel_method="pallas")

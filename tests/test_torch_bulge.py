@@ -108,5 +108,3 @@ def test_unported_chase_options_raise():
     B = torch.zeros((16, 16))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbc.band_to_tridiag(B, 4, method="sequential")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbc.band_to_tridiag(B, 4, mode="unfused")

@@ -18,8 +18,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.backtransform import backtransform_wy_xla, sweep_major_log  # noqa: E402
+from repro_torch.core.band_reduction import band_reduce, build_stage_schedule  # noqa: E402
 from repro_torch.core.bulge_chasing import chase_wavefront_slices  # noqa: E402
 from repro_torch.kernels import cuda_lib, limits, ops, ref  # noqa: E402
+from repro_torch.kernels.panel import panel_qr_body  # noqa: E402
 from repro_torch.solver import EvdConfig, by_count, plan  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -152,10 +154,56 @@ def test_backtransform_wy_matches_plain(cuda_device, monkeypatch, n, m, b, trans
     assert _rel(Yk, Yp) < 1e-5 * max(8.0, n ** 0.5)
 
 
+@pytest.mark.parametrize(
+    "n,k,c_view", [(64, 16, False), (100, 37, True), (8, 248, True), (1, 3, False), (3840, 256, True)]
+)
+def test_syr2k_matches_plain(cuda_device, n, k, c_view):
+    rng = np.random.default_rng(n + k)
+    a = torch.as_tensor(rng.normal(size=(n, k)).astype(np.float32), device=cuda_device)
+    b = torch.as_tensor(rng.normal(size=(n, k)).astype(np.float32), device=cuda_device)
+    c = torch.as_tensor(_sym(n + 2, n), device=cuda_device)
+    C = c[2:, 2:] if c_view else c[:n, :n].contiguous()
+    for got, want in (
+        (ops.trailing_update(C, b, a), ref.syr2k_ref(a, b, C, alpha=-1.0)),
+        (ops.syr2k(a, b, alpha=0.5), ref.syr2k_ref(a, b, alpha=0.5)),
+    ):
+        torch.cuda.synchronize()
+        assert torch.equal(got, got.T)
+        assert float((got - want).abs().max()) <= 2e-5 * max(float(want.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("m,b,smem", [(4088, 8, None), (8192, 8, None), (17, 5, None), (300, 16, 0), (64, 32, None)])
+def test_panel_qr_matches_plain(cuda_device, monkeypatch, m, b, smem):
+    if smem is not None:
+        monkeypatch.setitem(limits.LIMITS, "PANEL_QR_SMEM", smem)
+    P = torch.as_tensor(np.random.default_rng(m).normal(size=(m, b)).astype(np.float32), device=cuda_device)
+    got = ops.panel_qr(P)
+    want = panel_qr_body(P, b, lapack_sign=False)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 5e-5 * max(float(w.abs().max()), 1.0)
+
+
+def test_band_reduce_kernel_panels_on_card(cuda_device):
+    n, b, nb = 512, 8, 64
+    A = torch.as_tensor(_sym(n, 12), device=cuda_device)
+    cuda_lib.reset_launch_counts()
+    B = band_reduce(A, b, nb, panel_method="kernel")
+    counts = cuda_lib.launch_counts()
+    schedule = build_stage_schedule(n, b, nb)
+    assert counts["panel_qr"] == schedule.num_panels
+    assert counts["trailing_update"] == len(schedule.entries)
+    w_ref = torch.linalg.eigvalsh(A.double())
+    err = float((torch.linalg.eigvalsh(B.double()) - w_ref).abs().max())
+    assert err < 3e-4 * float(w_ref.abs().max())
+
+
 def test_kernels_raise_on_cpu_tensors():
     from repro_torch.kernels.backtransform import backtransform_wy_cuda
     from repro_torch.kernels.bulge import bulge_wavefront_cuda
     from repro_torch.kernels.fused_panel import fused_panel_update_cuda
+    from repro_torch.kernels.panel import panel_qr_cuda
+    from repro_torch.kernels.syr2k import syr2k_cuda, trailing_update_cuda
 
     A = torch.zeros((16, 16))
     with pytest.raises(ValueError, match="CUDA"):
@@ -164,16 +212,30 @@ def test_kernels_raise_on_cpu_tensors():
         bulge_wavefront_cuda(A, 4)
     with pytest.raises(ValueError, match="CUDA"):
         backtransform_wy_cuda(A, torch.zeros((14, 4, 4)), torch.zeros((14, 4)), b=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        syr2k_cuda(A[:, :4], A[:, :4])
+    with pytest.raises(ValueError, match="CUDA"):
+        trailing_update_cuda(A, A[:, :4], A[:, :4])
+    with pytest.raises(ValueError, match="CUDA"):
+        panel_qr_cuda(A[:, :4])
 
 
-@pytest.mark.parametrize("cfg", [EvdConfig(), EvdConfig(spectrum=by_count(8))])
-def test_plan_on_card_uses_every_kernel(cuda_device, cfg):
+@pytest.mark.parametrize(
+    "cfg,ops_run",
+    [
+        (EvdConfig(), ("fused_panel_update", "bulge_wavefront", "backtransform_wy")),
+        (EvdConfig(spectrum=by_count(8)), ("fused_panel_update", "bulge_wavefront", "backtransform_wy")),
+        # unfused: the chase with a log is plain tensor code (chase_wavefront)
+        (EvdConfig(tridiag="unfused"), ("trailing_update", "backtransform_wy")),
+    ],
+)
+def test_plan_on_card_uses_every_kernel(cuda_device, cfg, ops_run):
     n = 512
     A = torch.as_tensor(_sym(n, 11), device=cuda_device)
     cuda_lib.reset_launch_counts()
     w, V = plan(n, torch.float32, cfg)(A)
     counts = cuda_lib.launch_counts()
-    assert all(c > 0 for c in counts.values()), counts
+    assert {op for op, c in counts.items() if c > 0} == set(ops_run), counts
     w_ref = torch.linalg.eigvalsh(A.double())
     start, count = cfg.spectrum.index_range(n)
     scale = float(w_ref.abs().max())

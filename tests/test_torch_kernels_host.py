@@ -1,6 +1,6 @@
 """The CUDA kernels' arithmetic and indexing, run on the CPU by emulation.
 
-Each ``src/repro_torch/csrc/*.cu`` is compiled with g++ against
+Each ``src/repro_torch/csrc/*.cu`` (kernels A to E) is compiled with g++ against
 ``tests/cuda_host/cuda_runtime.h``, which runs a launch's blocks one after
 another with one host thread per CUDA thread.  The exported launchers are
 called through ctypes with CPU tensors and held against the plain PyTorch
@@ -27,7 +27,9 @@ from repro_torch.core.bulge_chasing import (  # noqa: E402
 from repro_torch.kernels import backtransform as kc  # noqa: E402
 from repro_torch.kernels import bulge as kb  # noqa: E402
 from repro_torch.kernels import fused_panel as ka  # noqa: E402
+from repro_torch.kernels import panel as ke  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import syr2k as kd  # noqa: E402
 from repro_torch.kernels.cuda_lib import CSRC  # noqa: E402
 from repro_torch.kernels.limits import limit  # noqa: E402
 
@@ -42,7 +44,7 @@ def host(tmp_path_factory):
         pytest.skip("needs g++ to compile the kernels for host emulation")
     out = tmp_path_factory.mktemp("cuda_host")
     procs = {}
-    for name in ("fused_panel", "bulge", "backtransform"):
+    for name in ("fused_panel", "bulge", "backtransform", "syr2k", "panel"):
         so = out / f"{name}.so"
         cmd = [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
                f"-I{SHIM}", "-x", "c++", str(CSRC / f"{name}.cu"), "-o", str(so)]
@@ -55,10 +57,12 @@ def host(tmp_path_factory):
     fa = libs["fused_panel"].fused_panel_update_launch
     fb = libs["bulge"].bulge_wavefront_launch
     fc = libs["backtransform"].backtransform_wy_launch
-    for fn, mod in ((fa, ka), (fb, kb), (fc, kc)):
+    fd = libs["syr2k"].syr2k_launch
+    fe = libs["panel"].panel_qr_launch
+    for fn, mod in ((fa, ka), (fb, kb), (fc, kc), (fd, kd), (fe, ke)):
         fn.argtypes = mod._ARGTYPES
         fn.restype = ctypes.c_int
-    return fa, fb, fc
+    return fa, fb, fc, fd, fe
 
 
 def _sym(n, seed):
@@ -144,3 +148,35 @@ def test_backtransform_host(host, m, transpose, in_smem):
     assert host[2](Y.data_ptr(), n, m, vs.data_ptr(), taus.data_ptr(), S, K, b,
                    int(transpose), cw, int(in_smem), None) == 0
     assert _rel(Y, backtransform_wy_xla(X, vs, taus, b=b, transpose=transpose)) < 1e-5 * 8
+
+
+@pytest.mark.parametrize(
+    "n,k,alpha,c_view",
+    [(70, 37, -1.0, True), (64, 16, 1.0, None), (5, 3, 0.5, False), (129, 20, -1.0, True), (17, 0, 1.0, False)],
+)
+def test_syr2k_host(host, n, k, alpha, c_view):
+    """Odd n, k off the 16-wide strip, C absent (None) or a strided view."""
+    rng = np.random.default_rng(n + k)
+    A = torch.tensor(rng.normal(size=(n, k)).astype(np.float32))
+    B = torch.tensor(rng.normal(size=(n, k)).astype(np.float32))
+    C = None if c_view is None else _sym(n + 3, n)[3:, 3:] if c_view else _sym(n, n)
+    out = torch.full((n, n), float("nan"))
+    assert host[3](A.data_ptr(), B.data_ptr(), k, n, k, alpha,
+                   None if C is None else C.data_ptr(), 0 if C is None else C.stride(0),
+                   out.data_ptr(), None) == 0
+    want = ref.syr2k_ref(A, B, C, alpha=alpha)
+    assert torch.equal(out, out.T)
+    assert float((out - want).abs().max()) <= 2e-5 * max(float(want.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("m,b,smem", [(33, 8, SMEM), (17, 5, SMEM), (40, 8, 1024), (64, 16, SMEM), (8, 8, 0)])
+def test_panel_qr_host(host, m, b, smem):
+    """Kernel E against panel_qr_body(lapack_sign=False); a budget below
+    m * b * 4 bytes puts the panel in global memory."""
+    P = torch.tensor(np.random.default_rng(m * b).normal(size=(m, b)).astype(np.float32))
+    P[6:, 2] = 0.0  # a degenerate column: sigma == 0 -> tau == 0
+    V, T, taus, R = torch.empty(m, b), torch.empty(b, b), torch.empty(b), torch.empty(b, b)
+    assert host[4](P.data_ptr(), m, b, V.data_ptr(), T.data_ptr(), taus.data_ptr(),
+                   R.data_ptr(), smem, None) == 0
+    for got, want in zip((V, T, taus, R), ke.panel_qr_body(P, b, lapack_sign=False)):
+        assert float((got - want).abs().max()) <= 5e-5 * max(float(want.abs().max()), 1.0)

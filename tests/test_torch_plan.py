@@ -118,12 +118,18 @@ def test_registry_ops():
     )
     from repro_torch.kernels import ref
     from repro_torch.kernels.bulge import bulge_wavefront_cuda
+    from repro_torch.kernels.panel import panel_qr_cuda
+    from repro_torch.kernels.syr2k import syr2k_cuda, trailing_update_cuda
 
+    for op in registry.OPS:
+        for backend in registry.BACKENDS:
+            assert callable(registry.resolve(op, backend)), (op, backend)
     assert registry.resolve("fused_panel_update", "torch") is ref.fused_panel_update_ref
+    assert registry.resolve("syr2k", "torch") is ref.syr2k_ref
     assert registry.resolve("bulge_wavefront", "cuda") is bulge_wavefront_cuda
-    for op in ("syr2k", "trailing_update", "panel_qr", "bulge_chase"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            registry.resolve(op, "torch")
+    assert registry.resolve("syr2k", "cuda") is syr2k_cuda
+    assert registry.resolve("trailing_update", "cuda") is trailing_update_cuda
+    assert registry.resolve("panel_qr", "cuda") is panel_qr_cuda
     with pytest.raises(ValueError):
         registry.resolve("backtransform_wy", "pallas")
 
@@ -133,7 +139,6 @@ def test_registry_ops():
     [
         dict(method="direct"),
         dict(method="jacobi"),
-        dict(tridiag="unfused"),
         dict(chase="sequential"),
         dict(backtransform="scan"),
     ],
