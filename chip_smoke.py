@@ -12,14 +12,19 @@ Phases, each printing its own lines:
    the n = 4096 paths give it: max abs / rel error and the tolerance,
    the kernel's time (CUDA events, warm), the plain version's time, a
    library yardstick where one exists, and the least time the card could
-   take for the same work (``bound_ms``, from bytes and fp32 operations).
-   Kernels A-C (fused path), D (``syr2k`` / ``trailing_update``) and E
-   (the standalone ``panel_qr``).
+   take for the same work (``bound_ms``, from bytes and operations at the
+   peak rate of their type)
+   with the share of it the kernel reaches.  Kernels A-C (fused path; A
+   and C also split by CUDA kernel with ``torch.profiler``), D
+   (``syr2k`` / ``trailing_update``, in float32 and bf16) and E (the
+   standalone ``panel_qr``).
 3. The main path, ``plan(4096, float32, EvdConfig())(A)`` and ``.eigvals(A)``
    on a seeded random symmetric A: launch counters reset just before and
-   read just after (each kernel must have run), eigenvalues against
+   read just after (each kernel must have run, its CUDA launches exactly
+   as many as its calls make), eigenvalues against
    ``torch.linalg.eigvalsh``, residual and orthogonality, per-stage times
-   (each stage closed by a synchronize), end-to-end time beside
+   (each stage closed by a synchronize; the Q2 back-transform split into
+   the ``sweep_major_log`` regroup and kernel C), end-to-end time beside
    ``torch.linalg.eigh`` / ``eigvalsh`` (cuSOLVER) and the peak memory.
 4. ``inverse_pth_root`` at n = 1024, p = 4 on a seeded PSD matrix, against
    V diag(w^-1/4) V^T from ``torch.linalg.eigh`` in float64.
@@ -52,10 +57,12 @@ N_MAIN = 4096
 N_ROOT = 1024
 SEED = 0
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate and the float32
-# rate outside the tensor cores (the kernels use no tensor cores).
+# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, the
+# float32 rate outside the tensor cores, and the bf16 tensor-core rate (the
+# peak for bf16 operands, though kernel D sums them on the float32 units).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 
 # Tolerances of the kernel-vs-plain comparisons, relative to the largest
 # entry of the plain result: fp32 sums in other orders, grown by the
@@ -68,6 +75,9 @@ TOL_C = 1e-5 * max(8.0, N_MAIN ** 0.5)
 # for each of the panel QR's V, T, taus and R.
 TOL_D = 2e-5
 TOL_E = 5e-5
+# Kernel D in bf16: tests/test_kernels.py's bf16 tolerance, 5e-2 max|ref|,
+# against the float32 plain version of the same bf16-valued inputs.
+TOL_D_BF16 = 5e-2
 # Main-path checks: eigenvalues as tests/test_core_eigh.py (3e-4 max|w|);
 # ||A V - V diag(w)||_F / ||A||_F and max |V^T V - I|.
 TOL_EIG = 3e-4
@@ -116,9 +126,9 @@ def wall_ms(torch, fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak_flop_per_s: float = PEAK_FP32_FLOP_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    t_ops = flops / peak_flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -137,6 +147,16 @@ def device_split(torch, fn):
             name = re.sub(r"^void |\(anonymous namespace\)::", "", ev.key).split("(")[0]
             rows.append((name[:48], us / 1e3, ev.count))
     return sorted(rows, key=lambda r: -r[1])
+
+
+def print_split(label: str, split, ms: float) -> None:
+    print(f"{label} device time by CUDA kernel (torch.profiler): " + (
+        "; ".join(f"{k} {t:.3f} ms x{c}" for k, t, c in split[:8]) or "not measured")
+        + (f"; sum {sum(t for _, t, _ in split):.3f} ms of {ms:.3f} ms timed" if split else ""))
+
+
+def share(bound_ms: float, ms: float) -> str:
+    return f"share of bound {bound_ms / ms:.2%}"
 
 
 def rel_err(x, y) -> float:
@@ -187,15 +207,30 @@ def phase_kernels(torch, gen):
     bms, by = bound((2.0 * m * m + m * w + q * b * b) * 4, flops)
     print(f"phase 2 kernel A fused_panel_update m={m} w={w} b={b}: rel err B/V/T "
           f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol {TOL_A:.1e}) max_abs_err={max_abs:.3e}")
-    print(f"phase 2 kernel A ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}) "
-          f"trailing-phase yardstick C - Z V^T - V Z^T (2 torch.matmul) ms={lib_ms:.4f}")
-    split = device_split(torch, lambda: fused_panel_update_cuda(A.clone(), b, w))
-    print("phase 2 kernel A device time by CUDA kernel (torch.profiler): " + (
-        "; ".join(f"{k} {t:.3f} ms x{c}" for k, t, c in split[:8]) or "not measured"))
+    print(f"phase 2 kernel A ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}), "
+          f"{share(bms, ms)}; not the same function, its trailing phase only: "
+          f"C - Z V^T - V Z^T (2 torch.matmul) ms={lib_ms:.4f}")
+    # A yardstick for the panel GEMV, which reads an (m, m - r0) view of Bv
+    # once per panel (the view is larger than L2): PyTorch's row sums of
+    # the first panel's view, one strided read of it.
+    view = A[:, b:]
+    read_ms = cuda_ms(torch, lambda: view.sum(dim=1), 10)
+    print(f"phase 2 kernel A GEMV yardstick: view ({m}, {m - b}).sum(dim=1) ms={read_ms:.4f} "
+          f"({m * (m - b) * 4 / read_ms / 1e9:.3f} TB/s)")
+    # Kernel A over one solve: the calls band_reduce makes, each on the
+    # trailing view the previous one left.
+    entries = build_stage_schedule(n, b, dec.nb).entries
+    solve_ms = cuda_ms(torch, lambda B: [fused_panel_update_cuda(B[e.ci:, e.ci:], b, e.w)
+                                         for e in entries], 3, lambda: (A.clone(),))
+    print(f"phase 2 kernel A over one solve's {len(entries)} calls (m = {entries[0].m} .. "
+          f"{entries[-1].m}) ms={solve_ms:.4f}")
+    gemv_bytes = sum(m * (m - (j + 1) * b) * 4.0 for j in range(q))
+    ms_a, A_prof = ms, A.clone()
     rows["fused_panel_update"] = dict(max_abs_err=max_abs, compared="B, V and Ts entrywise",
                                       ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                       bound_by=by, library_ms=lib_ms,
-                                      library="C - Z @ V.T - V @ Z.T, the trailing phase only")
+                                      library="not the same function: C - Z @ V.T - V @ Z.T, "
+                                              "the trailing phase only")
 
     # --- kernel B: the chase of the main path's band matrix, with the log -
     Bband = band_reduce(A, b, dec.nb)
@@ -240,8 +275,8 @@ def phase_kernels(torch, gen):
           f"eig(T) vs plain {eL:.3e} (max_abs_err={max_abs:.3e}), Q2 T Q2^T vs B {eR:.3e} "
           f"(tol {TOL_B:.1e}); T exactly tridiagonal; row0 exact; entrywise vs plain, "
           f"reported only: T {eT:.3e}, tau v v^T {eH:.3e}")
-    print(f"phase 2 kernel B ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}) "
-          f"library: none")
+    print(f"phase 2 kernel B ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}), "
+          f"{share(bms, ms)}; library: none")
     rows["bulge_wavefront"] = dict(max_abs_err=max_abs, compared="eigenvalues of T",
                                    ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                    bound_by=by, library_ms=None)
@@ -264,7 +299,20 @@ def phase_kernels(torch, gen):
     bms, by = bound((2.0 * n * n + S * K * (b + 1)) * 4, 4.0 * b * n_refl * n)
     print(f"phase 2 kernel C backtransform_wy (n, m)=({n}, {n}) S={S} K={K}: rel err Q2/Q2^T "
           f"{errs[0]:.3e}/{errs[1]:.3e} (tol {TOL_C:.1e}) max_abs_err={max_abs:.3e}")
-    print(f"phase 2 kernel C ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}) library: none")
+    print(f"phase 2 kernel C ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}), "
+          f"{share(bms, ms)}; library: none")
+    # One profiler session for A and C (a second session in one process
+    # recorded no device time on the card).
+    split = device_split(torch, lambda: (fused_panel_update_cuda(A_prof, b, w),
+                                         backtransform_wy_cuda(X, vs, taus, b=b)))
+    split_a = [r for r in split if r[0].startswith(("panel_", "trailing_lower", "write_f"))]
+    print_split("phase 2 kernel A", split_a, ms_a)
+    for name, t, cnt in split_a:
+        if name.startswith("panel_gemv"):
+            print(f"phase 2 kernel A panel_gemv {t / cnt * 1e3:.1f} us a panel, reads its views at "
+                  f"{gemv_bytes / t / 1e9:.3f} TB/s ({gemv_bytes / t / 1e9 / (PEAK_BYTES_PER_S / 1e12):.1%} "
+                  f"of {PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
+    print_split("phase 2 kernel C", [r for r in split if r[0].startswith(("regroup_log", "backtransform"))], ms)
     rows["backtransform_wy"] = dict(max_abs_err=max_abs, compared="Q2 X and Q2^T X entrywise",
                                     ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                     bound_by=by, library_ms=None)
@@ -292,12 +340,35 @@ def phase_kernels(torch, gen):
     print(f"phase 2 kernel D trailing_update (n, k)=({mt}, {w}): rel err with C / C absent "
           f"{errs[0]:.3e}/{errs[1]:.3e} (tol {TOL_D:.0e}) max_abs_err={max_abs:.3e}; "
           f"exactly symmetric")
-    print(f"phase 2 kernel D ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}) "
-          f"library C - Z Y^T - Y Z^T (2 torch.matmul) ms={lib_ms:.4f}")
+    print(f"phase 2 kernel D ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}), "
+          f"{share(bms, ms)}; library C - Z Y^T - Y Z^T (2 torch.matmul) ms={lib_ms:.4f}")
+    # bf16 operands: summed in float32, rounded once (the JAX kernel's
+    # contract); held against the float32 plain version of the same values.
+    Cb, Yb, Zb = (t.to(torch.bfloat16) for t in (C, Y, Z))
+    Dk = trailing_update_cuda(Cb, Yb, Zb)
+    Dp = ref.syr2k_ref(Zb.float(), Yb.float(), Cb.float(), alpha=-1.0)
+    torch.cuda.synchronize()
+    require(Dk.dtype == torch.bfloat16 and torch.equal(Dk, Dk.T), "kernel D bf16 output dtype / symmetry")
+    bf_max_abs = float((Dk.float() - Dp).abs().max())
+    bf_err = bf_max_abs / float(Dp.abs().max())
+    require(bf_err < TOL_D_BF16, f"kernel D bf16 vs plain rel err {bf_err} >= {TOL_D_BF16}")
+    bf_ms = cuda_ms(torch, lambda: trailing_update_cuda(Cb, Yb, Zb), 10)
+    bf_plain_ms = cuda_ms(torch, lambda: ref.syr2k_ref(Zb, Yb, Cb, alpha=-1.0), 5)
+    bf_lib_ms = cuda_ms(torch, lambda: Cb - Zb @ Yb.T - Yb @ Zb.T, 10)
+    bf_bms, bf_by = bound((2.0 * mt * w + lower + mt * mt) * 2, 4.0 * w * lower,
+                          PEAK_BF16_FLOP_PER_S)
+    print(f"phase 2 kernel D bf16 trailing_update (n, k)=({mt}, {w}): rel err {bf_err:.3e} "
+          f"(tol {TOL_D_BF16:.0e}) max_abs_err={bf_max_abs:.3e}; exactly symmetric")
+    print(f"phase 2 kernel D bf16 ms={bf_ms:.4f} plain_ms={bf_plain_ms:.4f} (bf16 torch ops) "
+          f"bound_ms={bf_bms:.4f} ({bf_by}, bf16 tensor-core rate {PEAK_BF16_FLOP_PER_S / 1e12:.0f} "
+          f"TFLOP/s), {share(bf_bms, bf_ms)}; "
+          f"library C - Z Y^T - Y Z^T in bf16 (2 torch.matmul) ms={bf_lib_ms:.4f}")
     rows["syr2k"] = dict(max_abs_err=max_abs, compared="C + alpha (A B^T + B A^T) entrywise, with "
                          "and without C; exact symmetry", ms=ms, plain_ms=plain_ms, bound_ms=bms,
                          bound_by=by, library_ms=lib_ms,
-                         library="C - Z @ Y.T - Y @ Z.T (2 torch.matmul)")
+                         library="C - Z @ Y.T - Y @ Z.T (2 torch.matmul)",
+                         bf16=dict(max_abs_err=bf_max_abs, ms=bf_ms, plain_ms=bf_plain_ms,
+                                   bound_ms=bf_bms, bound_by=bf_by, library_ms=bf_lib_ms))
 
     # --- kernel E: the path's largest panel, and one above the smem budget -
     for m_e in (n - b, 2 * n):
@@ -318,13 +389,15 @@ def phase_kernels(torch, gen):
         print(f"phase 2 kernel E panel_qr (m, b)=({m_e}, {b}) panel in "
               f"{'shared' if in_smem else 'global'} memory: rel err V/T/taus/R "
               + "/".join(f"{e:.3e}" for e in errs) + f" (tol {TOL_E:.0e}) max_abs_err={max_abs:.3e}")
-        print(f"phase 2 kernel E ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.6f} ({by}) "
-              f"nearest call torch.geqrf (LAPACK signs, no T) ms={geqrf_ms:.4f}")
+        print(f"phase 2 kernel E ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.6f} ({by}), "
+              f"{share(bms, ms)}; not the same function, the nearest call torch.geqrf "
+              f"(LAPACK signs, no T) ms={geqrf_ms:.4f}")
         if m_e == n - b:
             rows["panel_qr"] = dict(max_abs_err=max_abs, compared="V, T, taus and R entrywise",
                                     ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                                     library_ms=geqrf_ms,
-                                    library="torch.geqrf, the nearest call: LAPACK signs, no T")
+                                    library="not the same function: torch.geqrf, the nearest "
+                                            "call (LAPACK signs, no T)")
     return rows
 
 
@@ -374,6 +447,8 @@ def stage_times(torch, phase: str, A, pl) -> None:
 
 def phase_main_path(torch, gen):
     """Phase 3: the main path at n = 4096 through the plan API."""
+    from repro_torch.core.band_reduction import build_stage_schedule
+    from repro_torch.core.bulge_chasing import num_wavefronts
     from repro_torch.kernels import cuda_lib
     from repro_torch.solver import EvdConfig, plan
 
@@ -393,8 +468,17 @@ def phase_main_path(torch, gen):
     device_launches = cuda_lib.device_launch_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"phase 3 launches on the main path: {launches}; CUDA launches {device_launches}")
-    require(all(launches[op] > 0 for op in ("fused_panel_update", "bulge_wavefront", "backtransform_wy")),
-            f"a kernel did not run on the main path: {launches}")
+    # One kernel-A call per DBR block (4 CUDA launches per panel, 3 for the
+    # first, + 2), one kernel-B call (one launch per wavefront), one kernel-C
+    # call (the log's regroup, then the apply).
+    entries = build_stage_schedule(n, pl.b, pl.nb).entries
+    want = {"fused_panel_update": len(entries), "bulge_wavefront": 1, "backtransform_wy": 1}
+    want_device = {"fused_panel_update": sum(4 * (e.w // pl.b) + 1 for e in entries),
+                   "bulge_wavefront": num_wavefronts(n, pl.b), "backtransform_wy": 2}
+    got = {op: launches[op] for op in launches if launches[op] or op in want}
+    got_device = {op: device_launches[op] for op in want}
+    require(got == want, f"main-path launches {got}, expected {want}")
+    require(got_device == want_device, f"main-path CUDA launches {got_device}, expected {want_device}")
 
     w_ref = check_evd(torch, "phase 3", A, w, V)
     stage_times(torch, "phase 3", A, pl)
@@ -458,6 +542,8 @@ def phase_unfused(torch, gen):
     device_launches = cuda_lib.device_launch_counts()
     # The chase with a log is plain tensor code on the card (chase_wavefront).
     expect("plan(A)", launches, {"trailing_update": blocks, "backtransform_wy": 1})
+    require(device_launches["trailing_update"] == blocks and device_launches["backtransform_wy"] == 2,
+            f"phase 5 plan(A) CUDA launches {device_launches}")
     w_ref = check_evd(torch, "phase 5", A, w, V)
     stage_times(torch, "phase 5", A, pl)
 

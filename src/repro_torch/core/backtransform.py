@@ -13,7 +13,7 @@ Port of ``repro.core.backtransform``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -155,12 +155,17 @@ def apply_q2_blocked(
     *,
     group: Optional[int] = None,
     backend: Optional[str] = None,
+    on_stage: Optional[Callable[[str], None]] = None,
 ) -> torch.Tensor:
-    """Q2 @ X (or Q2^T @ X) through the ``backtransform_wy`` registry op."""
+    """Q2 @ X (or Q2^T @ X) through the ``backtransform_wy`` registry op.
+    ``on_stage("q2_regroup")``, when given, is called once the log is
+    regrouped sweep-major, before the op runs."""
     n, b = log.n, log.b
     S, K = _sweep_shape(n, b)
     if S == 0 or K == 0:
         return X.clone()  # n < 3: the chase made no reflectors, Q2 == I
     vs, taus = sweep_major_log(log)
+    if on_stage is not None:
+        on_stage("q2_regroup")
     fn = registry.resolve("backtransform_wy", backend or registry.default_backend(X.device))
     return fn(X, vs, taus, b=b, group=group, transpose=transpose)

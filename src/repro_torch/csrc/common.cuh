@@ -18,6 +18,93 @@
 #define REPRO_DYNAMIC_SMEM(name) extern __shared__ float name[]
 #endif
 
+// Thread-block clusters (kernel A's panel QR).  The three helpers below --
+// this CTA's rank, the cluster barrier and a peer's copy of a shared-memory
+// address -- and REPRO_LAUNCH_CLUSTER are all a cluster kernel may use, so
+// that the host emulation can run a cluster's CTAs together, each with its
+// own dynamic shared memory (a cluster kernel keeps its shared state there).
+#ifndef REPRO_HOST_EMULATION
+#include <cooperative_groups.h>
+namespace repro {
+__device__ __forceinline__ unsigned cluster_rank() {
+  return cooperative_groups::this_cluster().block_rank();
+}
+// Barrier over every thread of the cluster, with release / acquire order of
+// shared (and distributed shared) memory.
+__device__ __forceinline__ void cluster_sync() { cooperative_groups::this_cluster().sync(); }
+// `p` (this CTA's dynamic shared memory) as seen in the CTA of rank `rank`.
+template <class T>
+__device__ __forceinline__ T* cluster_peer(T* p, unsigned rank) {
+  return cooperative_groups::this_cluster().map_shared_rank(p, rank);
+}
+
+// Launch `kern` with clusters of `cluster` CTAs along x.
+template <class... Exp, class... Act>
+inline cudaError_t launch_cluster(void (*kern)(Exp...), dim3 grid, dim3 block, size_t smem,
+                                  cudaStream_t st, unsigned cluster, Act&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, static_cast<Act&&>(args)...);
+}
+
+// `want` if the card can co-schedule a cluster of that many CTAs of `kern`
+// (above 8 a cluster size is non-portable: H100 allows 16), else 8.
+template <class K>
+inline int fit_cluster(K kern, int threads, size_t smem, int want) {
+  if (want <= 8) return want;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) != cudaSuccess)
+    return 8;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(want);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = want;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg) != cudaSuccess || clusters < 1) {
+    cudaGetLastError();  // clear the query's error
+    return 8;
+  }
+  return want;
+}
+}  // namespace repro
+#define REPRO_LAUNCH_CLUSTER repro::launch_cluster
+#endif
+
+// Asynchronous 16-byte copies from global to shared memory (cp.async,
+// sm_80+; dst and src 16-byte aligned).
+// A thread's copies land after cp_async_wait<N>() (all but its N most
+// recent committed groups), visible to the CTA after the next
+// __syncthreads().  The host emulation copies at once.
+#ifndef REPRO_HOST_EMULATION
+namespace repro {
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+}  // namespace repro
+#endif
+
 #define REPRO_CHECK_LAUNCH()                \
   do {                                      \
     cudaError_t err_ = cudaGetLastError();  \

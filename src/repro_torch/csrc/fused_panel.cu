@@ -12,123 +12,174 @@
 // times at 2b flops per 4-byte element (bytes-bound, as LAPACK's latrd
 // is; the view stays in the 50 MB L2 below m ~ 3600); the trailing update
 // is a rank-2w SYR2K over the lower tiles (2*(m-w)^2*w flops:
-// operations-bound, on the fp32 SIMT units here).
+// operations-bound, on the fp32 SIMT units here).  Between them sits the
+// chain of q panel QRs, each b dependent reductions over the panel's rows.
 //
 // Design.  The TPU kernel runs the whole block as one sequential grid over a
-// VMEM-resident view.  Here the sequential part is kept to one small CTA per
-// panel and the rest spreads over the SMs, with the factors passed through
-// L2 between launches.  Per panel j (c0 = j*b, r0 = c0 + b):
-//   K1 panel_prep    many CTAs  P = Bv[:, c0:c0+b] - Z V[c0:c0+b]^T - V Z[c0:c0+b]^T
-//   K2 panel_qr      one CTA    b-step LAPACK-sign Householder QR of P[r0:m],
-//                               larft, writes V, Vh, F columns and T_j.  The
-//                               (m-r0, b) panel lives in shared memory up to
-//                               qr_smem_max bytes and in global memory above.
-//   K3 panel_xred    many CTAs  X1 = V[:, :c0]^T Vhat, X2 = Z[:, :c0]^T Vhat
-//                               (reduction over m by atomics)
-//   K4 panel_gemv    warp/row   M = Bv Vhat - Z X1 - V X2, MT = M T_j and
-//                               Y = Vhat^T MT (atomics)
-//   K5 panel_zfinal  many CTAs  Z_j = MT - 1/2 Vhat (T_j^T Y)
+// VMEM-resident view.  Here the sequential part is one thread-block cluster
+// per panel and the rest spreads over the SMs, with the factors passed
+// through L2 between launches.  The compensated panels
+// P_j = Bv[:, c0:c0+b] - Z V[c0:c0+b]^T - V Z[c0:c0+b]^T are kept in F
+// (m, w): after panel j, panel_zfinal subtracts its rank-2b term from every
+// later column of the block (right-looking, spread over all SMs), so the
+// next panel's QR starts from a plain load.  Per panel j (c0 = j*b,
+// r0 = c0 + b):
+//   K1 panel_qr_cluster  one cluster of up to 16 CTAs (csrc/panel_qr_cluster.cuh):
+//                        each CTA loads a slice of the rows of P_j, the b
+//                        LAPACK-sign Householder steps exchange their sums
+//                        through distributed shared memory, rank 0 builds
+//                        T_j, and each CTA writes its rows of V, Vh and F.
+//                        A slice lives in shared memory up to qr_smem_max
+//                        bytes and in global memory above.
+//   K2 panel_xred        many CTAs  X1 = V[:, :c0]^T Vhat, X2 = Z[:, :c0]^T Vhat
+//                        (32 rows per CTA in row groups, Vhat staged in
+//                        shared memory, one atomic per entry per CTA)
+//   K3 panel_gemv        a tall-skinny product: a warp owns 16 / b rows
+//                        (one CTA of 16 warps per SM at m = 4096), stages
+//                        Vhat (transposed) in shared memory in chunks of up
+//                        to 4096 rows, reads Bv coalesced along its rows
+//                        with 16 loads per row and lane in flight, the next
+//                        16 issued before the current ones are summed, and
+//                        computes M = Bv Vhat - Z X1 - V X2, MT = M T_j and
+//                        its share of Y = Vhat^T MT on chip (one atomic per
+//                        entry per CTA)
+//   K4 panel_zfinal      many CTAs  Z_j = MT - 1/2 Vhat (T_j^T Y), then
+//                        F[:, c] -= Z_j V[c, c0:c0+b]^T + V[:, c0:c0+b] Z_j[c]^T
+//                        for the block's later columns c in [r0, w)
 // then, once per block:
-//   K6 trailing_lower  one CTA per lower 64x64 tile of the trailing block,
+//   K5 trailing_lower  one CTA per lower 64x64 tile of the trailing block,
 //                      k = w in 16-wide shared-memory strips (the tile walk
 //                      of csrc/syr2k_tile.cuh); writes the tile and its mirror
-//   K7 write_f         the exact banded values F into Bv[:, :w] and F^T into
+//   K6 write_f         the exact banded values F into Bv[:, :w] and F^T into
 //                      Bv[:w, w:]
 // Every product of the TPU kernel's body stays inside these kernels (no
 // cuBLAS).  Tensor cores, TMA and wgmma are later work.
-#include "panel_qr.cuh"
+#include "panel_qr_cluster.cuh"
 #include "syr2k_tile.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTile = repro::kSyr2kTile;
-constexpr int kGemvSmemMax = 96 * 1024;
+constexpr int kGemvSmemMax = 96 * 1024;  // X1, X2 in shared memory up to this
+constexpr int kSmemPerBlockMax = 232448;  // the H100's 227 KB per block
+constexpr int kZRows = 32;        // rows per CTA of panel_zfinal
+constexpr int kZCols = 256;       // later columns per chunk of panel_zfinal's update
+constexpr int kXredRows = 32;     // rows of the X reduction per CTA
+constexpr int kXredSmem = 48 * 1024;
+constexpr int kGemvVh = 32768;    // floats of Vhat staged per chunk of the GEMV
+constexpr int kGemvUnroll = 16;   // loads of Bv in flight per row and lane
+constexpr int kGemvThreads = 512;
 
-__global__ void panel_prep(const float* __restrict__ Bv, long long ldb, int m, int w,
-                           int b, int c0, const float* __restrict__ V,
-                           const float* __restrict__ Z, float* __restrict__ P,
-                           float* __restrict__ X, int nx, float* __restrict__ Y, int ny) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < nx) X[idx] = 0.f;
-  if (idx < ny) Y[idx] = 0.f;
-  if (idx >= (long long)m * b) return;
-  const int i = (int)(idx / b);
-  const int cc = (int)(idx % b);
-  const int r = c0 + cc;
-  const float* zi = Z + (long long)i * w;
-  const float* vi = V + (long long)i * w;
-  const float* vr = V + (long long)r * w;
-  const float* zr = Z + (long long)r * w;
-  float s1 = 0.f, s2 = 0.f;
-  for (int c = 0; c < c0; ++c) {
-    s1 += zi[c] * vr[c];
-    s2 += vi[c] * zr[c];
-  }
-  P[idx] = Bv[(long long)i * ldb + r] - s1 - s2;
-}
-
-// Householder QR of the (rows, b) panel P[r0:m] with LAPACK signs (port of
-// panel_qr_body(lapack_sign=True), csrc/panel_qr.cuh), then larft.  One CTA.
-template <int BM>
-__global__ void panel_qr(float* __restrict__ P, int m, int w, int b, int c0, int jpanel,
-                         int use_smem, float* __restrict__ V, float* __restrict__ Vh,
-                         float* __restrict__ F, float* __restrict__ Ts) {
-  REPRO_DYNAMIC_SMEM(smem);
-  __shared__ float red[32 * BM];
-  __shared__ float s_tau[BM];
-  __shared__ float s_scal[2];
-  __shared__ float s_T[BM * BM];
-  __shared__ float s_VtV[BM * BM];
-  const int r0 = c0 + b;
-  const int rows = m - r0;
+// Panel j as one cluster: the compensated panel's QR, T_j and the
+// write-out of V, Vh and F (see above).  gridDim.x is the cluster size;
+// kSmem: the slices are in shared memory.
+template <int BM, bool kSmem>
+__global__ void panel_qr_cluster(const float* __restrict__ Bv, long long ldb, int m, int w,
+                                 int b, int c0, int jpanel,
+                                 float* __restrict__ V, float* __restrict__ Vh, float* __restrict__ F,
+                                 float* __restrict__ Ts, float* __restrict__ P,
+                                 float* __restrict__ X, float* __restrict__ Y) {
+  REPRO_DYNAMIC_SMEM(sm);
+  using L = repro::ClusterQrSmem<BM>;
+  const int cs = gridDim.x;
+  const int rank = (int)repro::cluster_rank();
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  float* Wk = use_smem ? smem : P + (long long)r0 * b;
-  if (use_smem)
-    for (int e = tid; e < rows * b; e += nt) Wk[e] = P[(long long)r0 * b + e];
-  __syncthreads();
-  repro::householder_panel<BM, true>(Wk, rows, b, red, s_tau, s_scal);
-  repro::larft_panel<BM>(Wk, rows, b, red, s_tau, s_VtV, s_T);
-  for (int e = tid; e < b * b; e += nt)
-    Ts[(long long)jpanel * b * b + e] = s_T[(e / b) * BM + (e % b)];
+  const int r0 = c0 + b;
+  const int rows = m - r0;
+  const int len = (rows + cs - 1) / cs;
+  const int base = rank * len;
+  const int nrows = max(0, min(len, rows - base));
+  const int ldw = kSmem ? (len | 1) : len;
+  float* W = kSmem ? sm + L::total : P + (long long)rank * len * b;
+  // This CTA's rows above the elimination point, [ub, ub + nup): F only.
+  const int up = (r0 + cs - 1) / cs;
+  const int ub = rank * up;
+  const int nup = max(0, min(up, r0 - ub));
 
-  // V and Vh columns, and the exact final (banded) values F of the panel.
-  for (int e = tid; e < m * b; e += nt) {
-    const int i = e / b;
+  // X and Y are reduced into by atomics later in this panel.
+  for (int e = rank * nt + tid; e < 2 * w * b; e += cs * nt) X[e] = 0.f;
+  for (int e = rank * nt + tid; e < b * b; e += cs * nt) Y[e] = 0.f;
+
+  // P_j: the first panel is Bv's own columns; later ones were compensated
+  // in F by the earlier panels' panel_zfinal.  The upper rows stay in F.
+  const float* src = c0 == 0 ? Bv : F;
+  const long long lds = c0 == 0 ? ldb : w;
+  for (int e = tid; e < (nup + nrows) * b; e += nt) {
+    const int q = e / b;
     const int cc = e % b;
-    float v = 0.f;
-    float f = 0.f;
-    if (i >= r0) {
-      const int li = i - r0;
-      v = li == cc ? 1.f : (li > cc ? Wk[li * b + cc] : 0.f);
-      Vh[li * b + cc] = v;
-      if (li < b && li <= cc) f = Wk[li * b + cc];  // R
-    } else {
-      f = P[e];  // compensated panel above the elimination point
-    }
-    if (i < c0 + cc - b) f = 0.f;  // exact zeros above the band
-    V[(long long)i * w + c0 + cc] = v;
-    F[(long long)i * w + c0 + cc] = f;
+    const int i = q < nup ? ub + q : r0 + base + (q - nup);
+    const float val = src[(long long)i * lds + c0 + cc];
+    if (q >= nup) W[cc * ldw + (q - nup)] = val;
+    else if (c0 == 0) F[(long long)i * w + cc] = val;
   }
+  __syncthreads();
+
+  repro::cluster_householder<BM>(W, ldw, base, nrows, b, sm, cs);
+
+  if (rank == 0)
+    for (int e = tid; e < b * b; e += nt)
+      Ts[(long long)jpanel * b * b + e] = sm[L::T + (e / b) * BM + (e % b)];
+  // V and Vh columns, and the exact final (banded) values F of the panel.
+  for (int e = tid; e < nrows * b; e += nt) {
+    const int lr = e / b;
+    const int cc = e % b;
+    const int li = base + lr;
+    const float x = W[cc * ldw + lr];
+    const float v = li == cc ? 1.f : (li > cc ? x : 0.f);
+    const long long o = (long long)(r0 + li) * w + c0 + cc;
+    Vh[(long long)li * b + cc] = v;
+    V[o] = v;
+    F[o] = li < b && li <= cc ? x : 0.f;  // R
+  }
+  for (int e = tid; e < nup * b; e += nt) {
+    const int i = ub + e / b;
+    const int cc = e % b;
+    const long long o = (long long)i * w + c0 + cc;
+    V[o] = 0.f;
+    if (i < c0 + cc - b) F[o] = 0.f;  // exact zeros above the band
+  }
+  // Peers write into this CTA's shared memory only before the exchanges'
+  // cluster barriers, so it may exit without another.
 }
 
-// X1 = V[:, :c0]^T Vhat and X2 = Z[:, :c0]^T Vhat, partial sums over a chunk
-// of rows per CTA, added with atomics (X was zeroed by panel_prep).
+// X1 = V[:, :c0]^T Vhat and X2 = Z[:, :c0]^T Vhat, partial sums over
+// kXredRows rows per CTA (their Vhat rows staged in shared memory): the
+// CTA's row groups each sum every kGroups-th row, many loads in flight, add
+// into shared accumulators when X1, X2 fit there (kSx), and the CTA adds its
+// sums to X with one atomic per entry (X was zeroed by panel_qr_cluster).
 template <int BM>
-__global__ void panel_xred(const float* __restrict__ V, const float* __restrict__ Z,
-                           const float* __restrict__ Vh, int m, int w, int b, int r0,
-                           int c0, int chunk, float* __restrict__ X) {
-  const int i0 = r0 + blockIdx.x * chunk;
-  const int i1 = min(m, i0 + chunk);
-  for (int c = threadIdx.x; c < c0; c += blockDim.x) {
+struct Xred {
+  static constexpr int kGroups = BM <= 8 ? 4 : 1;  // row groups of 256 threads each
+  static constexpr int kThreads = 256 * kGroups;
+};
+
+template <int BM, bool kSx>
+__global__ void __launch_bounds__(Xred<BM>::kThreads)
+    panel_xred(const float* __restrict__ V, const float* __restrict__ Z,
+               const float* __restrict__ Vh, int m, int w, int b, int r0, int c0,
+               float* __restrict__ X) {
+  REPRO_DYNAMIC_SMEM(sx);  // [2][c0][b] when kSx
+  __shared__ float sVh[kXredRows * BM];
+  constexpr int kGroups = Xred<BM>::kGroups;
+  const int i0 = r0 + blockIdx.x * kXredRows;
+  const int ni = min(kXredRows, m - i0);
+  const int cols = blockDim.x / kGroups;
+  const int g = threadIdx.x / cols;
+  for (int e = threadIdx.x; e < ni * b; e += blockDim.x) sVh[e] = Vh[(long long)(i0 - r0) * b + e];
+  if (kSx)
+    for (int e = threadIdx.x; e < 2 * c0 * b; e += blockDim.x) sx[e] = 0.f;
+  __syncthreads();
+  for (int c = threadIdx.x % cols; c < c0; c += cols) {
     float a1[BM], a2[BM];
 #pragma unroll
     for (int cc = 0; cc < BM; ++cc) a1[cc] = a2[cc] = 0.f;
-    for (int i = i0; i < i1; ++i) {
-      const float v = V[(long long)i * w + c];
-      const float z = Z[(long long)i * w + c];
-      const float* vh = Vh + (long long)(i - r0) * b;
+#pragma unroll 16
+    for (int ii = g; ii < ni; ii += kGroups) {
+      const float v = V[(long long)(i0 + ii) * w + c];
+      const float z = Z[(long long)(i0 + ii) * w + c];
+      const float* vh = sVh + ii * b;
 #pragma unroll
       for (int cc = 0; cc < BM; ++cc)
         if (cc < b) {
@@ -139,52 +190,128 @@ __global__ void panel_xred(const float* __restrict__ V, const float* __restrict_
 #pragma unroll
     for (int cc = 0; cc < BM; ++cc)
       if (cc < b) {
-        atomicAdd(&X[c * b + cc], a1[cc]);
-        atomicAdd(&X[w * b + c * b + cc], a2[cc]);
+        if (kSx) {
+          atomicAdd(&sx[c * b + cc], a1[cc]);
+          atomicAdd(&sx[c0 * b + c * b + cc], a2[cc]);
+        } else {
+          atomicAdd(&X[c * b + cc], a1[cc]);
+          atomicAdd(&X[w * b + c * b + cc], a2[cc]);
+        }
       }
+  }
+  if (!kSx) return;
+  __syncthreads();
+  for (int e = threadIdx.x; e < c0 * b; e += blockDim.x) {
+    atomicAdd(&X[e], sx[e]);
+    atomicAdd(&X[w * b + e], sx[c0 * b + e]);
   }
 }
 
-// One warp per row i: M[i] = Bv[i, r0:] Vh - Z[i, :c0] X1 - V[i, :c0] X2,
-// MT[i] = M[i] T_j, and the partial Y += Vhat[i]^T MT[i] (atomics).
+// Rows per warp of the GEMV (its rows x BM accumulators stay in registers)
+// and Vhat rows per staged chunk.
 template <int BM>
+struct Gemv {
+  static constexpr int kRows = BM >= 16 ? 1 : 16 / BM;
+  static constexpr int kChunk = kGemvVh / BM;
+};
+
+// M[i] = Bv[i, r0:] Vh - Z[i, :c0] X1 - V[i, :c0] X2, MT[i] = M[i] T_j, and
+// this CTA's share of Y = Vhat^T MT.  A warp owns kRows rows; each lane
+// takes every 32nd k of a staged Vhat chunk and keeps kGemvUnroll loads of
+// each of its rows in flight.
+template <int BM, bool kXSmem>
 __global__ void panel_gemv(const float* __restrict__ Bv, long long ldb, int m, int w,
                            int b, int r0, int c0, const float* __restrict__ V,
                            const float* __restrict__ Z, const float* __restrict__ Vh,
-                           const float* __restrict__ X, int x_in_smem,
+                           const float* __restrict__ X,
                            const float* __restrict__ T, float* __restrict__ MT,
                            float* __restrict__ Y) {
-  REPRO_DYNAMIC_SMEM(sx);
+  constexpr int R = Gemv<BM>::kRows;
+  constexpr int KC = Gemv<BM>::kChunk;
+  constexpr int U = kGemvUnroll;
+  REPRO_DYNAMIC_SMEM(smem);
   __shared__ float sT[BM * BM];
   __shared__ float sY[BM * BM];
+  float* sVh = smem;           // [BM][KC]: Vhat chunk, transposed
+  float* sx = smem + BM * KC;  // X1^T, X2^T ([b][c0] each) when they fit
   const int tid = threadIdx.x;
-  if (x_in_smem) {
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  if (kXSmem) {
     for (int e = tid; e < c0 * b; e += blockDim.x) {
-      sx[e] = X[e];
-      sx[c0 * b + e] = X[w * b + e];
+      const int c = e / b;
+      const int cc = e % b;
+      sx[cc * c0 + c] = X[e];
+      sx[(b + cc) * c0 + c] = X[w * b + e];
     }
   }
   for (int e = tid; e < b * b; e += blockDim.x) {
     sT[e] = T[e];
     sY[e] = 0.f;
   }
-  __syncthreads();
-  const float* x1 = x_in_smem ? sx : X;
-  const float* x2 = x_in_smem ? sx + c0 * b : X + w * b;
-  const int lane = tid & 31;
-  const int i = blockIdx.x * (blockDim.x >> 5) + (tid >> 5);
-  if (i < m) {
-    float acc[BM];
+  // X1[c][cc] = x1[c * xs + cc * xt], X2 likewise.
+  const float* x1 = kXSmem ? sx : X;
+  const float* x2 = kXSmem ? sx + b * c0 : X + w * b;
+  const int xs = kXSmem ? 1 : b;
+  const int xt = kXSmem ? c0 : 1;
+  const int row0 = (blockIdx.x * nwarps + warp) * R;
+
+  float acc[R][BM];
 #pragma unroll
-    for (int cc = 0; cc < BM; ++cc) acc[cc] = 0.f;
-    const float* brow = Bv + (long long)i * ldb;
-    for (int k = r0 + lane; k < m; k += 32) {
-      const float bv = brow[k];
-      const float* vh = Vh + (long long)(k - r0) * b;
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int cc = 0; cc < BM; ++cc) acc[r][cc] = 0.f;
+  const float* brow[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) brow[r] = Bv + (long long)min(row0 + r, m - 1) * ldb;
+  for (int kc = r0; kc < m; kc += KC) {
+    const int kn = min(KC, m - kc);
+    __syncthreads();
+    for (int k = tid; k < kn; k += blockDim.x) {
+      const float* src = Vh + (long long)(kc - r0 + k) * b;
 #pragma unroll
       for (int cc = 0; cc < BM; ++cc)
-        if (cc < b) acc[cc] += bv * vh[cc];
+        if (cc < b) sVh[cc * KC + k] = src[cc];
     }
+    __syncthreads();
+    // Software-pipelined: the next U columns' loads are in flight while
+    // the current ones are summed.
+    float xb[U][R], xn[U][R];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        xb[u][r] = lane + 32 * u < kn ? brow[r][kc + lane + 32 * u] : 0.f;
+    for (int k = lane; k < kn; k += 32 * U) {
+      const int kq = k + 32 * U;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          xn[u][r] = kq + 32 * u < kn ? brow[r][kc + kq + 32 * u] : 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int kk = k + 32 * u;
+        if (kk < kn) {
+#pragma unroll
+          for (int cc = 0; cc < BM; ++cc) {
+            const float vh = cc < b ? sVh[cc * KC + kk] : 0.f;
+#pragma unroll
+            for (int r = 0; r < R; ++r) acc[r][cc] += xb[u][r] * vh;
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int r = 0; r < R; ++r) xb[u][r] = xn[u][r];
+    }
+  }
+  // The compensation - Z X1 - V X2, lanes over c < c0.
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = min(row0 + r, m - 1);
     const float* zi = Z + (long long)i * w;
     const float* vi = V + (long long)i * w;
     for (int c = lane; c < c0; c += 32) {
@@ -192,33 +319,62 @@ __global__ void panel_gemv(const float* __restrict__ Bv, long long ldb, int m, i
       const float v = vi[c];
 #pragma unroll
       for (int cc = 0; cc < BM; ++cc)
-        if (cc < b) acc[cc] -= z * x1[c * b + cc] + v * x2[c * b + cc];
+        if (cc < b) acc[r][cc] -= z * x1[c * xs + cc * xt] + v * x2[c * xs + cc * xt];
     }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int cc = 0; cc < BM; ++cc)
-      if (cc < b) acc[cc] = repro::warp_sum(acc[cc]);
-    if (lane < b) {
-      float mt = 0.f;
+      if (cc < b) acc[r][cc] = repro::warp_sum(acc[r][cc]);
+  // MT = M T_j (lane = column), and Vhat[i]^T MT[i] summed over the warp's rows.
+  if (lane < b) {
+    float ya[BM];
 #pragma unroll
-      for (int a = 0; a < BM; ++a)
-        if (a < b) mt += acc[a] * sT[a * b + lane];
-      MT[(long long)i * b + lane] = mt;
-      if (i >= r0) {
-        const float* vhi = Vh + (long long)(i - r0) * b;
-        for (int a = 0; a < b; ++a) atomicAdd(&sY[a * b + lane], vhi[a] * mt);
+    for (int a = 0; a < BM; ++a) ya[a] = 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = row0 + r;
+      if (i < m) {
+        float mt = 0.f;
+#pragma unroll
+        for (int a = 0; a < BM; ++a)
+          if (a < b) mt += acc[r][a] * sT[a * b + lane];
+        MT[(long long)i * b + lane] = mt;
+        if (i >= r0) {
+          const float* vhi = Vh + (long long)(i - r0) * b;
+#pragma unroll
+          for (int a = 0; a < BM; ++a)
+            if (a < b) ya[a] += vhi[a] * mt;
+        }
       }
     }
+#pragma unroll
+    for (int a = 0; a < BM; ++a)
+      if (a < b) atomicAdd(&sY[a * b + lane], ya[a]);
   }
   __syncthreads();
   for (int e = tid; e < b * b; e += blockDim.x) atomicAdd(&Y[e], sY[e]);
 }
 
-// Z_j = MT - 1/2 Vhat G with G = T_j^T Y.
+// Z_j = MT - 1/2 Vhat G with G = T_j^T Y for kZRows rows per CTA, then the
+// rank-2b update of the block's later compensated columns c in [r0, w):
+// F[i][c] -= Z_j[i] . V[c, c0:c0+b] + V[i, c0:c0+b] . Z_j[c] (the first
+// panel reads Bv's columns as their starting value).  Each CTA rebuilds
+// Z_j[c] for those columns itself (b x b work per column).  A thread owns
+// one column of a chunk, its V and Z_j coefficients in registers.
+template <int BM>
 __global__ void panel_zfinal(const float* __restrict__ MT, const float* __restrict__ Vh,
                              const float* __restrict__ T, const float* __restrict__ Y,
-                             int m, int w, int b, int r0, int c0, float* __restrict__ Z) {
-  __shared__ float sG[32 * 32];
-  for (int e = threadIdx.x; e < b * b; e += blockDim.x) {
+                             const float* __restrict__ Bv, long long ldb, int m, int w,
+                             int b, int r0, int c0, const float* __restrict__ V,
+                             float* __restrict__ Z, float* __restrict__ F) {
+  __shared__ float sG[BM * BM];
+  __shared__ float sZi[kZRows * BM];  // Z_j of this CTA's rows
+  __shared__ float sVi[kZRows * BM];  // V[i, c0:c0+b] of this CTA's rows
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  for (int e = tid; e < b * b; e += nt) {
     const int a = e / b;
     const int c = e % b;
     float s = 0.f;
@@ -226,18 +382,61 @@ __global__ void panel_zfinal(const float* __restrict__ MT, const float* __restri
     sG[e] = s;
   }
   __syncthreads();
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)m * b) return;
-  const int i = (int)(idx / b);
-  const int cc = (int)(idx % b);
-  float z = MT[idx];
-  if (i >= r0) {
-    const float* vhi = Vh + (long long)(i - r0) * b;
-    float s = 0.f;
-    for (int a = 0; a < b; ++a) s += vhi[a] * sG[a * b + cc];
-    z -= 0.5f * s;
+  const int i0 = blockIdx.x * kZRows;
+  const int ni = min(kZRows, m - i0);
+  for (int e = tid; e < ni * b; e += nt) {
+    const int i = i0 + e / b;
+    const int cc = e % b;
+    float z = MT[(long long)i * b + cc];
+    if (i >= r0) {
+      const float* vhi = Vh + (long long)(i - r0) * b;
+      float s = 0.f;
+      for (int a = 0; a < b; ++a) s += vhi[a] * sG[a * b + cc];
+      z -= 0.5f * s;
+    }
+    Z[(long long)i * w + c0 + cc] = z;
+    sZi[(e / b) * BM + cc] = z;
+    sVi[(e / b) * BM + cc] = V[(long long)i * w + c0 + cc];
   }
-  Z[(long long)i * w + c0 + cc] = z;
+  __syncthreads();
+  const float* base = c0 == 0 ? Bv : F;
+  const long long ldbase = c0 == 0 ? ldb : w;
+  for (int cA = r0; cA < w; cA += kZCols) {
+    const int c = cA + tid;
+    if (tid < kZCols && c < w) {
+      // Z_j[c] (c >= r0) and V[c, c0:c0+b] in registers.
+      float zc[BM], vc[BM], vh[BM];
+#pragma unroll
+      for (int a = 0; a < BM; ++a) vh[a] = a < b ? Vh[(long long)(c - r0) * b + a] : 0.f;
+#pragma unroll
+      for (int cc = 0; cc < BM; ++cc) {
+        float s = 0.f;
+#pragma unroll
+        for (int a = 0; a < BM; ++a)
+          if (a < b && cc < b) s += vh[a] * sG[a * b + cc];
+        zc[cc] = cc < b ? MT[(long long)c * b + cc] - 0.5f * s : 0.f;
+        vc[cc] = cc < b ? V[(long long)c * w + c0 + cc] : 0.f;
+      }
+      // Eight rows' starting values in flight at a time.
+      for (int ii0 = 0; ii0 < ni; ii0 += 8) {
+        float fb[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          fb[q] = ii0 + q < ni ? base[(long long)(i0 + ii0 + q) * ldbase + c] : 0.f;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int ii = ii0 + q;
+          if (ii < ni) {
+            float s = 0.f;
+#pragma unroll
+            for (int cc = 0; cc < BM; ++cc)
+              if (cc < b) s += sZi[ii * BM + cc] * vc[cc] + sVi[ii * BM + cc] * zc[cc];
+            F[(long long)(i0 + ii) * w + c] = fb[q] - s;
+          }
+        }
+      }
+    }
+  }
 }
 
 // Lower 64x64 tiles of C = Bv[w:, w:]: C -= Z V^T + V Z^T (k = w), written
@@ -285,42 +484,62 @@ inline unsigned blocks_for(long long n, int per) { return (unsigned)((n + per - 
 template <int BM>
 int run(float* Bv, long long ldb, int m, int w, int b, float* V, float* Ts, float* Z,
         float* F, float* P, float* Vh, float* MT, float* X, float* Y, int qr_smem_max,
-        cudaStream_t st) {
+        int cluster, cudaStream_t st) {
+  using L = repro::ClusterQrSmem<BM>;
+  const int vh_bytes = BM * Gemv<BM>::kChunk * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      panel_qr<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, qr_smem_max);
+      panel_gemv<BM, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, vh_bytes + kGemvSmemMax);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(panel_gemv<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kGemvSmemMax);
+  err = cudaFuncSetAttribute(panel_gemv<BM, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             vh_bytes);
   if (err != cudaSuccess) return (int)err;
+  // The first panel has the most rows; every panel uses its slice layout.
+  auto qr_smem_for = [&](int cs, int* in_smem) {
+    const int len = (m - b + cs - 1) / cs;
+    const int slice_bytes = (len | 1) * BM * (int)sizeof(float);
+    const int fixed = L::total * (int)sizeof(float);
+    *in_smem = slice_bytes <= qr_smem_max && fixed + slice_bytes <= kSmemPerBlockMax;
+    return fixed + (*in_smem ? slice_bytes : 0);
+  };
+  int slice_in_smem = 0;
+  int qr_smem = qr_smem_for(cluster, &slice_in_smem);
+  auto qr = slice_in_smem ? panel_qr_cluster<BM, true> : panel_qr_cluster<BM, false>;
+  err = cudaFuncSetAttribute(qr, cudaFuncAttributeMaxDynamicSharedMemorySize, qr_smem);
+  if (err != cudaSuccess) return (int)err;
+  const int cs = repro::fit_cluster(qr, repro::kQrThreads, qr_smem, cluster);
+  if (cs > repro::kMaxCluster) return (int)cudaErrorInvalidValue;
+  if (cs != cluster) {
+    qr_smem = qr_smem_for(cs, &slice_in_smem);
+    qr = slice_in_smem ? panel_qr_cluster<BM, true> : panel_qr_cluster<BM, false>;
+    err = cudaFuncSetAttribute(qr, cudaFuncAttributeMaxDynamicSharedMemorySize, qr_smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   const int q = w / b;
-  const int nx = 2 * w * b;
+  const int gemv_rows = (kGemvThreads / 32) * Gemv<BM>::kRows;
   for (int j = 0; j < q; ++j) {
     const int c0 = j * b;
     const int r0 = c0 + b;
-    const int rows = m - r0;
-    const long long prep_n = (long long)m * b > nx ? (long long)m * b : nx;
-    REPRO_LAUNCH(panel_prep, blocks_for(prep_n, kThreads), kThreads, 0, st)
-    (Bv, ldb, m, w, b, c0, V, Z, P, X, nx, Y, b * b);
-    REPRO_CHECK_LAUNCH();
-    const long long panel_bytes = (long long)rows * b * sizeof(float);
-    const int qr_smem = panel_bytes <= qr_smem_max ? (int)panel_bytes : 0;
-    REPRO_LAUNCH(panel_qr<BM>, 1, kThreads, qr_smem, st)
-    (P, m, w, b, c0, j, qr_smem > 0, V, Vh, F, Ts);
+    err = REPRO_LAUNCH_CLUSTER(qr, dim3(cs), dim3(repro::kQrThreads), (size_t)qr_smem, st,
+                               (unsigned)cs, (const float*)Bv, ldb, m, w, b, c0, j, V, Vh, F,
+                               Ts, P, X, Y);
+    if (err != cudaSuccess) return (int)err;
     REPRO_CHECK_LAUNCH();
     if (j > 0) {
-      const int chunk = 32;
-      REPRO_LAUNCH(panel_xred<BM>, blocks_for(rows, chunk), kThreads, 0, st)
-      (V, Z, Vh, m, w, b, r0, c0, chunk, X);
+      const int sx_bytes = 2 * c0 * b * (int)sizeof(float);
+      const bool sx_ok = sx_bytes <= kXredSmem;
+      auto xred = sx_ok ? panel_xred<BM, true> : panel_xred<BM, false>;
+      REPRO_LAUNCH(xred, blocks_for(m - r0, kXredRows), Xred<BM>::kThreads, sx_ok ? sx_bytes : 0, st)
+      (V, Z, Vh, m, w, b, r0, c0, X);
       REPRO_CHECK_LAUNCH();
     }
     const int x_bytes = 2 * c0 * b * (int)sizeof(float);
-    const int x_in_smem = x_bytes <= kGemvSmemMax;
-    REPRO_LAUNCH(panel_gemv<BM>, blocks_for(m, kThreads / 32), kThreads,
-                 x_in_smem ? x_bytes : 0, st)
-    (Bv, ldb, m, w, b, r0, c0, V, Z, Vh, X, x_in_smem, Ts + (long long)j * b * b, MT, Y);
+    const bool x_in_smem = x_bytes <= kGemvSmemMax;
+    auto gemv = x_in_smem ? panel_gemv<BM, true> : panel_gemv<BM, false>;
+    REPRO_LAUNCH(gemv, blocks_for(m, gemv_rows), kGemvThreads, vh_bytes + (x_in_smem ? x_bytes : 0), st)
+    (Bv, ldb, m, w, b, r0, c0, V, Z, Vh, X, Ts + (long long)j * b * b, MT, Y);
     REPRO_CHECK_LAUNCH();
-    REPRO_LAUNCH(panel_zfinal, blocks_for((long long)m * b, kThreads), kThreads, 0, st)
-    (MT, Vh, Ts + (long long)j * b * b, Y, m, w, b, r0, c0, Z);
+    REPRO_LAUNCH(panel_zfinal<BM>, blocks_for(m, kZRows), kThreads, 0, st)
+    (MT, Vh, Ts + (long long)j * b * b, Y, Bv, ldb, m, w, b, r0, c0, V, Z, F);
     REPRO_CHECK_LAUNCH();
   }
   const int mt = m - w;
@@ -336,15 +555,19 @@ int run(float* Bv, long long ldb, int m, int w, int b, float* V, float* Ts, floa
 
 }  // namespace
 
-// Launch count of one call: 5 per panel (4 for the first) + 2.
+// Launch count of one call: 4 per panel (3 for the first) + 2.  cluster:
+// CTAs of the panel QR's cluster, 1 to 16 (8 where the card cannot
+// co-schedule more).  P, (m + cluster) * b floats, holds the panel slices
+// when a slice exceeds qr_smem_max bytes.
 extern "C" int fused_panel_update_launch(float* Bv, long long ldb, int m, int w, int b,
                                          float* V, float* Ts, float* Z, float* F, float* P,
                                          float* Vh, float* MT, float* X, float* Y,
-                                         int qr_smem_max, void* stream) {
+                                         int qr_smem_max, int cluster, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (b < 1 || w % b != 0 || w < b || m - w < b) return (int)cudaErrorInvalidValue;
-  if (b <= 8) return run<8>(Bv, ldb, m, w, b, V, Ts, Z, F, P, Vh, MT, X, Y, qr_smem_max, st);
-  if (b <= 16) return run<16>(Bv, ldb, m, w, b, V, Ts, Z, F, P, Vh, MT, X, Y, qr_smem_max, st);
-  if (b <= 32) return run<32>(Bv, ldb, m, w, b, V, Ts, Z, F, P, Vh, MT, X, Y, qr_smem_max, st);
+  if (b < 1 || w % b != 0 || w < b || m - w < b || cluster < 1 || cluster > 16)
+    return (int)cudaErrorInvalidValue;
+  if (b <= 8) return run<8>(Bv, ldb, m, w, b, V, Ts, Z, F, P, Vh, MT, X, Y, qr_smem_max, cluster, st);
+  if (b <= 16) return run<16>(Bv, ldb, m, w, b, V, Ts, Z, F, P, Vh, MT, X, Y, qr_smem_max, cluster, st);
+  if (b <= 32) return run<32>(Bv, ldb, m, w, b, V, Ts, Z, F, P, Vh, MT, X, Y, qr_smem_max, cluster, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,8 +14,7 @@
 //
 // Design.  The TPU kernel keeps the panel in VMEM and unrolls the b column
 // steps in one grid step.  Here one CTA runs the same steps
-// (csrc/panel_qr.cuh, shared with kernel A, which instantiates it with
-// LAPACK signs) on the panel in shared memory while m * b * 4 bytes fit the
+// (csrc/panel_qr.cuh) on the panel in shared memory while m * b * 4 bytes fit the
 // smem_max budget (repro_torch/kernels/limits.py PANEL_QR_SMEM), and in
 // place in the V output buffer in global memory above it.
 #include "panel_qr.cuh"
@@ -39,7 +38,7 @@ __global__ void panel_qr_wy(const float* __restrict__ P, int m, int b, int use_s
   float* Wk = use_smem ? smem : V;
   for (int e = tid; e < m * b; e += nt) Wk[e] = P[e];
   __syncthreads();
-  repro::householder_panel<BM, false>(Wk, m, b, red, s_tau, s_scal);
+  repro::householder_panel<BM>(Wk, m, b, red, s_tau, s_scal);
   repro::larft_panel<BM>(Wk, m, b, red, s_tau, s_VtV, s_T);
   for (int e = tid; e < b * b; e += nt) {
     const int i = e / b;

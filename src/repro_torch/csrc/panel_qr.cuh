@@ -1,8 +1,8 @@
-// The Householder panel QR shared by kernel A (fused_panel.cu, LAPACK
-// signs) and kernel E (panel.cu, beta = +|x|): port of
-// repro/kernels/panel.py:panel_qr_body with the sign as a template
-// parameter.  One CTA works on a (rows, b) panel Wk, row-major with leading
-// dimension b, in shared or global memory.
+// The one-CTA Householder panel QR of kernel E (panel.cu): port of
+// repro/kernels/panel.py:panel_qr_body(lapack_sign=False), beta = +|x|.
+// (Kernel A's LAPACK-sign QR runs across a cluster: panel_qr_cluster.cuh.)
+// One CTA works on a (rows, b) panel Wk, row-major with leading dimension
+// b, in shared or global memory.
 //
 // householder_panel leaves R on and above the diagonal of Wk's first b rows
 // and each reflector's v (unit head implied) packed below the diagonal;
@@ -16,7 +16,7 @@
 
 namespace repro {
 
-template <int BM, bool kLapackSign>
+template <int BM>
 __device__ __forceinline__ void householder_panel(float* Wk, int rows, int b, float* red,
                                                   float* s_tau, float* s_scal) {
   const int tid = threadIdx.x;
@@ -33,22 +33,13 @@ __device__ __forceinline__ void householder_panel(float* Wk, int rows, int b, fl
       const float sigma = sig[0];
       const float mu = sqrtf(alpha * alpha + sigma);
       const bool degenerate = sigma == 0.f;
-      if (kLapackSign) {  // LAPACK larfg: beta = -sign(alpha) mu
-        const float sign_a = alpha >= 0.f ? 1.f : -1.f;
-        const float beta_nd = -sign_a * mu;
-        const float safe_beta = beta_nd == 0.f ? 1.f : beta_nd;
-        s_tau[j] = degenerate ? 0.f : (beta_nd - alpha) / safe_beta;
-        s_scal[1] = degenerate ? alpha : beta_nd;
-        const float denom = alpha - beta_nd;  // sign(alpha)(|alpha| + mu): no cancellation
-        s_scal[0] = denom == 0.f ? 1.f : denom;
-      } else {  // repro.core.householder.house: beta = +mu
-        const float safe_denom = alpha + mu == 0.f ? 1.f : alpha + mu;
-        const float v0 = alpha <= 0.f ? alpha - mu : -sigma / safe_denom;
-        const float v0s = degenerate ? 1.f : v0;
-        s_tau[j] = degenerate ? 0.f : 2.f * v0s * v0s / (sigma + v0s * v0s);
-        s_scal[1] = degenerate ? alpha : mu;
-        s_scal[0] = v0s;
-      }
+      // repro.core.householder.house: beta = +mu
+      const float safe_denom = alpha + mu == 0.f ? 1.f : alpha + mu;
+      const float v0 = alpha <= 0.f ? alpha - mu : -sigma / safe_denom;
+      const float v0s = degenerate ? 1.f : v0;
+      s_tau[j] = degenerate ? 0.f : 2.f * v0s * v0s / (sigma + v0s * v0s);
+      s_scal[1] = degenerate ? alpha : mu;
+      s_scal[0] = v0s;
     }
     __syncthreads();
     const float v0s = s_scal[0];

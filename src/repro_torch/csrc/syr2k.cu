@@ -19,14 +19,17 @@
 // triangle only, as ops.syr2k's tril(low) + tril(low, -1).T is.  Ragged
 // edges are masked, not padded; C may be absent (zeros) and may be a
 // strided view (leading dimension ldc).  Out of place: out is a new matrix.
+// A, B, C and out are all float32 or all bf16: bf16 is loaded as such,
+// summed in float32 and rounded once to bf16 on the way out (the TPU
+// kernel's preferred_element_type=float32 with a cast to C's dtype).
 #include "syr2k_tile.cuh"
 
 namespace {
 
-__global__ void syr2k_lower(const float* __restrict__ A, const float* __restrict__ B,
+template <class T>
+__global__ void syr2k_lower(const T* __restrict__ A, const T* __restrict__ B,
                             long long ldab, int n, int k, float alpha,
-                            const float* __restrict__ C, long long ldc,
-                            float* __restrict__ out) {
+                            const T* __restrict__ C, long long ldc, T* __restrict__ out) {
   int ti, tj;
   repro::lower_tile(blockIdx.x, ti, tj);
   const int gi0 = ti * repro::kSyr2kTile;
@@ -42,27 +45,35 @@ __global__ void syr2k_lower(const float* __restrict__ A, const float* __restrict
       const int i = gi0 + ty * 4 + a;
       const int j = gj0 + tx * 4 + c;
       if (i < n && j < n && i >= j) {
-        const float c_in = C ? C[(long long)i * ldc + j] : 0.f;
+        const float c_in = C ? repro::to_float(C[(long long)i * ldc + j]) : 0.f;
         const float val = c_in + alpha * acc[a][c];
-        out[(long long)i * n + j] = val;
-        out[(long long)j * n + i] = val;
+        repro::store_as(out + (long long)i * n + j, val);
+        repro::store_as(out + (long long)j * n + i, val);
       }
     }
   }
+}
+
+template <class T>
+int run(const void* A, const void* B, long long ldab, int n, int k, float alpha,
+        const void* C, long long ldc, void* out, cudaStream_t st) {
+  const long long nt = (n + repro::kSyr2kTile - 1) / repro::kSyr2kTile;
+  REPRO_LAUNCH(syr2k_lower<T>, (unsigned)(nt * (nt + 1) / 2), repro::kSyr2kThreads, 0, st)
+  ((const T*)A, (const T*)B, ldab, n, k, alpha, (const T*)C, ldc, (T*)out);
+  REPRO_CHECK_LAUNCH();
+  return 0;
 }
 
 }  // namespace
 
 // One launch.  A, B: (n, k) row-major with leading dimension ldab; C: (n, n)
 // with leading dimension ldc, or null for zeros; out: (n, n) contiguous.
-extern "C" int syr2k_launch(const float* A, const float* B, long long ldab, int n, int k,
-                            float alpha, const float* C, long long ldc, float* out,
+// bf16: 0 for float32 operands, 1 for bf16.
+extern "C" int syr2k_launch(const void* A, const void* B, long long ldab, int n, int k,
+                            float alpha, const void* C, long long ldc, void* out, int bf16,
                             void* stream) {
   if (n < 1 || k < 0) return (int)cudaErrorInvalidValue;
-  const long long nt = (n + repro::kSyr2kTile - 1) / repro::kSyr2kTile;
-  REPRO_LAUNCH(syr2k_lower, (unsigned)(nt * (nt + 1) / 2), repro::kSyr2kThreads, 0,
-               (cudaStream_t)stream)
-  (A, B, ldab, n, k, alpha, C, ldc, out);
-  REPRO_CHECK_LAUNCH();
-  return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16) return run<__nv_bfloat16>(A, B, ldab, n, k, alpha, C, ldc, out, st);
+  return run<float>(A, B, ldab, n, k, alpha, C, ldc, out, st);
 }

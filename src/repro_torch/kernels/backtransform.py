@@ -13,19 +13,26 @@ import torch
 from . import cuda_lib
 from .limits import limit
 
-__all__ = ["backtransform_wy_cuda", "strip_width"]
+__all__ = ["backtransform_wy_cuda", "strip_width", "MAX_B"]
+
+MAX_B = 32
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P]
+_WORKSPACE_ARGTYPES = [ctypes.c_int] * 4
 _MAX_STRIP = 32
 
 
 def _lib():
-    fn = cuda_lib.library("backtransform").backtransform_wy_launch
+    lib = cuda_lib.library("backtransform")
+    fn = lib.backtransform_wy_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    return fn
+    ws = lib.backtransform_wy_workspace
+    ws.argtypes = _WORKSPACE_ARGTYPES
+    ws.restype = ctypes.c_longlong
+    return fn, ws
 
 
 def strip_width(n: int, m: int):
@@ -48,9 +55,9 @@ def backtransform_wy_cuda(
     transpose: bool = False,
 ) -> torch.Tensor:
     """Kernel C: Q2 @ X (or Q2^T @ X) from the sweep-major log ``vs``
-    (S, K, b) / ``taus`` (S, K).  ``group`` is accepted for the op's
-    signature; the kernel applies each sweep's K reflectors in parallel, so
-    it has no use for it.  Returns a new (n, m) tensor."""
+    (S, K, b) / ``taus`` (S, K), ``b <= 32``.  ``group`` is accepted for the
+    op's signature: the kernel blocks the sweeps by its own fixed group
+    (``kGroup`` in ``csrc/backtransform.cu``).  Returns a new (n, m) tensor."""
     for name, t in (("X", X), ("vs", vs), ("taus", taus)):
         if not t.is_cuda:
             raise ValueError(f"backtransform_wy_cuda needs CUDA tensors, {name} is on {t.device}")
@@ -63,6 +70,8 @@ def backtransform_wy_cuda(
             f"expected X (n, m), vs (S, K, b={b}), taus (S, K); got {tuple(X.shape)}, "
             f"{tuple(vs.shape)}, {tuple(taus.shape)}"
         )
+    if not 1 <= b <= MAX_B:
+        raise ValueError(f"backtransform_wy_cuda takes 1 <= b <= {MAX_B}, got b={b}")
     n, m = X.shape
     S, K, _ = vs.shape
     out = torch.empty((n, m), dtype=torch.float32, device=X.device)
@@ -70,12 +79,14 @@ def backtransform_wy_cuda(
     vs = vs.contiguous()
     taus = taus.contiguous()
     cw, in_smem = strip_width(n, m)
-    fn = _lib()
+    fn, ws = _lib()
+    work = torch.empty((max(ws(n, S, K, b), 1),), dtype=torch.float32, device=X.device)
     with torch.cuda.device(X.device):
         err = fn(
             out.data_ptr(), n, m, vs.data_ptr(), taus.data_ptr(), S, K, b,
-            int(transpose), cw, int(in_smem), torch.cuda.current_stream().cuda_stream,
+            int(transpose), cw, int(in_smem), work.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     cuda_lib.check(err, "backtransform_wy")
-    cuda_lib.count("backtransform_wy", 1)
+    cuda_lib.count("backtransform_wy", 2)
     return out

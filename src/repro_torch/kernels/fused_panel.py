@@ -14,12 +14,13 @@ import torch
 from . import cuda_lib
 from .limits import limit
 
-__all__ = ["fused_panel_update_cuda", "MAX_B"]
+__all__ = ["fused_panel_update_cuda", "cluster_size", "MAX_B"]
 
 MAX_B = 32
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _P]
+             _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P]
+_ROWS_PER_CTA = 64
 
 
 def _lib():
@@ -28,6 +29,12 @@ def _lib():
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+def cluster_size(m: int, b: int) -> int:
+    """CTAs of the panel QR's cluster for an (m, m) view: at least
+    ``_ROWS_PER_CTA`` panel rows each, at most ``PANEL_QR_CLUSTER``."""
+    return max(1, min(limit("PANEL_QR_CLUSTER"), -(-(m - b) // _ROWS_PER_CTA)))
 
 
 def fused_panel_update_cuda(Bv: torch.Tensor, b: int, w: int):
@@ -55,7 +62,8 @@ def fused_panel_update_cuda(Bv: torch.Tensor, b: int, w: int):
     Ts = torch.empty((q, b, b), **kw)
     Z = torch.empty((m, w), **kw)
     F = torch.empty((m, w), **kw)
-    P = torch.empty((m, b), **kw)
+    cluster = cluster_size(m, b)
+    P = torch.empty((m + cluster, b), **kw)
     Vh = torch.empty((m, b), **kw)
     MT = torch.empty((m, b), **kw)
     X = torch.empty((2 * w * b,), **kw)
@@ -66,8 +74,8 @@ def fused_panel_update_cuda(Bv: torch.Tensor, b: int, w: int):
             Bv.data_ptr(), Bv.stride(0), m, w, b,
             V.data_ptr(), Ts.data_ptr(), Z.data_ptr(), F.data_ptr(), P.data_ptr(),
             Vh.data_ptr(), MT.data_ptr(), X.data_ptr(), Y.data_ptr(),
-            limit("PANEL_QR_SMEM"), torch.cuda.current_stream().cuda_stream,
+            limit("PANEL_QR_SMEM"), cluster, torch.cuda.current_stream().cuda_stream,
         )
     cuda_lib.check(err, "fused_panel_update")
-    cuda_lib.count("fused_panel_update", 5 * q + 1)
+    cuda_lib.count("fused_panel_update", 4 * q + 1)
     return Bv, V, Ts

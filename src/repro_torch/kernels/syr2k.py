@@ -18,7 +18,8 @@ __all__ = ["syr2k_cuda", "trailing_update_cuda"]
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-             _P, ctypes.c_longlong, _P, _P]
+             _P, ctypes.c_longlong, _P, ctypes.c_int, _P]
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _lib():
@@ -37,8 +38,10 @@ def _launch(A, B, C, alpha: float, op: str) -> torch.Tensor:
     for name, t in named:
         if not t.is_cuda:
             raise ValueError(f"{op}_cuda needs CUDA tensors, {name} is on {t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{op}_cuda takes float32, {name} is {t.dtype}")
+        if t.dtype not in DTYPES:
+            raise ValueError(f"{op}_cuda takes float32 or bfloat16, {name} is {t.dtype}")
+        if t.dtype != A.dtype:
+            raise ValueError(f"{name} is {t.dtype}, A is {A.dtype}: the operands share one dtype")
         if t.device != A.device:
             raise ValueError(f"{name} is on {t.device}, A on {A.device}")
     if A.ndim != 2 or B.shape != A.shape:
@@ -46,7 +49,7 @@ def _launch(A, B, C, alpha: float, op: str) -> torch.Tensor:
     n, k = A.shape
     if C is not None and tuple(C.shape) != (n, n):
         raise ValueError(f"expected C of shape ({n}, {n}), got {tuple(C.shape)}")
-    out = torch.empty((n, n), dtype=torch.float32, device=A.device)
+    out = torch.empty((n, n), dtype=A.dtype, device=A.device)
     if n == 0:
         return out
     A = A.contiguous()
@@ -58,7 +61,7 @@ def _launch(A, B, C, alpha: float, op: str) -> torch.Tensor:
         err = fn(
             A.data_ptr(), B.data_ptr(), k, n, k, float(alpha),
             None if C is None else C.data_ptr(), 0 if C is None else C.stride(0),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            out.data_ptr(), int(A.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
         )
     cuda_lib.check(err, op)
     cuda_lib.count(op, 1)
@@ -68,9 +71,10 @@ def _launch(A, B, C, alpha: float, op: str) -> torch.Tensor:
 def syr2k_cuda(
     A: torch.Tensor, B: torch.Tensor, C: Optional[torch.Tensor] = None, *, alpha: float = 1.0
 ) -> torch.Tensor:
-    """Kernel D: ``C + alpha (A B^T + B A^T)`` for float32 CUDA ``A``, ``B``
-    (n, k) and ``C`` (n, n) or ``None`` (zeros).  Returns a new (n, n)
-    tensor, exactly symmetric: C's lower triangle updated and mirrored."""
+    """Kernel D: ``C + alpha (A B^T + B A^T)`` for CUDA ``A``, ``B`` (n, k)
+    and ``C`` (n, n) or ``None`` (zeros), all float32 or all bfloat16 (summed
+    in float32, rounded once to bfloat16).  Returns a new (n, n) tensor of
+    their dtype, exactly symmetric: C's lower triangle updated and mirrored."""
     return _launch(A, B, C, alpha, "syr2k")
 
 

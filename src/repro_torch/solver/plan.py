@@ -257,7 +257,7 @@ def _execute(
     mark("bisection")
     VT = eigvecs_inverse_iteration(d, e, w)
     mark("inverse_iteration")
-    X = bt.apply_q2_blocked(log2, VT, group=pl.bt_group, backend=pl.backend)
+    X = bt.apply_q2_blocked(log2, VT, group=pl.bt_group, backend=pl.backend, on_stage=on_stage)
     mark("q2")
     V = bt.apply_q_left_blocked(refl1, X)
     mark("q1")

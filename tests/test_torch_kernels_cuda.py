@@ -83,6 +83,29 @@ def test_fused_panel_update_matches_plain(cuda_device, monkeypatch, m, w, b, qr_
     assert (Bk[:, :w][rows < cols - b] == 0).all()
 
 
+@pytest.mark.parametrize(
+    "m,w,b,cluster",
+    [
+        (1024, 128, 8, 16),   # the non-portable cluster size (or its fallback, 8)
+        (1024, 128, 8, 8),
+        (1000, 64, 8, 3),     # slices of 331 / 330 rows, not a multiple of the cluster
+        (520, 256, 8, 5),
+        (264, 256, 8, 4),     # the last DBR blocks of the n = 4096 path
+        (264, 256, 8, 1),
+        (300, 96, 16, 7),
+    ],
+)
+def test_fused_panel_update_cluster_splits(cuda_device, monkeypatch, m, w, b, cluster):
+    """The panel QR's rows split over clusters of 1-16 CTAs."""
+    monkeypatch.setitem(limits.LIMITS, "PANEL_QR_CLUSTER", cluster)
+    A = torch.as_tensor(_sym(m, m + cluster), device=cuda_device)
+    Bk, Vk, Tk = ops.fused_panel_update(A.clone(), b, w)
+    Bp, Vp, Tp = ref.fused_panel_update_ref(A.clone(), b, w)
+    torch.cuda.synchronize()
+    tol = 1e-5 * max(8.0, m ** 0.5)
+    assert _rel(Bk, Bp) < tol and _rel(Vk, Vp) < tol and _rel(Tk, Tp) < tol
+
+
 def test_fused_panel_update_in_place_on_a_strided_view(cuda_device):
     n, ci, b, w = 96, 32, 8, 32
     A = torch.as_tensor(_sym(n, 3), device=cuda_device)
@@ -155,6 +178,25 @@ def test_backtransform_wy_matches_plain(cuda_device, monkeypatch, n, m, b, trans
 
 
 @pytest.mark.parametrize(
+    "n,b,m",
+    [(33, 4, 5), (23, 2, 6), (41, 16, 3), (40, 3, 11), (12, 4, 2), (4096, 8, 7), (1030, 8, 300)],
+)
+@pytest.mark.parametrize("transpose", [False, True])
+def test_backtransform_wy_block_order(cuda_device, n, b, m, transpose):
+    """The sweep-blocked walk where its ordering is easy to get wrong: a
+    last group of fewer than 8 sweeps, groups longer than b + 1, b longer
+    than a group, last sweeps with fewer than b rows."""
+    B = _band(n, b, n + b, cuda_device)
+    _, log = ops.bulge_wavefront(B, b, return_log=True)
+    vs, taus = sweep_major_log(log)
+    X = torch.as_tensor(np.random.default_rng(n * m).normal(size=(n, m)).astype(np.float32), device=cuda_device)
+    Yk = ops.backtransform_wy(X, vs, taus, b=b, transpose=transpose)
+    Yp = backtransform_wy_xla(X, vs, taus, b=b, transpose=transpose)
+    torch.cuda.synchronize()
+    assert _rel(Yk, Yp) < 1e-5 * max(8.0, n ** 0.5)
+
+
+@pytest.mark.parametrize(
     "n,k,c_view", [(64, 16, False), (100, 37, True), (8, 248, True), (1, 3, False), (3840, 256, True)]
 )
 def test_syr2k_matches_plain(cuda_device, n, k, c_view):
@@ -170,6 +212,23 @@ def test_syr2k_matches_plain(cuda_device, n, k, c_view):
         torch.cuda.synchronize()
         assert torch.equal(got, got.T)
         assert float((got - want).abs().max()) <= 2e-5 * max(float(want.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("n,k,c_view", [(64, 16, False), (100, 37, True), (3840, 256, True)])
+def test_syr2k_bf16_matches_plain(cuda_device, n, k, c_view):
+    """bf16 operands against the float32 plain version of the same
+    (bf16-valued) inputs at tests/test_kernels.py's bf16 tolerance."""
+    rng = np.random.default_rng(n * k)
+    bf = torch.bfloat16
+    a = torch.as_tensor(rng.normal(size=(n, k)).astype(np.float32), device=cuda_device).to(bf)
+    b = torch.as_tensor(rng.normal(size=(n, k)).astype(np.float32), device=cuda_device).to(bf)
+    c = torch.as_tensor(_sym(n + 2, n), device=cuda_device).to(bf)
+    C = c[2:, 2:] if c_view else c[:n, :n].contiguous()
+    got = ops.trailing_update(C, b, a)
+    want = ref.syr2k_ref(a.float(), b.float(), C.float(), alpha=-1.0)
+    torch.cuda.synchronize()
+    assert got.dtype == bf and torch.equal(got, got.T)
+    assert float((got.float() - want).abs().max()) <= 5e-2 * float(want.abs().max())
 
 
 @pytest.mark.parametrize("m,b,smem", [(4088, 8, None), (8192, 8, None), (17, 5, None), (300, 16, 0), (64, 32, None)])

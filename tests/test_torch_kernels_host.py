@@ -1,11 +1,13 @@
 """The CUDA kernels' arithmetic and indexing, run on the CPU by emulation.
 
 Each ``src/repro_torch/csrc/*.cu`` (kernels A to E) is compiled with g++ against
-``tests/cuda_host/cuda_runtime.h``, which runs a launch's blocks one after
-another with one host thread per CUDA thread.  The exported launchers are
-called through ctypes with CPU tensors and held against the plain PyTorch
-versions at the tolerances of tests/test_torch_kernels_cuda.py.  Blocks
-never overlap here, so races between CTAs are the card's tests' job
+``tests/cuda_host/cuda_runtime.h``, which runs a launch's clusters one after
+another (a plain launch is a cluster of one CTA) with one host thread per
+CUDA thread; the CTAs of a cluster run together, each with its own shared
+memory, as kernel A's panel QR needs.  The exported launchers are called
+through ctypes with CPU tensors and held against the plain PyTorch versions
+at the tolerances of tests/test_torch_kernels_cuda.py.  Clusters never
+overlap here, so races between them are the card's tests' job
 (``python -m pytest -m cuda``); skipped where g++ is missing.
 """
 import ctypes
@@ -62,7 +64,10 @@ def host(tmp_path_factory):
     for fn, mod in ((fa, ka), (fb, kb), (fc, kc), (fd, kd), (fe, ke)):
         fn.argtypes = mod._ARGTYPES
         fn.restype = ctypes.c_int
-    return fa, fb, fc, fd, fe
+    ws = libs["backtransform"].backtransform_wy_workspace
+    ws.argtypes = kc._WORKSPACE_ARGTYPES
+    ws.restype = ctypes.c_longlong
+    return fa, fb, fc, fd, fe, ws
 
 
 def _sym(n, seed):
@@ -81,16 +86,17 @@ def _rel(x, y):
     return float((x.double() - y.double()).abs().max() / max(float(y.abs().max()), 1.0))
 
 
-def _fused(fa, Bv, b, w, qr_smem=SMEM):
+def _fused(fa, Bv, b, w, qr_smem=SMEM, cluster=None):
     """The launcher's buffers (repro_torch.kernels.fused_panel), on the CPU."""
     m = Bv.shape[0]
     q = w // b
+    cluster = ka.cluster_size(m, b) if cluster is None else cluster
     e = torch.empty
     V, Ts, Z, F = e(m, w), e(q, b, b), e(m, w), e(m, w)
-    P, Vh, MT, X, Y = e(m, b), e(m, b), e(m, b), e(2 * w * b), e(b * b)
+    P, Vh, MT, X, Y = e(m + cluster, b), e(m, b), e(m, b), e(2 * w * b), e(b * b)
     err = fa(Bv.data_ptr(), Bv.stride(0), m, w, b, V.data_ptr(), Ts.data_ptr(), Z.data_ptr(),
              F.data_ptr(), P.data_ptr(), Vh.data_ptr(), MT.data_ptr(), X.data_ptr(), Y.data_ptr(),
-             qr_smem, None)
+             qr_smem, cluster, None)
     assert err == 0
     return Bv, V, Ts
 
@@ -102,6 +108,27 @@ def _fused(fa, Bv, b, w, qr_smem=SMEM):
 def test_fused_panel_host(host, m, w, b, qr_smem):
     A = _sym(m, m)
     Bk, Vk, Tk = _fused(host[0], A.clone(), b, w, qr_smem)
+    Bp, Vp, Tp = ref.fused_panel_update_ref(A.clone(), b, w)
+    tol = 1e-5 * max(8.0, m ** 0.5)
+    assert _rel(Bk, Bp) < tol and _rel(Vk, Vp) < tol and _rel(Tk, Tp) < tol
+
+
+@pytest.mark.parametrize(
+    "m,w,b,cluster,qr_smem",
+    [
+        (48, 16, 8, 2, SMEM),   # 40 panel rows, 20 per CTA
+        (45, 20, 4, 3, SMEM),   # 41 rows: slices of 14, 14, 13
+        (40, 32, 8, 4, SMEM),   # last panel: 8 rows over 4 CTAs, pivots on 4 CTAs
+        (37, 12, 4, 5, 0),      # slices in global memory, one CTA left empty
+        (24, 16, 8, 3, SMEM),   # m small enough for the last DBR blocks
+        (70, 28, 7, 4, SMEM),   # b = 7 on the 8-wide instantiation
+    ],
+)
+def test_fused_panel_host_cluster_splits(host, m, w, b, cluster, qr_smem):
+    """The panel QR's rows split over clusters of 2-5 CTAs: uneven slices,
+    pivot rows on several CTAs, empty CTAs, slices in global memory."""
+    A = _sym(m, m + cluster)
+    Bk, Vk, Tk = _fused(host[0], A.clone(), b, w, qr_smem, cluster)
     Bp, Vp, Tp = ref.fused_panel_update_ref(A.clone(), b, w)
     tol = 1e-5 * max(8.0, m ** 0.5)
     assert _rel(Bk, Bp) < tol and _rel(Vk, Vp) < tol and _rel(Tk, Tp) < tol
@@ -145,8 +172,41 @@ def test_backtransform_host(host, m, transpose, in_smem):
     Y = X.clone()
     S, K, _ = vs.shape
     cw = kc.strip_width(n, m)[0] if in_smem else min(32, m)
+    work = torch.empty(host[5](n, S, K, b))
     assert host[2](Y.data_ptr(), n, m, vs.data_ptr(), taus.data_ptr(), S, K, b,
-                   int(transpose), cw, int(in_smem), None) == 0
+                   int(transpose), cw, int(in_smem), work.data_ptr(), None) == 0
+    assert _rel(Y, backtransform_wy_xla(X, vs, taus, b=b, transpose=transpose)) < 1e-5 * 8
+
+
+@pytest.mark.parametrize(
+    "n,b,m,transpose,in_smem",
+    [
+        (33, 4, 5, True, True),    # S = 31: the last group has 7 sweeps
+        (33, 4, 9, False, True),
+        (23, 2, 6, True, True),    # g = 8 > b + 1: a block's sweeps overlap two rows down
+        (23, 2, 6, False, False),
+        (40, 3, 11, True, True),   # b = 3 on the 4-wide instantiation
+        (40, 5, 4, False, True),   # b = 5 on the 8-wide one
+        (50, 8, 13, True, False),  # strip in global memory
+        (50, 8, 13, False, True),
+        (41, 16, 3, True, True),   # b > g: one block spans 23 rows
+        (41, 16, 3, False, True),
+        (12, 4, 2, True, True),    # S = 10 < 2g, K = 3
+    ],
+)
+def test_backtransform_host_block_order(host, n, b, m, transpose, in_smem):
+    """The sweep-blocked walk at shapes where its ordering is easy to get
+    wrong: a last group of fewer than g sweeps, g > b + 1, b > g, last
+    sweeps with fewer than b rows, both directions."""
+    _, log = chase_wavefront_slices(_band(n, b, n + b), b, True)
+    vs, taus = sweep_major_log(log)
+    X = torch.tensor(np.random.default_rng(n * m).normal(size=(n, m)).astype(np.float32))
+    Y = X.clone()
+    S, K, _ = vs.shape
+    cw = kc.strip_width(n, m)[0] if in_smem else min(32, m)
+    work = torch.empty(host[5](n, S, K, b))
+    assert host[2](Y.data_ptr(), n, m, vs.data_ptr(), taus.data_ptr(), S, K, b,
+                   int(transpose), cw, int(in_smem), work.data_ptr(), None) == 0
     assert _rel(Y, backtransform_wy_xla(X, vs, taus, b=b, transpose=transpose)) < 1e-5 * 8
 
 
@@ -163,10 +223,29 @@ def test_syr2k_host(host, n, k, alpha, c_view):
     out = torch.full((n, n), float("nan"))
     assert host[3](A.data_ptr(), B.data_ptr(), k, n, k, alpha,
                    None if C is None else C.data_ptr(), 0 if C is None else C.stride(0),
-                   out.data_ptr(), None) == 0
+                   out.data_ptr(), 0, None) == 0
     want = ref.syr2k_ref(A, B, C, alpha=alpha)
     assert torch.equal(out, out.T)
     assert float((out - want).abs().max()) <= 2e-5 * max(float(want.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("n,k,c_view", [(70, 37, True), (64, 16, None), (5, 3, False)])
+def test_syr2k_host_bf16(host, n, k, c_view):
+    """bf16 operands: loaded as bf16, summed in float32, rounded once; held
+    against the float32 plain version of the same (bf16-valued) inputs to
+    one bf16 rounding of the result, and to exact symmetry."""
+    rng = np.random.default_rng(n * k)
+    A = torch.tensor(rng.normal(size=(n, k)).astype(np.float32)).to(torch.bfloat16)
+    B = torch.tensor(rng.normal(size=(n, k)).astype(np.float32)).to(torch.bfloat16)
+    C = None if c_view is None else _sym(n + 3, n)[3:, 3:] if c_view else _sym(n, n)
+    C = None if C is None else C.to(torch.bfloat16)
+    out = torch.zeros((n, n), dtype=torch.bfloat16)
+    assert host[3](A.data_ptr(), B.data_ptr(), k, n, k, -1.0,
+                   None if C is None else C.data_ptr(), 0 if C is None else C.stride(0),
+                   out.data_ptr(), 1, None) == 0
+    want = ref.syr2k_ref(A.float(), B.float(), None if C is None else C.float(), alpha=-1.0)
+    assert torch.equal(out, out.T)
+    assert float((out.float() - want).abs().max()) <= 2 ** -8 * float(want.abs().max())
 
 
 @pytest.mark.parametrize("m,b,smem", [(33, 8, SMEM), (17, 5, SMEM), (40, 8, 1024), (64, 16, SMEM), (8, 8, 0)])

@@ -50,6 +50,7 @@ from repro_torch.solver import EvdConfig, by_count, by_index, plan  # noqa: E402
 
 ATOL = 1e-4
 TOL_SYR2K = 2e-5
+TOL_SYR2K_BF16 = 5e-2  # tests/test_kernels.py's bf16 tolerance
 TOL_PANEL = 5e-5
 
 
@@ -77,6 +78,23 @@ def test_syr2k_matches_jax(n, k, bm, bk):
     want = _np(jops.syr2k(jnp.asarray(a), jnp.asarray(b), jnp.asarray(c), alpha=-1.0, bm=bm, bk=bk))
     got = ops.syr2k(torch.as_tensor(a), torch.as_tensor(b), torch.as_tensor(c), alpha=-1.0)
     np.testing.assert_allclose(_np(got), want, atol=TOL_SYR2K * float(np.abs(want).max()))
+    assert torch.equal(got, got.T)
+
+
+@pytest.mark.parametrize("n,k,bm,bk", SYR2K_CASES)
+def test_syr2k_bf16_matches_jax(n, k, bm, bk):
+    """bf16 operands, as tests/test_kernels.py runs JAX's syr2k: both in
+    bf16, held at 5e-2 max|ref| and to exact symmetry."""
+    rng = np.random.default_rng(n + k)
+    a = rng.normal(size=(n, k)).astype(np.float32)
+    b = rng.normal(size=(n, k)).astype(np.float32)
+    c = random_symmetric(rng, n)
+    jb = [jnp.asarray(x).astype(jnp.bfloat16) for x in (a, b, c)]
+    want = np.asarray(jops.syr2k(*jb, alpha=-1.0, bm=bm, bk=bk).astype(jnp.float32))
+    tb = [torch.as_tensor(x).to(torch.bfloat16) for x in (a, b, c)]
+    got = ops.syr2k(*tb, alpha=-1.0)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got.float()), want, atol=TOL_SYR2K_BF16 * float(np.abs(want).max()))
     assert torch.equal(got, got.T)
 
 
