@@ -14,10 +14,12 @@ Phases, each printing its own lines:
    library yardstick where one exists, and the least time the card could
    take for the same work (``bound_ms``, from bytes and operations at the
    peak rate of their type)
-   with the share of it the kernel reaches.  Kernels A-C (fused path; A
-   and C also split by CUDA kernel with ``torch.profiler``), D
-   (``syr2k`` / ``trailing_update``, in float32 and bf16) and E (the
-   standalone ``panel_qr``).
+   with the share of it the kernel reaches.  Kernels A-C (fused path; A,
+   B and C also split by CUDA kernel with ``torch.profiler``; B's time also
+   per dependent step of the chase, with and without its log), D
+   (``syr2k`` / ``trailing_update``, in float32 and bf16, bf16 with its
+   share of the bound beside the bf16 library call) and E (the standalone
+   ``panel_qr``).
 3. The main path, ``plan(4096, float32, EvdConfig())(A)`` and ``.eigvals(A)``
    on a seeded random symmetric A: launch counters reset just before and
    read just after (each kernel must have run, its CUDA launches exactly
@@ -31,8 +33,8 @@ Phases, each printing its own lines:
 5. The unfused first stage at n = 4096: ``plan(4096, float32,
    EvdConfig(tridiag="unfused"))(A)`` and ``.eigvals(A)`` against the gates
    of phase 3, each with the counters reset just before and read just after
-   (one ``trailing_update`` launch per DBR block, kernel B once for the
-   eigvals run), its stage times, and ``band_reduce(A, 8, 256,
+   (one ``trailing_update`` launch per DBR block, kernel B once, one CUDA
+   launch, for the eigvals run), its stage times, and ``band_reduce(A, 8, 256,
    panel_method="kernel")`` (one ``panel_qr`` launch per panel) with the
    band's eigenvalues against ``torch.linalg.eigvalsh(A)``.
 
@@ -168,8 +170,8 @@ def phase_kernels(torch, gen):
     """Phase 2: each kernel against its plain version at main-path shapes."""
     from repro_torch.core.backtransform import backtransform_wy_xla, sweep_major_log
     from repro_torch.core.band_reduction import band_reduce, build_stage_schedule
-    from repro_torch.core.bulge_chasing import chase_wavefront_slices
-    from repro_torch.kernels import ref
+    from repro_torch.core.bulge_chasing import chase_wavefront_slices, num_wavefronts
+    from repro_torch.kernels import cuda_lib, ref
     from repro_torch.kernels.backtransform import backtransform_wy_cuda
     from repro_torch.kernels.bulge import bulge_wavefront_cuda
     from repro_torch.kernels.fused_panel import fused_panel_update_cuda
@@ -267,7 +269,16 @@ def phase_kernels(torch, gen):
             f"kernel B: eigenvalues of T vs plain {eL}, ||Q2 T Q2^T - B|| {eR} (tol {TOL_B})")
     Tv = bulge_wavefront_cuda(Bband, b)
     require(torch.equal(Tv, Tk), "kernel B values-only run differs from the logged run")
+    Tk2, lk2 = bulge_wavefront_cuda(Bband, b, return_log=True)
+    require(torch.equal(Tk2, Tk) and torch.equal(lk2.vs, lk.vs) and torch.equal(lk2.taus, lk.taus),
+            "kernel B differs between two logged runs")
+    cuda_lib.reset_launch_counts()
+    bulge_wavefront_cuda(Bband, b, return_log=True)
+    per_call = cuda_lib.device_launch_counts()["bulge_wavefront"]
+    require(per_call == 1, f"kernel B made {per_call} CUDA launches in one call, expected 1")
     ms = cuda_ms(torch, lambda: bulge_wavefront_cuda(Bband, b, return_log=True), 3)
+    ms_values = cuda_ms(torch, lambda: bulge_wavefront_cuda(Bband, b), 3)
+    steps = num_wavefronts(n, b)
     n_ops = int(active.sum())
     Wn, An = lk.taus.shape
     bms, by = bound((2.0 * n * n + Wn * An * (b + 2)) * 4, 26.0 * b * b * n_ops)
@@ -275,11 +286,14 @@ def phase_kernels(torch, gen):
           f"eig(T) vs plain {eL:.3e} (max_abs_err={max_abs:.3e}), Q2 T Q2^T vs B {eR:.3e} "
           f"(tol {TOL_B:.1e}); T exactly tridiagonal; row0 exact; entrywise vs plain, "
           f"reported only: T {eT:.3e}, tau v v^T {eH:.3e}")
-    print(f"phase 2 kernel B ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}), "
-          f"{share(bms, ms)}; library: none")
+    print(f"phase 2 kernel B ms={ms:.4f} ({ms / steps * 1e3:.3f} us per dependent step, "
+          f"{steps} steps; without the log ms={ms_values:.4f}, {ms_values / steps * 1e3:.3f} us) "
+          f"plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}), {share(bms, ms)}; "
+          f"CUDA launches per call {per_call}; library: none; bitwise equal over two calls")
     rows["bulge_wavefront"] = dict(max_abs_err=max_abs, compared="eigenvalues of T",
                                    ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                                   bound_by=by, library_ms=None)
+                                   bound_by=by, library_ms=None, us_per_step=ms / steps * 1e3,
+                                   ms_without_log=ms_values)
 
     # --- kernel C: Q2 and Q2^T on a full (n, n) panel ---------------------
     vs, taus = sweep_major_log(lk)
@@ -301,9 +315,10 @@ def phase_kernels(torch, gen):
           f"{errs[0]:.3e}/{errs[1]:.3e} (tol {TOL_C:.1e}) max_abs_err={max_abs:.3e}")
     print(f"phase 2 kernel C ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}), "
           f"{share(bms, ms)}; library: none")
-    # One profiler session for A and C (a second session in one process
+    # One profiler session for A, B and C (a second session in one process
     # recorded no device time on the card).
     split = device_split(torch, lambda: (fused_panel_update_cuda(A_prof, b, w),
+                                         bulge_wavefront_cuda(Bband, b, return_log=True),
                                          backtransform_wy_cuda(X, vs, taus, b=b)))
     split_a = [r for r in split if r[0].startswith(("panel_", "trailing_lower", "write_f"))]
     print_split("phase 2 kernel A", split_a, ms_a)
@@ -312,6 +327,8 @@ def phase_kernels(torch, gen):
             print(f"phase 2 kernel A panel_gemv {t / cnt * 1e3:.1f} us a panel, reads its views at "
                   f"{gemv_bytes / t / 1e9:.3f} TB/s ({gemv_bytes / t / 1e9 / (PEAK_BYTES_PER_S / 1e12):.1%} "
                   f"of {PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
+    print_split("phase 2 kernel B", [r for r in split if r[0].startswith("bulge")],
+                rows["bulge_wavefront"]["ms"])
     print_split("phase 2 kernel C", [r for r in split if r[0].startswith(("regroup_log", "backtransform"))], ms)
     rows["backtransform_wy"] = dict(max_abs_err=max_abs, compared="Q2 X and Q2^T X entrywise",
                                     ms=ms, plain_ms=plain_ms, bound_ms=bms,
@@ -362,7 +379,8 @@ def phase_kernels(torch, gen):
     print(f"phase 2 kernel D bf16 ms={bf_ms:.4f} plain_ms={bf_plain_ms:.4f} (bf16 torch ops) "
           f"bound_ms={bf_bms:.4f} ({bf_by}, bf16 tensor-core rate {PEAK_BF16_FLOP_PER_S / 1e12:.0f} "
           f"TFLOP/s), {share(bf_bms, bf_ms)}; "
-          f"library C - Z Y^T - Y Z^T in bf16 (2 torch.matmul) ms={bf_lib_ms:.4f}")
+          f"library C - Z Y^T - Y Z^T in bf16 (2 torch.matmul) ms={bf_lib_ms:.4f}, "
+          f"{share(bf_bms, bf_lib_ms)}; kernel / library {bf_ms / bf_lib_ms:.2f}x")
     rows["syr2k"] = dict(max_abs_err=max_abs, compared="C + alpha (A B^T + B A^T) entrywise, with "
                          "and without C; exact symmetry", ms=ms, plain_ms=plain_ms, bound_ms=bms,
                          bound_by=by, library_ms=lib_ms,
@@ -448,7 +466,6 @@ def stage_times(torch, phase: str, A, pl) -> None:
 def phase_main_path(torch, gen):
     """Phase 3: the main path at n = 4096 through the plan API."""
     from repro_torch.core.band_reduction import build_stage_schedule
-    from repro_torch.core.bulge_chasing import num_wavefronts
     from repro_torch.kernels import cuda_lib
     from repro_torch.solver import EvdConfig, plan
 
@@ -469,12 +486,12 @@ def phase_main_path(torch, gen):
     peak = torch.cuda.max_memory_allocated()
     print(f"phase 3 launches on the main path: {launches}; CUDA launches {device_launches}")
     # One kernel-A call per DBR block (4 CUDA launches per panel, 3 for the
-    # first, + 2), one kernel-B call (one launch per wavefront), one kernel-C
+    # first, + 2), one kernel-B call (one persistent launch), one kernel-C
     # call (the log's regroup, then the apply).
     entries = build_stage_schedule(n, pl.b, pl.nb).entries
     want = {"fused_panel_update": len(entries), "bulge_wavefront": 1, "backtransform_wy": 1}
     want_device = {"fused_panel_update": sum(4 * (e.w // pl.b) + 1 for e in entries),
-                   "bulge_wavefront": num_wavefronts(n, pl.b), "backtransform_wy": 2}
+                   "bulge_wavefront": 1, "backtransform_wy": 2}
     got = {op: launches[op] for op in launches if launches[op] or op in want}
     got_device = {op: device_launches[op] for op in want}
     require(got == want, f"main-path launches {got}, expected {want}")
@@ -552,6 +569,9 @@ def phase_unfused(torch, gen):
     ev_ms = wall_ms(torch, lambda: out.setdefault("w", pl.eigvals(A)))
     expect(".eigvals(A)", cuda_lib.launch_counts(),
            {"trailing_update": blocks, "bulge_wavefront": 1})
+    ev_device = cuda_lib.device_launch_counts()
+    require(ev_device["trailing_update"] == blocks and ev_device["bulge_wavefront"] == 1,
+            f"phase 5 .eigvals(A) CUDA launches {ev_device}")
     e_ev = max_eig_err(out["w"], w_ref)
     print(f"phase 5 eigvals max|w - w_ref|/max|w| = {e_ev:.3e} (tol {TOL_EIG:.0e})")
     require(e_ev < TOL_EIG, "phase 5 eigvals()")

@@ -1,157 +1,269 @@
-// Kernel B: wavefront bulge chase, band -> tridiagonal (second stage).
+// Kernel B: bulge chase, band -> tridiagonal (second stage), in one launch.
 //
 // Replaces repro/kernels/bulge.py:bulge_wavefront_pallas (body _bulge_kernel,
-// window update _window_update).  At wavefront wf, slot a runs op (s, k) with
-// s = wf/3 - a, k = wf - 3s: one two-sided Householder update of the 3b x 3b
-// window at rows/cols [r0, r0+3b), r0 = s+1+(k-1)b, that eliminates column
-// b-1 (k == 0) or 0 (k >= 1) of the window below its row b.  Optionally it
-// writes the reflector log (vs, taus, row0) in the (W, A, b) layout of the
-// plain version; an inactive slot logs v = e_0, tau = 0, row0 = n.
+// window update _window_update).  Op (s, k) of sweep s is one two-sided
+// Householder update of the 3b x 3b window at rows/cols [r0, r0+3b),
+// r0 = s+1+(k-1)b, that eliminates column b-1 (k == 0) or 0 (k >= 1) of
+// the window below its row b; sweep s runs ops k = 0 .. kmax(s),
+// kmax(s) = (n-3-s)/b.  The plain version runs op (s, k) at wavefront
+// 3s+k, in slot a = k/3.  Optionally the kernel writes the reflector log
+// (vs, taus, row0) in that (W, A, b) layout; an inactive slot logs v = e_0,
+// tau = 0, row0 = n.
 //
 // What bounds it on the H100: neither bytes nor flops.  One op moves
-// ~2 * 9b^2 * 4 bytes and does ~20 b^2 flops; at n = 4096, b = 8 the chase
-// runs 3(n-3)+1 = 12280 dependent wavefronts of at most 172 ops, so the
-// time is launch and synchronization latency.
+// ~2 * 9b^2 * 4 bytes and does ~20 b^2 flops, and the chase is a chain of
+// 3(n-3)+1 dependent steps (12280 at n = 4096), so its time is the latency
+// of one step: the window's load from L2, the reflector, the write-back
+// and the hand-off to the next sweep.
 //
-// Design.  The TPU kernel keeps the whole padded matrix in VMEM and walks
-// the wavefronts as a sequential grid.  Here the matrix stays in global
-// memory (the dense n x n copy, no padding: reads outside [0, n) are zeros
-// and are not written), there is one launch per wavefront (the stream
-// orders them), and one CTA per `group` slots, each window in shared
-// memory.  Windows of one wavefront share at most the corner element
-// (r0 + 3b - 1) with the next slot, and neither op changes it, so a CTA
-// writes back only what its reflector changes: window rows [b, 2b) and
-// window columns [b, 2b).  Writing the whole window back would race.  The
-// persistent kernel with the paper's inter-CTA flags is later work.
+// Design: a persistent grid, the paper's sweeps pipelined across CTAs.
+// Each CTA takes sweeps in order from a ticket (an atomic counter) and runs
+// all ops of its sweep; sweep s publishes its count of finished ops in
+// done[s].  Before op k, sweep s waits until done[s-1] >= min(k+3,
+// kmax(s-1)+1), i.e. until op (s-1, k+2) has finished, or all of sweep s-1
+// where it has fewer ops.  Why that is enough:
+//  - Every op that precedes (s, k) in the wavefront order and overlaps its
+//    window has finished.  Op (s-j, k') runs at wavefront 3(s-j)+k', before
+//    (s, k) when k' < k+3j.  The waits chain: (s-j, k+2j) finished before
+//    (s-j+1, k+2j-2) started, ..., before (s, k), and the ops of one sweep
+//    run in order, so (s-j, k') has finished for every k' <= k+2j.  The
+//    rest, k+2j < k' < k+3j, start at row s-j+1+(k'-1)b >= s+(k+2)b +
+//    (j-1)(2b-1): for j >= 2 past the window's last row s+(k+2)b, for
+//    j = 1 (k' = k+3 is the only one) exactly at it.
+//  - An op that may run beside (s, k) does not touch what (s, k) reads or
+//    writes.  The only candidates are (s-1, k') with k' >= k+3 (and,
+//    mirrored, (s+1, k') with k' <= k-3): (s-1, k+3)'s window shares one
+//    element with (s, k)'s, the corner (s+(k+2)b, s+(k+2)b), which is local
+//    (3b-1, 3b-1) of one window and (0, 0) of the other, and neither op
+//    changes it: an op writes back only window rows and columns [b, 2b).
+//    Later ops of sweep s-1 lie past the window.
+//  - The sweeps before s were taken earlier, by CTAs that are running, and
+//    sweep 0 waits for nothing, so the grid cannot deadlock whether or not
+//    all its CTAs are resident.  The last ops of a sweep may reach past n
+//    (reads there are zeros, nothing is written), and a wait never asks
+//    more of done[s-1] than kmax(s-1)+1, what sweep s-1 publishes last.
+// The window's loads after a wait go through L2 (__ldcg), since L1 is not
+// coherent across SMs.  Windows of consecutive ops of a sweep overlap by
+// 2b rows and columns, but each op loads its whole window, in one round
+// trip to L2.  Keeping the overlap in shared memory saves no round trip:
+// what sweep s-1 wrote into the window since the last load has to be read
+// after the wait.  A version that kept it, fetched the next window while
+// the op computed and carried (s-1, k+3)'s beta (the one entry of its
+// writes that op (s, k+1) reads) in the flag was slower on the H100: its
+// op grew by more than the load it hid.  The log's inactive slots are
+// written by the grid after its sweeps, so one call is one CUDA launch.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kLoadBatch = 8;  // window loads a thread has in flight at once
 
-__global__ void bulge_wavefront_kernel(float* __restrict__ T, int n, int b, int wf, int A,
-                                       int G, float* __restrict__ vs,
-                                       float* __restrict__ taus, int* __restrict__ row0,
-                                       int with_log) {
-  REPRO_DYNAMIC_SMEM(sm);
-  __shared__ float s_tau, s_beta, s_v0, s_vmv;
-  __shared__ int s_deg;
+// Shared memory: the window W (3b rows of 3b + 1 floats: the padding makes
+// thread r's walk along row r conflict-free), u and Mv (3b each), the sweep
+// number.
+__host__ __device__ constexpr int smem_floats(int b) { return 3 * b * (3 * b + 1) + 6 * b + 1; }
+
+// Op (s, k): load the window, form the reflector, write back window rows
+// and columns [b, 2b), and log it at slot (3s+k, k/3).  kB > 0 fixes b at
+// compile time (the main path's b = 8: index arithmetic folds, loops
+// unroll); kB == 0 takes b as it comes.  Every warp forms tau, beta and
+// v^T M v from the same warp-wide sums, so all threads agree bitwise
+// without a barrier; wv is formed where it is used.
+template <int kB>
+__device__ __forceinline__ void chase_op(float* __restrict__ T, int n, int b_in, int s, int k,
+                                         int A, float* sm, float* __restrict__ vs,
+                                         float* __restrict__ taus, int* __restrict__ row0,
+                                         int with_log) {
+  const int b = kB > 0 ? kB : b_in;
   const int w3 = 3 * b;
+  const int ld = w3 + 1;
   float* W = sm;
-  float* u = W + w3 * w3;
+  float* u = W + w3 * ld;  // the reflector, v = u[b:2b] with v[0] = 1
   float* Mv = u + w3;
-  float* wv = Mv + w3;
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  for (int g = 0; g < G; ++g) {
-    const int a = blockIdx.x * G + g;
-    if (a >= A) return;
-    const int s = wf / 3 - a;
-    const int k = wf - 3 * s;
-    const bool active = s >= 0 && s <= n - 3 && k >= 0 && k <= (n - 3 - s) / b;
-    const long long lidx = (long long)wf * A + a;
-    if (!active) {
-      if (with_log) {
-        for (int r = tid; r < b; r += nt) vs[lidx * b + r] = r == 0 ? 1.f : 0.f;
-        if (tid == 0) {
-          taus[lidx] = 0.f;
-          row0[lidx] = n;
-        }
-      }
-      continue;
-    }
-    const int r0 = s + 1 + (k - 1) * b;
-    for (int e = tid; e < w3 * w3; e += nt) {
-      const int gr = r0 + e / w3;
-      const int gc = r0 + e % w3;
-      W[e] = (gr >= 0 && gr < n && gc >= 0 && gc < n) ? T[(long long)gr * n + gc] : 0.f;
-    }
-    __syncthreads();
-    const int elim = k == 0 ? b - 1 : 0;
-    if (tid == 0) {
-      // house(x) of x = W[b:2b, elim]: beta = +|x|, the JAX package's sign.
-      const float alpha = W[b * w3 + elim];
-      float sigma = 0.f;
-      for (int r = 1; r < b; ++r) {
-        const float x = W[(b + r) * w3 + elim];
-        sigma += x * x;
-      }
-      const float mu = sqrtf(alpha * alpha + sigma);
-      const float safe_denom = (alpha + mu == 0.f) ? 1.f : alpha + mu;
-      const float v0 = alpha <= 0.f ? alpha - mu : -sigma / safe_denom;
-      const bool degenerate = sigma == 0.f;
-      const float v0s = degenerate ? 1.f : v0;
-      s_v0 = v0s;
-      s_deg = degenerate;
-      s_tau = degenerate ? 0.f : 2.f * v0s * v0s / (sigma + v0s * v0s);
-      s_beta = degenerate ? alpha : mu;
-    }
-    __syncthreads();
-    for (int r = tid; r < w3; r += nt) {
-      float val = 0.f;
-      if (r == b) val = 1.f;
-      else if (r > b && r < 2 * b) val = s_deg ? 0.f : W[r * w3 + elim] / s_v0;
-      u[r] = val;
-    }
-    __syncthreads();
-    for (int r = tid; r < w3; r += nt) {
-      float acc = 0.f;
-      for (int c = b; c < 2 * b; ++c) acc += W[r * w3 + c] * u[c];
-      Mv[r] = acc;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      float acc = 0.f;
-      for (int r = b; r < 2 * b; ++r) acc += u[r] * Mv[r];
-      s_vmv = acc;
-    }
-    __syncthreads();
-    for (int r = tid; r < w3; r += nt) wv[r] = s_tau * (Mv[r] - 0.5f * s_tau * s_vmv * u[r]);
-    __syncthreads();
-    for (int e = tid; e < w3 * w3; e += nt) {
+  constexpr int nt = kThreads;  // the launch's block size: loops over threads unroll
+  const int lane = tid % 32;
+  const int r0 = s + 1 + (k - 1) * b;
+  // The window, kLoadBatch independent loads per thread at a time: one
+  // round trip to L2 per batch.
+  for (int e0 = 0; e0 < w3 * w3; e0 += kLoadBatch * nt) {
+    float v[kLoadBatch];
+    int at[kLoadBatch];
+#pragma unroll
+    for (int j = 0; j < kLoadBatch; ++j) {
+      const int e = e0 + j * nt + tid;
       const int r = e / w3;
-      const int c = e % w3;
-      const bool rin = r >= b && r < 2 * b;
-      const bool cin = c >= b && c < 2 * b;
-      if (!rin && !cin) continue;
-      float val = W[e] - u[r] * wv[c] - wv[r] * u[c];
-      if (rin && c == elim) val = (r == b) ? s_beta : 0.f;
-      if (cin && r == elim) val = (c == b) ? s_beta : 0.f;
+      const int c = e - r * w3;
       const int gr = r0 + r;
       const int gc = r0 + c;
-      if (gr >= 0 && gr < n && gc >= 0 && gc < n) T[(long long)gr * n + gc] = val;
+      at[j] = e < w3 * w3 ? r * ld + c : -1;
+      v[j] = (at[j] >= 0 && gr >= 0 && gr < n && gc >= 0 && gc < n)
+                 ? __ldcg(T + (long long)gr * n + gc) : 0.f;
     }
-    if (with_log) {
-      for (int r = tid; r < b; r += nt) vs[lidx * b + r] = u[b + r];
-      if (tid == 0) {
-        taus[lidx] = s_tau;
-        row0[lidx] = s + 1 + k * b;
-      }
-    }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kLoadBatch; ++j)
+      if (at[j] >= 0) W[at[j]] = v[j];
   }
+  __syncthreads();
+  // house(x) of x = W[b:2b, elim]: beta = +|x|, the JAX package's sign.
+  const int elim = k == 0 ? b - 1 : 0;
+  const float alpha = W[b * ld + elim];
+  float sigma = 0.f;
+  for (int i = 1 + lane; i < b; i += 32) {
+    const float x = W[(b + i) * ld + elim];
+    sigma += x * x;
+  }
+  sigma = repro::warp_sum(sigma);
+  const float mu = sqrtf(alpha * alpha + sigma);
+  const float safe_denom = (alpha + mu == 0.f) ? 1.f : alpha + mu;
+  const bool degenerate = sigma == 0.f;
+  const float v0 = degenerate ? 1.f : (alpha <= 0.f ? alpha - mu : -sigma / safe_denom);
+  const float tau = degenerate ? 0.f : 2.f * v0 * v0 / (sigma + v0 * v0);
+  const float beta = degenerate ? alpha : mu;
+  for (int r = tid; r < w3; r += nt) {
+    float val = 0.f;
+    if (r == b) val = 1.f;
+    else if (r > b && r < 2 * b) val = degenerate ? 0.f : W[r * ld + elim] / v0;
+    u[r] = val;
+  }
+  __syncthreads();
+  for (int r = tid; r < w3; r += nt) {  // Mv = W[:, b:2b] v
+    float acc = 0.f;
+    for (int c = b; c < 2 * b; ++c) acc += W[r * ld + c] * u[c];
+    Mv[r] = acc;
+  }
+  __syncthreads();
+  float part = 0.f;
+  for (int i = lane; i < b; i += 32) part += u[b + i] * Mv[b + i];
+  const float vmv = repro::warp_sum(part);
+  auto wv = [&](int r) { return tau * (Mv[r] - 0.5f * tau * vmv * u[r]); };
+  // Write back rows [b, 2b) (all columns), then columns [b, 2b) of the
+  // other rows.
+  const int n_rows = b * w3;
+  for (int q = tid; q < n_rows + 2 * b * b; q += nt) {
+    int r, c;
+    if (q < n_rows) {
+      r = b + q / w3;
+      c = q % w3;
+    } else {
+      const int rr = (q - n_rows) / b;
+      r = rr < b ? rr : rr + b;
+      c = b + (q - n_rows) % b;
+    }
+    const bool rin = r >= b && r < 2 * b;
+    const bool cin = c >= b && c < 2 * b;
+    float val = W[r * ld + c] - u[r] * wv(c) - wv(r) * u[c];
+    if (rin && c == elim) val = (r == b) ? beta : 0.f;
+    if (cin && r == elim) val = (c == b) ? beta : 0.f;
+    const int gr = r0 + r;
+    const int gc = r0 + c;
+    if (gr >= 0 && gr < n && gc >= 0 && gc < n) T[(long long)gr * n + gc] = val;
+  }
+  if (with_log) {
+    const long long lidx = (long long)(3 * s + k) * A + k / 3;
+    for (int i = tid; i < b; i += nt) vs[lidx * b + i] = u[b + i];
+    if (tid == 0) {
+      taus[lidx] = tau;
+      row0[lidx] = s + 1 + k * b;
+    }
+  }
+  __syncthreads();
+}
+
+// done[0 .. n-3]: finished ops per sweep; done[n-2]: the ticket.  Zero
+// before the launch.  Thread 0 waits on sweep s-1 while thread 32 publishes
+// the op before, so the two round trips to L2 overlap.
+template <int kB>
+__global__ void __launch_bounds__(kThreads)
+    bulge_chase_kernel(float* __restrict__ T, int n, int b_in, int A, float* __restrict__ vs,
+                       float* __restrict__ taus, int* __restrict__ row0, int with_log,
+                       int* __restrict__ done) {
+  const int b = kB > 0 ? kB : b_in;
+  REPRO_DYNAMIC_SMEM(sm);
+  int* s_sweep = reinterpret_cast<int*>(sm + smem_floats(b) - 1);
+  const int tid = threadIdx.x;
+  const int last = n - 3;
+  for (;;) {
+    if (tid == 0) *s_sweep = atomicAdd(done + n - 2, 1);
+    __syncthreads();
+    const int s = *s_sweep;
+    __syncthreads();
+    if (s > last) break;
+    const int ops = (n - 3 - s) / b + 1;
+    const int prev_ops = (n - 2 - s) / b + 1;  // kmax(s-1) + 1
+    int seen = 0;                              // thread 0: done[s-1] as last read
+    for (int k = 0; k < ops; ++k) {
+      const int target = min(k + 3, prev_ops);
+      if (s > 0 && tid == 0 && seen < target) seen = repro::flag_wait(done + s - 1, target);
+      if (k > 0 && tid == 32) repro::flag_publish(done + s, k);
+      __syncthreads();
+      chase_op<kB>(T, n, b, s, k, A, sm, vs, taus, row0, with_log);
+    }
+    if (tid == 32) repro::flag_publish(done + s, ops);
+  }
+  if (!with_log) return;
+  // Inactive slots: slot (wf, a) holds op (s, k) = (wf/3 - a, wf - 3s).
+  const long long slots = (long long)(3 * (n - 3) + 1) * A;
+  for (long long i = (long long)blockIdx.x * blockDim.x + tid; i < slots;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int wf = (int)(i / A);
+    const int a = (int)(i % A);
+    const int s = wf / 3 - a;
+    const int k = wf - 3 * s;
+    if (s >= 0 && s <= last && k <= (n - 3 - s) / b) continue;
+    for (int r = 0; r < b; ++r) vs[i * b + r] = r == 0 ? 1.f : 0.f;
+    taus[i] = 0.f;
+    row0[i] = n;
+  }
+}
+
+template <int kB>
+int launch(float* T, int n, int b, int A, int ctas, float* vs, float* taus, int* row0,
+           int with_log, int* work, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int smem = smem_floats(b) * (int)sizeof(float);
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(bulge_chase_kernel<kB>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (ctas == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bulge_chase_kernel<kB>,
+                                                        kThreads, (size_t)smem);
+    if (err != cudaSuccess) return (int)err;
+    ctas = std::min(per_sm * sms, std::min(A, n - 2));
+    if (ctas < 1) return (int)cudaErrorInvalidValue;
+  }
+  REPRO_LAUNCH_PERSISTENT(bulge_chase_kernel<kB>, (unsigned)ctas, kThreads, smem, st)
+  (T, n, b, A, vs, taus, row0, with_log, work);
+  REPRO_CHECK_LAUNCH();
+  return 0;
 }
 
 }  // namespace
 
-// One launch per wavefront: 3(n-3)+1 launches per call.
-extern "C" int bulge_wavefront_launch(float* T, int n, int b, int A, int G, float* vs,
-                                      float* taus, int* row0, int with_log, void* stream) {
-  if (n < 3 || b < 2 || A < 1 || G < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int w3 = 3 * b;
-  const int smem = (w3 * w3 + 3 * w3) * (int)sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        bulge_wavefront_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int W = 3 * (n - 3) + 1;
-  const unsigned blocks = (unsigned)((A + G - 1) / G);
-  for (int wf = 0; wf < W; ++wf) {
-    REPRO_LAUNCH(bulge_wavefront_kernel, blocks, kThreads, smem, st)
-    (T, n, b, wf, A, G, vs, taus, row0, with_log);
-    REPRO_CHECK_LAUNCH();
-  }
-  return 0;
+// Bytes of the zeroed workspace the launcher needs: n-2 progress counters
+// and the ticket.
+extern "C" long long bulge_wavefront_workspace(int n) {
+  return (long long)(n - 1) * (long long)sizeof(int);
+}
+
+// One launch for the whole chase.  T: (n, n) row-major, chased in place;
+// A: slots per wavefront of the log; ctas: CTAs of the persistent grid, or
+// 0 for as many as the card keeps resident, at most min(A, n-2), the sweeps
+// that can be in flight; work: bulge_wavefront_workspace(n) zeroed bytes.
+extern "C" int bulge_wavefront_launch(float* T, int n, int b, int A, int ctas, float* vs,
+                                      float* taus, int* row0, int with_log, int* work,
+                                      void* stream) {
+  if (n < 3 || b < 2 || A < 1 || ctas < 0) return (int)cudaErrorInvalidValue;
+  return b == 8 ? launch<8>(T, n, b, A, ctas, vs, taus, row0, with_log, work, stream)
+                : launch<0>(T, n, b, A, ctas, vs, taus, row0, with_log, work, stream);
 }

@@ -105,6 +105,49 @@ __device__ __forceinline__ void cp_async_wait() {
 }  // namespace repro
 #endif
 
+// A persistent grid: CTAs that take work from a ticket and hand it to each
+// other through flags in global memory (kernel B).  On the card it is a
+// plain launch; the host emulation runs all its CTAs together.
+#ifndef REPRO_LAUNCH_PERSISTENT
+#define REPRO_LAUNCH_PERSISTENT(kern, grid, block, smem, stream) \
+  kern<<<(grid), (block), (smem), (stream)>>>
+#endif
+
+#ifndef REPRO_HOST_EMULATION
+namespace repro {
+// Flags between CTAs.  flag_publish is a release store: this thread's
+// earlier global stores, and those of its CTA ordered before it by
+// __syncthreads(), are visible at gpu scope before `value` lands.
+// flag_wait spins on acquire loads until the flag reaches `target` (this
+// thread's later loads are ordered after it) and returns what it read.
+__device__ __forceinline__ int flag_wait(const int* flag, int target) {
+  int v;
+  do {
+    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(flag) : "memory");
+  } while (v < target);
+  return v;
+}
+__device__ __forceinline__ void flag_publish(int* flag, int value) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(flag), "r"(value) : "memory");
+}
+
+// d += a b on the tensor cores: one warp-wide m16n8k16 product of bf16
+// fragments with float32 accumulation.  With g = lane / 4, t = lane % 4 and
+// the element of lower index in the lower 16 bits of a register:
+//   a[r]: A (16 x 16, row-major) row g + 8 (r & 1), columns 2t + 8 (r >> 1), +1
+//   b[r]: B (16 x 8, k x n) rows 2t + 8 r, +1, column g
+//   d[i]: D (16 x 8) row g + 8 (i >> 1), column 2t + (i & 1)
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a)[4],
+                                               const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+}  // namespace repro
+#endif
+
 #define REPRO_CHECK_LAUNCH()                \
   do {                                      \
     cudaError_t err_ = cudaGetLastError();  \

@@ -1,21 +1,13 @@
 // The lower-tile SYR2K walk shared by kernel A's trailing update
 // (fused_panel.cu:trailing_lower) and kernel D (syr2k.cu): one CTA of
 // kSyr2kThreads threads per 64 x 64 tile of the lower triangle, each thread
-// a 4 x 4 block of the tile, k in 16-wide strips staged in shared memory.
-// Inputs are float or bf16 (converted to float as they are staged); the
-// sums are float either way.
+// a 4 x 4 block of the tile, k in 16-wide strips staged in shared memory,
+// float32 on the SIMT units (kernel D's bf16 walk is its own, in syr2k.cu).
 #pragma once
-
-#include <cuda_bf16.h>
 
 #include "common.cuh"
 
 namespace repro {
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 constexpr int kSyr2kTile = 64;
 constexpr int kSyr2kStrip = 16;
@@ -34,9 +26,8 @@ __device__ __forceinline__ void lower_tile(long long t, int& ti, int& tj) {
 // i = gi0 + (threadIdx.x / 16) * 4 + a and j = gj0 + (threadIdx.x % 16) * 4 + c
 // of A, B (rows, kdim), leading dimension ld.  Rows past `rows` and k past
 // `kdim` read as zero.  Contains __syncthreads(): call from all threads.
-template <class T>
-__device__ __forceinline__ void syr2k_tile_acc(const T* __restrict__ A,
-                                               const T* __restrict__ B, long long ld,
+__device__ __forceinline__ void syr2k_tile_acc(const float* __restrict__ A,
+                                               const float* __restrict__ B, long long ld,
                                                int rows, int kdim, int gi0, int gj0,
                                                float (&acc)[4][4]) {
   __shared__ float sAi[kSyr2kStrip][kSyr2kTile + 1];
@@ -60,10 +51,10 @@ __device__ __forceinline__ void syr2k_tile_acc(const T* __restrict__ A,
       const bool ok_j = k < kdim && gj < rows;
       const long long oi = (long long)gi * ld + k;
       const long long oj = (long long)gj * ld + k;
-      sAi[kk][r] = ok_i ? to_float(A[oi]) : 0.f;
-      sBi[kk][r] = ok_i ? to_float(B[oi]) : 0.f;
-      sAj[kk][r] = ok_j ? to_float(A[oj]) : 0.f;
-      sBj[kk][r] = ok_j ? to_float(B[oj]) : 0.f;
+      sAi[kk][r] = ok_i ? A[oi] : 0.f;
+      sBi[kk][r] = ok_i ? B[oi] : 0.f;
+      sAj[kk][r] = ok_j ? A[oj] : 0.f;
+      sBj[kk][r] = ok_j ? B[oj] : 0.f;
     }
     __syncthreads();
 #pragma unroll

@@ -1,13 +1,14 @@
-"""Launcher of kernel B, ``csrc/bulge.cu`` (the wavefront bulge chase).
+"""Launcher of kernel B, ``csrc/bulge.cu`` (the bulge chase).
 
 Replaces ``repro.kernels.bulge.bulge_wavefront_pallas`` and its wrapper
-``repro.kernels.ops.bulge_wavefront`` (minus the fallback).  The log comes
-out in the plain version's (W, A, b) layout with A = ``max_active_sweeps``.
+``repro.kernels.ops.bulge_wavefront`` (minus the fallback).  One call is
+one CUDA launch: a persistent grid whose CTAs take the sweeps in order and
+hand them on through flags.  The log comes out in the plain version's
+(W, A, b) layout with A = ``max_active_sweeps``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
 
 import torch
 
@@ -18,27 +19,26 @@ __all__ = ["bulge_wavefront_cuda"]
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             _P, _P, _P, ctypes.c_int, _P]
+             _P, _P, _P, ctypes.c_int, _P, _P]
+_WORKSPACE_ARGTYPES = [ctypes.c_int]
 
 
 def _lib():
-    fn = cuda_lib.library("bulge").bulge_wavefront_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+    lib = cuda_lib.library("bulge")
+    fn, ws = lib.bulge_wavefront_launch, lib.bulge_wavefront_workspace
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    ws.argtypes, ws.restype = _WORKSPACE_ARGTYPES, ctypes.c_longlong
+    return fn, ws
 
 
-def bulge_wavefront_cuda(
-    B: torch.Tensor, b: int, *, return_log: bool = False, group: Optional[int] = None
-):
+def bulge_wavefront_cuda(B: torch.Tensor, b: int, *, return_log: bool = False):
     """Kernel B: band (dense (n, n) float32 CUDA tensor, bandwidth ``b``) ->
     tridiagonal.  Returns ``T`` or ``(T, ChaseLog)``; ``B`` is not modified.
-    ``group`` is the number of slots per CTA (default: the ``cuda`` row of
-    ``repro_torch.solver.autotune.wavefront_group``)."""
+    The persistent grid has as many CTAs as the card keeps resident, at
+    most the sweeps that can be in flight."""
     from repro_torch.core.bulge_chasing import (
         ChaseLog, _trivial_log, max_active_sweeps, num_wavefronts,
     )
-    from repro_torch.solver.autotune import wavefront_group
 
     if not B.is_cuda:
         raise ValueError(f"bulge_wavefront_cuda needs a CUDA tensor, got {B.device}")
@@ -50,13 +50,12 @@ def bulge_wavefront_cuda(
     if n < 3 or b <= 1:  # no chase op exists: T == B
         T = B.clone()
         return (T, _trivial_log(B, b)) if return_log else T
-    smem = (9 * b * b + 9 * b) * 4  # the 3b x 3b window and three 3b vectors
+    smem = (3 * b * (3 * b + 1) + 6 * b + 1) * 4  # the padded 3b x 3b window, u, Mv, the sweep
     if smem > limit("SMEM_PER_BLOCK_MAX"):
         raise ValueError(f"b={b} needs {smem} bytes of shared memory per CTA; the card has "
                          f"{limit('SMEM_PER_BLOCK_MAX')}")
     A = max_active_sweeps(n, b)
     W = num_wavefronts(n, b)
-    G = max(1, min(int(group or wavefront_group(n, b, "cuda")), A))
     T = torch.empty((n, n), dtype=torch.float32, device=B.device)
     T.copy_(B)
     kw = dict(device=B.device)
@@ -67,14 +66,17 @@ def bulge_wavefront_cuda(
     else:
         vs = taus = torch.empty((1,), dtype=torch.float32, **kw)
         row0 = torch.empty((1,), dtype=torch.int32, **kw)
-    fn = _lib()
+    fn, ws = _lib()
+    # Scratch: the sweeps' progress counters and the ticket, zeroed.
+    work = torch.zeros((ws(n) // 4,), dtype=torch.int32, **kw)
     with torch.cuda.device(B.device):
         err = fn(
-            T.data_ptr(), n, b, A, G, vs.data_ptr(), taus.data_ptr(), row0.data_ptr(),
-            int(return_log), torch.cuda.current_stream().cuda_stream,
+            T.data_ptr(), n, b, A, 0, vs.data_ptr(), taus.data_ptr(),
+            row0.data_ptr(), int(return_log), work.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     cuda_lib.check(err, "bulge_wavefront")
-    cuda_lib.count("bulge_wavefront", W)
+    cuda_lib.count("bulge_wavefront", 1)
     if not return_log:
         return T
     return T, ChaseLog(vs=vs, taus=taus, row0=row0, n=n, b=b)

@@ -5,15 +5,20 @@
 // A launch runs one cluster of CTAs at a time (a plain launch is a cluster of
 // one), with one std::thread per CUDA thread of the cluster.  Each CTA of
 // the running cluster has its own dynamic shared memory, its own block
-// barrier (__syncthreads) and its own warps (__shfl_xor_sync); the CTAs of a
-// cluster run together, meet at repro::cluster_sync() and read each other's
-// dynamic shared memory through repro::cluster_peer().  Clusters run one
-// after another, so this checks what one cluster computes, not races
-// between clusters.  `__shared__` variables are process-wide statics here:
-// a kernel launched with a cluster of more than one CTA keeps its shared
-// state in dynamic shared memory (REPRO_DYNAMIC_SMEM).
+// barrier (__syncthreads) and its own warps (__shfl_xor_sync,
+// repro::mma_bf16_16816); the CTAs of a cluster run together, meet at
+// repro::cluster_sync() and read each other's dynamic shared memory through
+// repro::cluster_peer().  Clusters run one after another, so this checks
+// what one cluster computes, not races between clusters.  A persistent
+// grid (REPRO_LAUNCH_PERSISTENT) runs as one group of all its CTAs, which
+// hand work to each other through repro::flag_wait / flag_publish and int
+// atomicAdd; emu_run_ctas_in_turn(1) runs its CTAs one after another
+// instead.  `__shared__` variables are process-wide statics here: a kernel
+// whose CTAs run together keeps its shared state in dynamic shared memory
+// (REPRO_DYNAMIC_SMEM).
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstring>
@@ -41,6 +46,7 @@ struct Cta {
   std::unique_ptr<std::barrier<>> bar;
   std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
   std::vector<float> shfl;
+  std::vector<unsigned> mma_a, mma_b;  // each thread's mma fragments
   std::vector<float> smem;
 };
 inline thread_local dim3 tIdx, bIdx;
@@ -50,13 +56,26 @@ inline dim3 bDim, gDim;
 inline std::vector<Cta>* cluster_ctas = nullptr;
 inline std::barrier<>* cluster_bar = nullptr;
 inline std::mutex atomic_lock;
+inline bool ctas_in_turn = false;
 }  // namespace emu
+// Run a persistent grid's CTAs one after another (1) or together (0, the
+// default).
+extern "C" void emu_run_ctas_in_turn(int on) { emu::ctas_in_turn = on != 0; }
 #define threadIdx emu::tIdx
 #define blockIdx emu::bIdx
 #define blockDim emu::bDim
 #define gridDim emu::gDim
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+// The emulated card: 4 SMs, one CTA of any kernel resident on each.
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 4; return cudaSuccess; }
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* v, K, int, size_t) {
+  *v = 1;
+  return cudaSuccess;
+}
 typedef struct CUstream_st* cudaStream_t;
 enum cudaFuncAttribute {
   cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -81,8 +100,14 @@ inline float atomicAdd(float* p, float v) {
   *p += v;
   return old;
 }
+inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+template <class T>
+inline T __ldcg(const T* p) { return *p; }
 struct alignas(16) float4 {
   float x, y, z, w;
+};
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
 };
 
 // bf16 as the card stores it: the high 16 bits of a float, rounded to
@@ -92,6 +117,12 @@ struct __nv_bfloat16 {
 };
 inline float __bfloat162float(__nv_bfloat16 h) {
   unsigned u = (unsigned)h.x << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.x; }
+inline float __uint_as_float(unsigned u) {
   float f;
   std::memcpy(&f, &u, 4);
   return f;
@@ -129,6 +160,57 @@ inline void cp_async_wait() {}
 // Every cluster size can be co-scheduled here.
 template <class K>
 inline int fit_cluster(K, int, size_t, int want) { return want; }
+
+// The flag helpers of csrc/common.cuh: an acquire load that yields while
+// it spins, and a release store.
+inline int flag_wait(const int* flag, int target) {
+  std::atomic_ref<int> f(*const_cast<int*>(flag));
+  int v;
+  while ((v = f.load(std::memory_order_acquire)) < target) std::this_thread::yield();
+  return v;
+}
+inline void flag_publish(int* flag, int value) {
+  std::atomic_ref<int>(*flag).store(value, std::memory_order_release);
+}
+
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, d += a b, by the PTX
+// fragment layout (g = lane / 4, t = lane % 4; the lower 16 bits of a
+// register hold the element of lower index):
+//   a[r]: A (16 x 16, row-major) rows g + 8 (r & 1), columns 2t + 8 (r >> 1), +1
+//   b[r]: B (16 x 8, k x n) rows 2t + 8 r, +1, column g
+//   d[i]: D (16 x 8) row g + 8 (i >> 1), column 2t + (i & 1)
+// The warp's fragments meet in the CTA's buffers between two warp barriers.
+inline float bf16_half(unsigned reg, int hi) {
+  const unsigned u = (hi ? reg >> 16 : reg & 0xffffu) << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline void mma_bf16_16816(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  const int t = emu::tIdx.x;
+  const int w0 = t & ~31;
+  auto* bar = emu::cta->warp_bars[t / 32].get();
+  unsigned* fa = emu::cta->mma_a.data();
+  unsigned* fb = emu::cta->mma_b.data();
+  for (int r = 0; r < 4; ++r) fa[4 * t + r] = a[r];
+  for (int r = 0; r < 2; ++r) fb[2 * t + r] = b[r];
+  bar->arrive_and_wait();
+  const int lane = t - w0;
+  for (int i = 0; i < 4; ++i) {
+    const int row = lane / 4 + 8 * (i >> 1);
+    const int col = 2 * (lane % 4) + (i & 1);
+    float acc = d[i];
+    for (int k = 0; k < 16; ++k) {
+      const int la = w0 + (row % 8) * 4 + (k % 8) / 2;
+      const float av = bf16_half(fa[4 * la + (row >= 8) + 2 * (k >= 8)], k & 1);
+      const int lb = w0 + col * 4 + (k % 8) / 2;
+      const float bv = bf16_half(fb[2 * lb + (k >= 8)], k & 1);
+      acc += av * bv;
+    }
+    d[i] = acc;
+  }
+  bar->arrive_and_wait();
+}
 }  // namespace repro
 
 namespace emu {
@@ -143,6 +225,8 @@ cudaError_t run(K kern, dim3 grid, dim3 block, size_t smem, unsigned cluster, A.
     for (unsigned w = 0; w < (block.x + 31) / 32; ++w)
       c.warp_bars.emplace_back(new std::barrier<>(std::min(32u, block.x - 32 * w)));
     c.shfl.assign(block.x, 0.f);
+    c.mma_a.assign(4 * block.x, 0u);
+    c.mma_b.assign(2 * block.x, 0u);
     c.smem.assign(smem / sizeof(float) + 1, 0.f);
   }
   std::barrier<> all(cluster * block.x);
@@ -168,18 +252,23 @@ cudaError_t run(K kern, dim3 grid, dim3 block, size_t smem, unsigned cluster, A.
   cluster_bar = nullptr;
   return cudaSuccess;
 }
+// A plain launch: its CTAs one after another; a persistent one: all its
+// CTAs together (unless ctas_in_turn).
 template <class K>
 struct Launch {
   K kern;
   dim3 grid, block;
   size_t smem;
+  bool persistent;
   template <class... A>
   void operator()(A... args) {
-    run(kern, grid, block, smem, 1, args...);
+    run(kern, grid, block, smem, persistent && !ctas_in_turn ? grid.x : 1, args...);
   }
 };
 template <class K>
-Launch<K> make(K kern, dim3 grid, dim3 block, size_t smem) { return Launch<K>{kern, grid, block, smem}; }
+Launch<K> make(K kern, dim3 grid, dim3 block, size_t smem, bool persistent = false) {
+  return Launch<K>{kern, grid, block, smem, persistent};
+}
 template <class K, class... A>
 cudaError_t launch_cluster(K kern, dim3 grid, dim3 block, size_t smem, cudaStream_t,
                            unsigned cluster, A... args) {
@@ -188,5 +277,7 @@ cudaError_t launch_cluster(K kern, dim3 grid, dim3 block, size_t smem, cudaStrea
 }  // namespace emu
 #define REPRO_LAUNCH(kern, grid, block, smem, stream) \
   emu::make(kern, dim3(grid), dim3(block), (size_t)(smem))
+#define REPRO_LAUNCH_PERSISTENT(kern, grid, block, smem, stream) \
+  emu::make(kern, dim3(grid), dim3(block), (size_t)(smem), true)
 #define REPRO_LAUNCH_CLUSTER emu::launch_cluster
 #define REPRO_DYNAMIC_SMEM(name) float* name = emu::cta->smem.data()

@@ -159,6 +159,41 @@ def test_bulge_wavefront_matches_plain(cuda_device, n, b, with_log):
     assert torch.equal(lk.vs[~active], lp.vs[~active])
 
 
+@pytest.mark.parametrize("n,b", [(1024, 8), (1030, 16), (4096, 8)])
+def test_bulge_wavefront_repeatable(cuda_device, n, b):
+    """Two calls give bitwise the same T and log: each op is computed by one
+    CTA in a fixed order, whichever CTA takes its sweep (the CTAs take far
+    more sweeps than there are CTAs, so tickets wrap)."""
+    B = _band(n, b, n + 7, cuda_device)
+    T1, l1 = ops.bulge_wavefront(B, b, return_log=True)
+    T2, l2 = ops.bulge_wavefront(B, b, return_log=True)
+    T3 = ops.bulge_wavefront(B, b)
+    torch.cuda.synchronize()
+    assert torch.equal(T1, T2) and torch.equal(T1, T3)
+    assert torch.equal(l1.vs, l2.vs) and torch.equal(l1.taus, l2.taus) and torch.equal(l1.row0, l2.row0)
+
+
+@pytest.mark.parametrize("with_log", [False, True])
+def test_bulge_wavefront_is_one_launch(cuda_device, with_log):
+    """One call of kernel B is one CUDA launch of the persistent kernel, as
+    its launcher counts (the profiler sees the kernel once)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n, b = 512, 8
+    B = _band(n, b, 5, cuda_device)
+    ops.bulge_wavefront(B, b, return_log=with_log)  # build and warm up
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ops.bulge_wavefront(B, b, return_log=with_log)
+        torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()["bulge_wavefront"] == 1
+    assert cuda_lib.device_launch_counts()["bulge_wavefront"] == 1
+    chase = [ev for ev in prof.key_averages() if "bulge_chase_kernel" in ev.key
+             and (getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)) > 0]
+    assert sum(ev.count for ev in chase) == 1, [(ev.key, ev.count) for ev in chase]
+
+
 @pytest.mark.parametrize("n,m,b", [(48, 48, 8), (64, 8, 8), (50, 17, 4), (1024, 1024, 8), (4096, 64, 8)])
 @pytest.mark.parametrize("transpose", [False, True])
 @pytest.mark.parametrize("smem", [None, 0])
@@ -214,18 +249,26 @@ def test_syr2k_matches_plain(cuda_device, n, k, c_view):
         assert float((got - want).abs().max()) <= 2e-5 * max(float(want.abs().max()), 1.0)
 
 
-@pytest.mark.parametrize("n,k,c_view", [(64, 16, False), (100, 37, True), (3840, 256, True)])
+@pytest.mark.parametrize(
+    "n,k,c_view",
+    [(64, 16, False), (100, 37, True), (3840, 256, True), (129, 37, None), (3840, 256, None)],
+)
 def test_syr2k_bf16_matches_plain(cuda_device, n, k, c_view):
     """bf16 operands against the float32 plain version of the same
-    (bf16-valued) inputs at tests/test_kernels.py's bf16 tolerance."""
+    (bf16-valued) inputs at tests/test_kernels.py's bf16 tolerance; C a
+    view, contiguous, or absent (None)."""
     rng = np.random.default_rng(n * k)
     bf = torch.bfloat16
     a = torch.as_tensor(rng.normal(size=(n, k)).astype(np.float32), device=cuda_device).to(bf)
     b = torch.as_tensor(rng.normal(size=(n, k)).astype(np.float32), device=cuda_device).to(bf)
-    c = torch.as_tensor(_sym(n + 2, n), device=cuda_device).to(bf)
-    C = c[2:, 2:] if c_view else c[:n, :n].contiguous()
-    got = ops.trailing_update(C, b, a)
-    want = ref.syr2k_ref(a.float(), b.float(), C.float(), alpha=-1.0)
+    if c_view is None:
+        got = ops.syr2k(a, b, alpha=-1.0)
+        want = ref.syr2k_ref(a.float(), b.float(), alpha=-1.0)
+    else:
+        c = torch.as_tensor(_sym(n + 2, n), device=cuda_device).to(bf)
+        C = c[2:, 2:] if c_view else c[:n, :n].contiguous()
+        got = ops.trailing_update(C, b, a)
+        want = ref.syr2k_ref(a.float(), b.float(), C.float(), alpha=-1.0)
     torch.cuda.synchronize()
     assert got.dtype == bf and torch.equal(got, got.T)
     assert float((got.float() - want).abs().max()) <= 5e-2 * float(want.abs().max())

@@ -4,11 +4,13 @@ Each ``src/repro_torch/csrc/*.cu`` (kernels A to E) is compiled with g++ against
 ``tests/cuda_host/cuda_runtime.h``, which runs a launch's clusters one after
 another (a plain launch is a cluster of one CTA) with one host thread per
 CUDA thread; the CTAs of a cluster run together, each with its own shared
-memory, as kernel A's panel QR needs.  The exported launchers are called
-through ctypes with CPU tensors and held against the plain PyTorch versions
-at the tolerances of tests/test_torch_kernels_cuda.py.  Clusters never
-overlap here, so races between them are the card's tests' job
-(``python -m pytest -m cuda``); skipped where g++ is missing.
+memory, as kernel A's panel QR needs, and so do all CTAs of kernel B's
+persistent grid, which hand sweeps to each other through flags.  The
+exported launchers are called through ctypes with CPU tensors and held
+against the plain PyTorch versions at the tolerances of
+tests/test_torch_kernels_cuda.py.  Clusters never overlap here, so races
+between them are the card's tests' job (``python -m pytest -m cuda``);
+skipped where g++ is missing.
 """
 import ctypes
 import shutil
@@ -46,10 +48,12 @@ def host(tmp_path_factory):
         pytest.skip("needs g++ to compile the kernels for host emulation")
     out = tmp_path_factory.mktemp("cuda_host")
     procs = {}
-    for name in ("fused_panel", "bulge", "backtransform", "syr2k", "panel"):
+    sources = {name: CSRC / f"{name}.cu" for name in ("fused_panel", "bulge", "backtransform", "syr2k", "panel")}
+    sources["mma_probe"] = SHIM / "mma_probe.cu"
+    for name, src in sources.items():
         so = out / f"{name}.so"
         cmd = [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
-               f"-I{SHIM}", "-x", "c++", str(CSRC / f"{name}.cu"), "-o", str(so)]
+               f"-I{SHIM}", f"-I{CSRC}", "-x", "c++", str(src), "-o", str(so)]
         procs[name] = (subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True), so)
     libs = {}
     for name, (proc, so) in procs.items():
@@ -67,7 +71,15 @@ def host(tmp_path_factory):
     ws = libs["backtransform"].backtransform_wy_workspace
     ws.argtypes = kc._WORKSPACE_ARGTYPES
     ws.restype = ctypes.c_longlong
-    return fa, fb, fc, fd, fe, ws
+    wb = libs["bulge"].bulge_wavefront_workspace
+    wb.argtypes = kb._WORKSPACE_ARGTYPES
+    wb.restype = ctypes.c_longlong
+    in_turn = libs["bulge"].emu_run_ctas_in_turn
+    in_turn.argtypes = [ctypes.c_int]
+    mma = libs["mma_probe"].mma_probe_launch
+    mma.argtypes = [ctypes.c_void_p] * 3
+    mma.restype = ctypes.c_int
+    return fa, fb, fc, fd, fe, ws, wb, in_turn, mma
 
 
 def _sym(n, seed):
@@ -145,20 +157,55 @@ def test_fused_panel_host_schedule_on_views(host):
     assert _rel(Bk, Bp) < 1e-4
 
 
-@pytest.mark.parametrize("n,b,group", [(16, 4, 1), (33, 4, 1), (40, 8, 2), (24, 4, 3)])
-def test_bulge_host(host, n, b, group):
-    B = _band(n, b, n)
+def _chase(host, B, b, ctas, with_log=True):
+    """Kernel B's launcher on a copy of ``B`` with a grid of ``ctas`` CTAs."""
+    n = B.shape[0]
     A, W = max_active_sweeps(n, b), num_wavefronts(n, b)
     T = B.clone()
-    vs, taus, row0 = torch.empty(W, A, b), torch.empty(W, A), torch.empty(W, A, dtype=torch.int32)
-    assert host[1](T.data_ptr(), n, b, A, group, vs.data_ptr(), taus.data_ptr(),
-                   row0.data_ptr(), 1, None) == 0
+    # NaN in every log slot: the kernel must write the inactive ones too.
+    vs = torch.full((W, A, b), float("nan"))
+    taus = torch.full((W, A), float("nan"))
+    row0 = torch.full((W, A), -1, dtype=torch.int32)
+    work = torch.zeros(host[6](n) // 4, dtype=torch.int32)
+    assert host[1](T.data_ptr(), n, b, A, ctas, vs.data_ptr(), taus.data_ptr(),
+                   row0.data_ptr(), int(with_log), work.data_ptr(), None) == 0
+    assert int(work[-1]) == n - 2 + ctas  # every sweep taken, then one empty ticket per CTA
+    return T, ChaseLog(vs, taus, row0, n, b)
+
+
+@pytest.mark.parametrize("together", [False, True], ids=["ctas_in_turn", "ctas_together"])
+@pytest.mark.parametrize(
+    "n,b,ctas",
+    [
+        (16, 4, 1),  # one CTA takes every sweep
+        (33, 4, 2),  # 2 CTAs < A = 4 sweeps in flight: tickets wrap
+        (40, 8, 4),  # 4 CTAs > A = 3: one CTA more than sweeps in flight
+        (24, 4, 3),  # 3 CTAs = A; every n ends with sweeps of kmax < 2
+        (40, 16, 2),  # b = 16 on the instantiation that takes b at run time
+    ],
+)
+def test_bulge_host(host, n, b, ctas, together):
+    """The persistent chase against the plain wavefront chase, its CTAs run
+    one after another or together (then sweep s waits on sweep s-1's flag);
+    twice, bitwise equal: each op is computed by one CTA in a fixed order."""
+    host[7](int(not together))
+    try:
+        B = _band(n, b, n)
+        T, log = _chase(host, B, b, ctas)
+        T2, log2 = _chase(host, B, b, ctas)
+        T3 = _chase(host, B, b, ctas, with_log=False)[0]
+    finally:
+        host[7](0)
+    assert torch.equal(T, T2) and torch.equal(T, T3)
+    assert all(torch.equal(x, y) for x, y in zip((log.vs, log.taus, log.row0),
+                                                 (log2.vs, log2.taus, log2.row0)))
     Tp, lp = chase_wavefront_slices(B, b, True)
     assert _rel(T, Tp) < 3e-4
-    assert torch.equal(row0, lp.row0)
+    assert torch.equal(log.row0, lp.row0)
     active = lp.row0 < n
-    assert torch.equal(taus[~active], lp.taus[~active]) and torch.equal(vs[~active], lp.vs[~active])
-    vsw, tw = sweep_major_log(ChaseLog(vs, taus, row0, n, b))
+    assert bool((log.taus[~active] == 0).all())
+    assert torch.equal(log.vs[~active], lp.vs[~active])
+    vsw, tw = sweep_major_log(log)
     QT = backtransform_wy_xla(T, vsw, tw, b=b)
     assert _rel(backtransform_wy_xla(QT.T.contiguous(), vsw, tw, b=b), B) < 3e-4
 
@@ -229,11 +276,22 @@ def test_syr2k_host(host, n, k, alpha, c_view):
     assert float((out - want).abs().max()) <= 2e-5 * max(float(want.abs().max()), 1.0)
 
 
-@pytest.mark.parametrize("n,k,c_view", [(70, 37, True), (64, 16, None), (5, 3, False)])
+@pytest.mark.parametrize(
+    "n,k,c_view",
+    [
+        (70, 37, True),     # k off the 8-wide copies: element-wise staging
+        (64, 16, None),     # one strip, its second half zero-filled
+        (5, 3, False),
+        (129, 37, None),    # ragged n over three tile rows, C absent
+        (129, 37, True),    # ... with C a strided view (element-wise C loads)
+        (136, 72, False),   # n, k multiples of 8: 16-byte copies, loads and stores
+    ],
+)
 def test_syr2k_host_bf16(host, n, k, c_view):
-    """bf16 operands: loaded as bf16, summed in float32, rounded once; held
-    against the float32 plain version of the same (bf16-valued) inputs to
-    one bf16 rounding of the result, and to exact symmetry."""
+    """bf16 operands: products on the (emulated) tensor cores, summed in
+    float32, rounded once; held against the float32 plain version of the
+    same (bf16-valued) inputs to one bf16 rounding of the result, and to
+    exact symmetry."""
     rng = np.random.default_rng(n * k)
     A = torch.tensor(rng.normal(size=(n, k)).astype(np.float32)).to(torch.bfloat16)
     B = torch.tensor(rng.normal(size=(n, k)).astype(np.float32)).to(torch.bfloat16)
@@ -246,6 +304,18 @@ def test_syr2k_host_bf16(host, n, k, c_view):
     want = ref.syr2k_ref(A.float(), B.float(), None if C is None else C.float(), alpha=-1.0)
     assert torch.equal(out, out.T)
     assert float((out.float() - want).abs().max()) <= 2 ** -8 * float(want.abs().max())
+
+
+def test_mma_bf16_16816_host(host):
+    """repro::mma_bf16_16816 alone: a 16 x 16 by 16 x 8 bf16 product through
+    the PTX fragment layout against a float matmul of the same values."""
+    rng = np.random.default_rng(16816)
+    A = torch.tensor(rng.normal(size=(16, 16)).astype(np.float32)).to(torch.bfloat16)
+    B = torch.tensor(rng.normal(size=(16, 8)).astype(np.float32)).to(torch.bfloat16)
+    D = torch.full((16, 8), float("nan"))
+    assert host[8](A.data_ptr(), B.data_ptr(), D.data_ptr()) == 0
+    want = A.double() @ B.double()
+    assert float((D.double() - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
 @pytest.mark.parametrize("m,b,smem", [(33, 8, SMEM), (17, 5, SMEM), (40, 8, 1024), (64, 16, SMEM), (8, 8, 0)])
