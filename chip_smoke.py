@@ -13,13 +13,19 @@ Phases, each printing its own lines:
    the kernel's time (CUDA events, warm), the plain version's time, a
    library yardstick where one exists, and the least time the card could
    take for the same work (``bound_ms``, from bytes and operations at the
-   peak rate of their type)
-   with the share of it the kernel reaches.  Kernels A-C (fused path; A,
-   B and C also split by CUDA kernel with ``torch.profiler``; B's time also
+   peak rate of their type; float32 work on the tensor cores, 3xTF32, at
+   3 x flops over the TF32 rate) with the share of it the kernel reaches.
+   Kernels A-C (fused path; A, B and C also split by CUDA kernel with
+   ``torch.profiler``; B's time also
    per dependent step of the chase, with and without its log), D
    (``syr2k`` / ``trailing_update``, in float32 and bf16, bf16 with its
    share of the bound beside the bf16 library call) and E (the standalone
-   ``panel_qr``).
+   ``panel_qr``: first a sweep of its cluster size at m = 256, 1024 and
+   both panels, then both panels on the launcher's cluster, each with its
+   CTAs and rows per CTA and its time per call with the launcher's host
+   work; its CUDA launches and device time inside one
+   ``band_reduce(panel_method="kernel")`` call come from the profiler
+   session of A-C).
 3. The main path, ``plan(4096, float32, EvdConfig())(A)`` and ``.eigvals(A)``
    on a seeded random symmetric A: launch counters reset just before and
    read just after (each kernel must have run, its CUDA launches exactly
@@ -36,7 +42,8 @@ Phases, each printing its own lines:
    (one ``trailing_update`` launch per DBR block, kernel B once, one CUDA
    launch, for the eigvals run), its stage times, and ``band_reduce(A, 8, 256,
    panel_method="kernel")`` (one ``panel_qr`` launch per panel) with the
-   band's eigenvalues against ``torch.linalg.eigvalsh(A)``.
+   band's eigenvalues against ``torch.linalg.eigvalsh(A)`` (and one CUDA
+   launch a panel, as the wrapper declares it).
 
 Then one JSON line with the kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -60,11 +67,17 @@ N_ROOT = 1024
 SEED = 0
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, the
-# float32 rate outside the tensor cores, and the bf16 tensor-core rate (the
-# peak for bf16 operands, though kernel D sums them on the float32 units).
+# float32 rate outside the tensor cores, and the bf16 and TF32 tensor-core
+# rates.  float32 work on the tensor cores (kernel D, kernel A's trailing
+# phase) is 3xTF32: three TF32 products per product, so its bound is
+# 3 x flops over the TF32 rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_TF32_FLOP_PER_S = 494.7e12
+E_CLUSTERS = (1, 2, 4, 8, 16)
+E_HOST_CALLS = 200
+SPIN_CYCLES = 50_000_000  # ~25 ms at the H100's ~2 GHz clock
 
 # Tolerances of the kernel-vs-plain comparisons, relative to the largest
 # entry of the plain result: fp32 sums in other orders, grown by the
@@ -104,14 +117,17 @@ def card_line() -> str:
 def cuda_ms(torch, fn, reps: int, setup=None) -> float:
     """Mean time of ``fn(*setup())`` over ``reps`` calls issued back to back
     between two CUDA events, after one warm-up call; ``setup`` runs for
-    every call before the timed window.  Back to back, a call's host-side
-    work overlaps the device work queued before it, so a kernel that runs
-    longer than its launcher's host work is timed on the device alone."""
+    every call before the timed window.  A spin kernel of ~25 ms
+    (``torch.cuda._sleep``) is queued before the first event, so the calls
+    are enqueued while it runs and the window holds device work only, also
+    for a kernel shorter than its launcher's host work (as long as the
+    calls' host work takes less than the spin)."""
     args = [setup() if setup else () for _ in range(reps + 1)]
     fn(*args[0])
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for a in args[1:]:
         fn(*a)
@@ -128,9 +144,11 @@ def wall_ms(torch, fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def bound(nbytes: float, flops: float, peak_flop_per_s: float = PEAK_FP32_FLOP_PER_S):
+def bound(nbytes: float, *work):
+    """The least time (ms) the card could take to move ``nbytes`` and do
+    each ``(flops, peak FLOP/s)`` of ``work``, and which of the two bounds it."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flop_per_s * 1e3
+    t_ops = sum(flops / peak for flops, peak in work) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -175,8 +193,8 @@ def phase_kernels(torch, gen):
     from repro_torch.kernels.backtransform import backtransform_wy_cuda
     from repro_torch.kernels.bulge import bulge_wavefront_cuda
     from repro_torch.kernels.fused_panel import fused_panel_update_cuda
-    from repro_torch.kernels.limits import limit
-    from repro_torch.kernels.panel import panel_qr_body, panel_qr_cuda
+    from repro_torch.kernels import panel as ke
+    from repro_torch.kernels.panel import panel_qr_body, panel_qr_cuda, panel_qr_cuda_cluster
     from repro_torch.kernels.syr2k import syr2k_cuda, trailing_update_cuda
     from repro_torch.solver import resolve_blocking
 
@@ -205,11 +223,14 @@ def phase_kernels(torch, gen):
     lib_ms = cuda_ms(torch, lambda: C - Z @ V.T - V @ Z.T, 5)
     q = w // b
     flops = sum(2.0 * m * (m - (j + 1) * b) * b + 12.0 * m * j * b * b for j in range(q))
-    flops += 2.0 * mt * mt * w
-    bms, by = bound((2.0 * m * m + m * w + q * b * b) * 4, flops)
+    trailing_flops = 2.0 * mt * mt * w
+    bms, by = bound((2.0 * m * m + m * w + q * b * b) * 4, (flops, PEAK_FP32_FLOP_PER_S),
+                    (3 * trailing_flops, PEAK_TF32_FLOP_PER_S))
     print(f"phase 2 kernel A fused_panel_update m={m} w={w} b={b}: rel err B/V/T "
           f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol {TOL_A:.1e}) max_abs_err={max_abs:.3e}")
-    print(f"phase 2 kernel A ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}), "
+    print(f"phase 2 kernel A ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}: panel "
+          f"flops at the fp32 SIMT rate, the trailing phase at 3 x flops over the TF32 rate "
+          f"{PEAK_TF32_FLOP_PER_S / 1e12:.1f} TFLOP/s, 3xTF32), "
           f"{share(bms, ms)}; not the same function, its trailing phase only: "
           f"C - Z V^T - V Z^T (2 torch.matmul) ms={lib_ms:.4f}")
     # A yardstick for the panel GEMV, which reads an (m, m - r0) view of Bv
@@ -281,7 +302,7 @@ def phase_kernels(torch, gen):
     steps = num_wavefronts(n, b)
     n_ops = int(active.sum())
     Wn, An = lk.taus.shape
-    bms, by = bound((2.0 * n * n + Wn * An * (b + 2)) * 4, 26.0 * b * b * n_ops)
+    bms, by = bound((2.0 * n * n + Wn * An * (b + 2)) * 4, (26.0 * b * b * n_ops, PEAK_FP32_FLOP_PER_S))
     print(f"phase 2 kernel B bulge_wavefront n={n} b={b} wavefronts={Wn} slots={An} ops={n_ops}: "
           f"eig(T) vs plain {eL:.3e} (max_abs_err={max_abs:.3e}), Q2 T Q2^T vs B {eR:.3e} "
           f"(tol {TOL_B:.1e}); T exactly tridiagonal; row0 exact; entrywise vs plain, "
@@ -310,17 +331,20 @@ def phase_kernels(torch, gen):
     plain_ms = cuda_ms(torch, lambda: backtransform_wy_xla(X, vs, taus, b=b), 1)
     S, K, _ = vs.shape
     n_refl = int((taus != 0).sum())
-    bms, by = bound((2.0 * n * n + S * K * (b + 1)) * 4, 4.0 * b * n_refl * n)
+    bms, by = bound((2.0 * n * n + S * K * (b + 1)) * 4, (4.0 * b * n_refl * n, PEAK_FP32_FLOP_PER_S))
     print(f"phase 2 kernel C backtransform_wy (n, m)=({n}, {n}) S={S} K={K}: rel err Q2/Q2^T "
           f"{errs[0]:.3e}/{errs[1]:.3e} (tol {TOL_C:.1e}) max_abs_err={max_abs:.3e}")
     print(f"phase 2 kernel C ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}), "
           f"{share(bms, ms)}; library: none")
-    # One profiler session for A, B and C (a second session in one process
+    # One profiler session for A, B, C and one band_reduce(panel_method=
+    # "kernel") call, kernel E's path (a second session in one process
     # recorded no device time on the card).
     split = device_split(torch, lambda: (fused_panel_update_cuda(A_prof, b, w),
                                          bulge_wavefront_cuda(Bband, b, return_log=True),
-                                         backtransform_wy_cuda(X, vs, taus, b=b)))
-    split_a = [r for r in split if r[0].startswith(("panel_", "trailing_lower", "write_f"))]
+                                         backtransform_wy_cuda(X, vs, taus, b=b),
+                                         band_reduce(A, b, dec.nb, panel_method="kernel")))
+    split_a = [r for r in split if r[0].startswith(("panel_", "trailing_lower", "write_f"))
+               and not r[0].startswith("panel_qr_wy")]
     print_split("phase 2 kernel A", split_a, ms_a)
     for name, t, cnt in split_a:
         if name.startswith("panel_gemv"):
@@ -330,6 +354,16 @@ def phase_kernels(torch, gen):
     print_split("phase 2 kernel B", [r for r in split if r[0].startswith("bulge")],
                 rows["bulge_wavefront"]["ms"])
     print_split("phase 2 kernel C", [r for r in split if r[0].startswith(("regroup_log", "backtransform"))], ms)
+    # Kernel E's CUDA launches over one band_reduce call, from the trace.
+    split_e = [r for r in split if r[0].startswith("panel_qr_wy")]
+    e_traced = (sum(c for _, _, c in split_e), sum(t for _, t, _ in split_e))
+    num_panels = build_stage_schedule(n, b, dec.nb).num_panels
+    print(f'phase 2 kernel E inside band_reduce(A, {b}, {dec.nb}, panel_method="kernel"), by '
+          f"torch.profiler: {e_traced[0]} CUDA launches of panel_qr_wy ({num_panels} panels), "
+          f"device time sum {e_traced[1]:.3f} ms, " + (
+              f"{e_traced[1] / e_traced[0] * 1e3:.1f} us a launch" if e_traced[0] else "not measured"))
+    require(not split or e_traced[0] == num_panels,
+            f"phase 2 band_reduce traced {e_traced[0]} panel_qr launches, expected {num_panels}")
     rows["backtransform_wy"] = dict(max_abs_err=max_abs, compared="Q2 X and Q2^T X entrywise",
                                     ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                     bound_by=by, library_ms=None)
@@ -353,11 +387,12 @@ def phase_kernels(torch, gen):
     plain_ms = cuda_ms(torch, lambda: ref.syr2k_ref(Z, Y, C, alpha=-1.0), 5)
     lib_ms = cuda_ms(torch, lambda: C - Z @ Y.T - Y @ Z.T, 10)
     lower = mt * (mt + 1) / 2
-    bms, by = bound((2.0 * mt * w + lower + mt * mt) * 4, 4.0 * w * lower)
+    bms, by = bound((2.0 * mt * w + lower + mt * mt) * 4, (3 * 4.0 * w * lower, PEAK_TF32_FLOP_PER_S))
     print(f"phase 2 kernel D trailing_update (n, k)=({mt}, {w}): rel err with C / C absent "
           f"{errs[0]:.3e}/{errs[1]:.3e} (tol {TOL_D:.0e}) max_abs_err={max_abs:.3e}; "
           f"exactly symmetric")
-    print(f"phase 2 kernel D ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}), "
+    print(f"phase 2 kernel D ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}, 3xTF32: "
+          f"3 x flops over the TF32 rate {PEAK_TF32_FLOP_PER_S / 1e12:.1f} TFLOP/s), "
           f"{share(bms, ms)}; library C - Z Y^T - Y Z^T (2 torch.matmul) ms={lib_ms:.4f}")
     # bf16 operands: summed in float32, rounded once (the JAX kernel's
     # contract); held against the float32 plain version of the same values.
@@ -372,8 +407,7 @@ def phase_kernels(torch, gen):
     bf_ms = cuda_ms(torch, lambda: trailing_update_cuda(Cb, Yb, Zb), 10)
     bf_plain_ms = cuda_ms(torch, lambda: ref.syr2k_ref(Zb, Yb, Cb, alpha=-1.0), 5)
     bf_lib_ms = cuda_ms(torch, lambda: Cb - Zb @ Yb.T - Yb @ Zb.T, 10)
-    bf_bms, bf_by = bound((2.0 * mt * w + lower + mt * mt) * 2, 4.0 * w * lower,
-                          PEAK_BF16_FLOP_PER_S)
+    bf_bms, bf_by = bound((2.0 * mt * w + lower + mt * mt) * 2, (4.0 * w * lower, PEAK_BF16_FLOP_PER_S))
     print(f"phase 2 kernel D bf16 trailing_update (n, k)=({mt}, {w}): rel err {bf_err:.3e} "
           f"(tol {TOL_D_BF16:.0e}) max_abs_err={bf_max_abs:.3e}; exactly symmetric")
     print(f"phase 2 kernel D bf16 ms={bf_ms:.4f} plain_ms={bf_plain_ms:.4f} (bf16 torch ops) "
@@ -388,7 +422,22 @@ def phase_kernels(torch, gen):
                          bf16=dict(max_abs_err=bf_max_abs, ms=bf_ms, plain_ms=bf_plain_ms,
                                    bound_ms=bf_bms, bound_by=bf_by, library_ms=bf_lib_ms))
 
-    # --- kernel E: the path's largest panel, and one above the smem budget -
+    # --- kernel E: the path's largest panel, and one twice n tall ----------
+    # First the cluster sizes at the largest panel, then both panels at the
+    # launcher's own size (panel_qr.cluster_size).
+    sweep = {}
+    for m_e in (256, 1024, n - b, 2 * n):
+        P = torch.randn((m_e, b), generator=gen, device="cuda")
+        want = panel_qr_body(P, b, lapack_sign=False)
+        for cs in E_CLUSTERS:
+            got = panel_qr_cuda_cluster(P, cs)
+            torch.cuda.synchronize()
+            err = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1.0) for x, y in zip(got, want))
+            require(err < TOL_E, f"kernel E (m={m_e}, {cs} CTAs) vs plain rel err {err} >= {TOL_E}")
+            used = ke.launch_plan(m_e, b, cs)[0]
+            sweep[(m_e, cs)] = cuda_ms(torch, lambda: panel_qr_cuda_cluster(P, cs), 50)
+            print(f"phase 2 kernel E cluster sweep (m, b)=({m_e}, {b}): asked {cs} CTAs, ran {used}, "
+                  f"{-(-m_e // used)} rows per CTA: ms={sweep[(m_e, cs)]:.4f} rel err {err:.3e}")
     for m_e in (n - b, 2 * n):
         P = torch.randn((m_e, b), generator=gen, device="cuda")
         got = panel_qr_cuda(P)
@@ -397,25 +446,39 @@ def phase_kernels(torch, gen):
         errs = [float((x - y).abs().max()) / max(float(y.abs().max()), 1.0) for x, y in zip(got, want)]
         max_abs = max(float((x - y).abs().max()) for x, y in zip(got, want))
         require(max(errs) < TOL_E, f"kernel E (m={m_e}) vs plain rel err V/T/taus/R {errs} >= {TOL_E}")
-        ms = cuda_ms(torch, lambda: panel_qr_cuda(P), 20)
+        ms = cuda_ms(torch, lambda: panel_qr_cuda(P), 50)
         plain_ms = cuda_ms(torch, lambda: panel_qr_body(P, b, lapack_sign=False), 3)
         geqrf_ms = cuda_ms(torch, lambda: torch.geqrf(P), 10)
+        # Per call with the launcher's host work: calls back to back on the
+        # host clock, closed by one synchronize.
+        # Each call's outputs are dropped before the next, as in a panel loop.
+        def calls():
+            for _ in range(E_HOST_CALLS):
+                panel_qr_cuda(P)
+
+        host_ms = wall_ms(torch, calls) / E_HOST_CALLS
         flops = sum(3.0 * (m_e - j) + 4.0 * (m_e - j) * (b - 1 - j) + 2.0 * (m_e - j) * j
                     for j in range(b)) + b ** 3 / 3.0
-        bms, by = bound((2.0 * m_e * b + 2.0 * b * b + b) * 4, flops)
-        in_smem = m_e * b * 4 <= limit("PANEL_QR_SMEM")
-        print(f"phase 2 kernel E panel_qr (m, b)=({m_e}, {b}) panel in "
-              f"{'shared' if in_smem else 'global'} memory: rel err V/T/taus/R "
-              + "/".join(f"{e:.3e}" for e in errs) + f" (tol {TOL_E:.0e}) max_abs_err={max_abs:.3e}")
+        bms, by = bound((2.0 * m_e * b + 2.0 * b * b + b) * 4, (flops, PEAK_FP32_FLOP_PER_S))
+        cs, in_smem = ke.launch_plan(m_e, b, ke.cluster_size(m_e))
+        rows_per_cta = -(-m_e // cs)
+        print(f"phase 2 kernel E panel_qr (m, b)=({m_e}, {b}) on a cluster of {cs} CTAs, "
+              f"{rows_per_cta} rows per CTA, slices in {'shared' if in_smem else 'global'} memory: "
+              f"rel err V/T/taus/R " + "/".join(f"{e:.3e}" for e in errs)
+              + f" (tol {TOL_E:.0e}) max_abs_err={max_abs:.3e}")
         print(f"phase 2 kernel E ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.6f} ({by}), "
               f"{share(bms, ms)}; not the same function, the nearest call torch.geqrf "
-              f"(LAPACK signs, no T) ms={geqrf_ms:.4f}")
+              f"(LAPACK signs, no T) ms={geqrf_ms:.4f}; with the launcher's host work "
+              f"{host_ms:.4f} ms a call ({E_HOST_CALLS} calls back to back, host clock)")
         if m_e == n - b:
             rows["panel_qr"] = dict(max_abs_err=max_abs, compared="V, T, taus and R entrywise",
                                     ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                                     library_ms=geqrf_ms,
                                     library="not the same function: torch.geqrf, the nearest "
-                                            "call (LAPACK signs, no T)")
+                                            "call (LAPACK signs, no T)",
+                                    cluster=cs, rows_per_cta=rows_per_cta, host_ms=host_ms,
+                                    band_reduce_traced=dict(launches=e_traced[0], device_ms=e_traced[1]),
+                                    cluster_sweep_ms={f"{m}x{cs}": v for (m, cs), v in sweep.items()})
     return rows
 
 
@@ -587,6 +650,12 @@ def phase_unfused(torch, gen):
     panel_launches = cuda_lib.launch_counts()
     expect('band_reduce(panel_method="kernel")', panel_launches,
            {"trailing_update": blocks, "panel_qr": schedule.num_panels})
+    # The CUDA launches each wrapper declares (kernel E's are also counted
+    # in phase 2's profiler trace of a band_reduce call).
+    panel_device = cuda_lib.device_launch_counts()
+    require(panel_device["panel_qr"] == schedule.num_panels and panel_device["trailing_update"] == blocks,
+            f'phase 5 band_reduce(panel_method="kernel") declared CUDA launches {panel_device}, expected '
+            f"{schedule.num_panels} panel_qr (one cluster launch a panel) and {blocks} trailing_update")
     e_band = max_eig_err(torch.linalg.eigvalsh(Bband.double()), w_ref)
     i = torch.arange(n, device="cuda")
     require(bool((Bband[(i[:, None] - i[None, :]).abs() > pl.b] == 0).all()),
@@ -597,7 +666,7 @@ def phase_unfused(torch, gen):
     return (
         {"syr2k": launches["syr2k"] + launches["trailing_update"], "panel_qr": panel_launches["panel_qr"]},
         {"syr2k": device_launches["syr2k"] + device_launches["trailing_update"],
-         "panel_qr": cuda_lib.device_launch_counts()["panel_qr"]},
+         "panel_qr": panel_device["panel_qr"]},
     )
 
 

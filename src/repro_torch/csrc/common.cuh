@@ -18,7 +18,7 @@
 #define REPRO_DYNAMIC_SMEM(name) extern __shared__ float name[]
 #endif
 
-// Thread-block clusters (kernel A's panel QR).  The three helpers below --
+// Thread-block clusters (the panel QR of kernels A and E).  The three helpers below --
 // this CTA's rank, the cluster barrier and a peer's copy of a shared-memory
 // address -- and REPRO_LAUNCH_CLUSTER are all a cluster kernel may use, so
 // that the host emulation can run a cluster's CTAs together, each with its
@@ -145,8 +145,35 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero;
+// cvt.rna), as the bits of a float whose low 13 bits are zero.
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(x));
+  return u;
+}
+
+// d += a b on the tensor cores: one warp-wide m16n8k8 product of TF32
+// fragments (one value per register) with float32 accumulation (the
+// H100 rounds the sums toward zero).  Not volatile: the compiler may
+// interleave independent products.  With g = lane / 4 and t = lane % 4:
+//   a[r]: A (16 x 8, row-major) row g + 8 (r & 1), column t + 4 (r >> 1)
+//   b[r]: B (8 x 8, k x n) row t + 4 r, column g
+//   d[i]: D (16 x 8) row g + 8 (i >> 1), column 2t + (i & 1)
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const unsigned (&a)[4],
+                                              const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 }  // namespace repro
 #endif
+
+namespace repro {
+constexpr int kSmemPerBlockMax = 232448;  // the H100's 227 KB of shared memory per block
+}  // namespace repro
 
 #define REPRO_CHECK_LAUNCH()                \
   do {                                      \

@@ -12,7 +12,8 @@
 // times at 2b flops per 4-byte element (bytes-bound, as LAPACK's latrd
 // is; the view stays in the 50 MB L2 below m ~ 3600); the trailing update
 // is a rank-2w SYR2K over the lower tiles (2*(m-w)^2*w flops:
-// operations-bound, on the fp32 SIMT units here).  Between them sits the
+// operations-bound, on the tensor cores in 3xTF32, three TF32 products per
+// product).  Between them sits the
 // chain of q panel QRs, each b dependent reductions over the panel's rows.
 //
 // Design.  The TPU kernel runs the whole block as one sequential grid over a
@@ -48,12 +49,13 @@
 //                        for the block's later columns c in [r0, w)
 // then, once per block:
 //   K5 trailing_lower  one CTA per lower 64x64 tile of the trailing block,
-//                      k = w in 16-wide shared-memory strips (the tile walk
-//                      of csrc/syr2k_tile.cuh); writes the tile and its mirror
+//                      the float32 walk of csrc/syr2k_tile.cuh shared with
+//                      kernel D: k = w in cp.async-staged strips, mma.sync
+//                      in 3xTF32; writes the tile and its mirror
 //   K6 write_f         the exact banded values F into Bv[:, :w] and F^T into
 //                      Bv[:w, w:]
 // Every product of the TPU kernel's body stays inside these kernels (no
-// cuBLAS).  Tensor cores, TMA and wgmma are later work.
+// cuBLAS).  Only K5 runs on the tensor cores; TMA and wgmma are later work.
 #include "panel_qr_cluster.cuh"
 #include "syr2k_tile.cuh"
 
@@ -62,7 +64,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = repro::kSyr2kTile;
 constexpr int kGemvSmemMax = 96 * 1024;  // X1, X2 in shared memory up to this
-constexpr int kSmemPerBlockMax = 232448;  // the H100's 227 KB per block
 constexpr int kZRows = 32;        // rows per CTA of panel_zfinal
 constexpr int kZCols = 256;       // later columns per chunk of panel_zfinal's update
 constexpr int kXredRows = 32;     // rows of the X reduction per CTA
@@ -116,7 +117,7 @@ __global__ void panel_qr_cluster(const float* __restrict__ Bv, long long ldb, in
   }
   __syncthreads();
 
-  repro::cluster_householder<BM>(W, ldw, base, nrows, b, sm, cs);
+  repro::cluster_householder<BM, true>(W, ldw, base, nrows, b, sm, cs);
 
   if (rank == 0)
     for (int e = tid; e < b * b; e += nt)
@@ -439,33 +440,15 @@ __global__ void panel_zfinal(const float* __restrict__ MT, const float* __restri
   }
 }
 
-// Lower 64x64 tiles of C = Bv[w:, w:]: C -= Z V^T + V Z^T (k = w), written
-// to the tile and its mirror.
-__global__ void trailing_lower(float* __restrict__ Bv, long long ldb, int m, int w,
-                               const float* __restrict__ V, const float* __restrict__ Z) {
-  int ti, tj;
-  repro::lower_tile(blockIdx.x, ti, tj);
-  const int mt = m - w;
-  const int gi0 = ti * kTile;
-  const int gj0 = tj * kTile;
-  float acc[4][4];
-  repro::syr2k_tile_acc(Z + (long long)w * w, V + (long long)w * w, w, mt, w, gi0, gj0, acc);
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int li = gi0 + ty * 4 + a;
-      const int lj = gj0 + tx * 4 + c;
-      if (li < mt && lj < mt && li >= lj) {
-        float* p = Bv + (long long)(w + li) * ldb + (w + lj);
-        const float val = *p - acc[a][c];
-        *p = val;
-        Bv[(long long)(w + lj) * ldb + (w + li)] = val;
-      }
-    }
-  }
+// Lower tiles of C = Bv[w:, w:]: C -= Z V^T + V Z^T (k = w), in place, each
+// tile written with its mirror (the float32 walk of csrc/syr2k_tile.cuh).
+__global__ void __launch_bounds__(repro::Syr2kF32::kThreads)
+    trailing_lower(float* __restrict__ Bv, long long ldb, int m, int w,
+                   const float* __restrict__ V, const float* __restrict__ Z) {
+  REPRO_DYNAMIC_SMEM(sm);
+  float* C = Bv + (long long)w * ldb + w;
+  repro::syr2k_tf32_tile(Z + (long long)w * w, V + (long long)w * w, w, m - w, w, -1.f, C, ldb, C,
+                         ldb, sm);
 }
 
 __global__ void write_f(float* __restrict__ Bv, long long ldb, int m, int w,
@@ -498,7 +481,7 @@ int run(float* Bv, long long ldb, int m, int w, int b, float* V, float* Ts, floa
     const int len = (m - b + cs - 1) / cs;
     const int slice_bytes = (len | 1) * BM * (int)sizeof(float);
     const int fixed = L::total * (int)sizeof(float);
-    *in_smem = slice_bytes <= qr_smem_max && fixed + slice_bytes <= kSmemPerBlockMax;
+    *in_smem = slice_bytes <= qr_smem_max && fixed + slice_bytes <= repro::kSmemPerBlockMax;
     return fixed + (*in_smem ? slice_bytes : 0);
   };
   int slice_in_smem = 0;
@@ -542,9 +525,11 @@ int run(float* Bv, long long ldb, int m, int w, int b, float* V, float* Ts, floa
     (MT, Vh, Ts + (long long)j * b * b, Y, Bv, ldb, m, w, b, r0, c0, V, Z, F);
     REPRO_CHECK_LAUNCH();
   }
-  const int mt = m - w;
-  const long long nt = (mt + kTile - 1) / kTile;
-  REPRO_LAUNCH(trailing_lower, (unsigned)(nt * (nt + 1) / 2), kThreads, 0, st)
+  using S = repro::Syr2kF32;
+  err = cudaFuncSetAttribute(trailing_lower, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const long long nt = (m - w + kTile - 1) / kTile;
+  REPRO_LAUNCH(trailing_lower, (unsigned)(nt * (nt + 1) / 2), S::kThreads, S::kSmem, st)
   (Bv, ldb, m, w, V, Z);
   REPRO_CHECK_LAUNCH();
   REPRO_LAUNCH(write_f, blocks_for((long long)m * w, kThreads), kThreads, 0, st)

@@ -1,26 +1,29 @@
-// The Householder panel QR of kernel A (fused_panel.cu), spread over the
-// CTAs of one thread-block cluster: port of
-// repro/kernels/panel.py:panel_qr_body(lapack_sign=True) followed by larft.
-// Kernel E (panel.cu) keeps the one-CTA recurrence of panel_qr.cuh.
+// The Householder panel QR of kernels A (fused_panel.cu, LAPACK signs) and
+// E (panel.cu, beta = +|x|), spread over the CTAs of one thread-block
+// cluster: port of repro/kernels/panel.py:panel_qr_body followed by larft,
+// with the sign as a template parameter.
 //
 // The (rows, b) panel is split by rows: the CTA of cluster rank r holds panel
 // rows [base, base + nrows) in W, column-major with leading dimension ldw
-// (its own shared memory, or global memory above the wrapper's budget).
+// (its own shared memory, or global memory above the caller's budget).
 // Each of the b Householder steps needs, from all rows, the sums
 // d[c] = sum_{i>j} W[i][j] W[i][c] (c >= j; d[j] is sigma) and the pivot
-// row W[j][c]; with them every CTA forms tau, beta and
-// acc[c] = W[j][c] + d[c] / v0 itself (the one-CTA step's
-// sum of v_i W[i][c], up to rounding).  So one pass over its rows per step applies the
-// previous step's update and gathers the next step's partial sums, and one
-// cluster exchange per step (partials in shared memory, a cluster barrier,
-// every CTA summing its peers' partials through distributed shared memory
-// in one fixed order, so all CTAs get bitwise the same totals) replaces the
-// one-CTA kernel's two block reductions.  larft's V^T V is one more
-// exchange; rank 0 runs the T recurrence.
+// row W[j][c]; with them every CTA forms tau, beta and v0 (by the sign's
+// rule from alpha = W[j][j], sigma and mu = |x|) and
+// acc[c] = W[j][c] + d[c] / v0 itself (the sum of v_i W[i][c] over the
+// step's rows, v_i = W[i][j] / v0 below the pivot, up to rounding).  So one
+// pass over its rows per step applies the previous step's update and
+// gathers the next step's partial sums, and one cluster exchange per step
+// (partials in shared memory, a cluster barrier, every CTA summing its
+// peers' partials through distributed shared memory in one fixed order, so
+// all CTAs get bitwise the same totals) replaces a one-CTA recurrence's two
+// block reductions.  larft's V^T V is one more exchange; rank 0 runs the T
+// recurrence.  A cluster of one CTA is the one-CTA QR.
 //
 // Shared state lives in dynamic shared memory (ClusterQrSmem), as the host
 // emulation requires of a cluster kernel.  Every function contains barriers:
-// call it from all threads of all CTAs of the cluster.
+// call it from all threads of all CTAs of the cluster, with a block of
+// 32 to kQrThreads threads, a multiple of 32.
 #pragma once
 
 #include "common.cuh"
@@ -74,13 +77,15 @@ __device__ __forceinline__ void cluster_sum(const float* part, int cnt, float* t
   __syncthreads();
 }
 
-// b LAPACK-sign Householder steps and larft over a panel split across the
-// cluster (see above).  Leaves R on and above the diagonal of panel rows
-// [0, b) and each v (unit head implied) below it, in W; taus in sm + tau;
-// on rank 0, T (leading dimension BM) in sm + T.
-template <int BM>
-__device__ __forceinline__ void cluster_householder(float* W, int ldw, int base, int nrows, int b, float* sm,
-                                    int cs) {
+// b Householder steps and larft over a panel split across the cluster (see
+// above): kLapackSign, LAPACK larfg's beta = -sign(alpha) |x|; else the JAX
+// package's historical beta = +|x| (repro/core/householder.py house).
+// Leaves R on and above the diagonal of panel rows [0, b) and each v (unit
+// head implied) below it, in W; taus in sm + tau; on rank 0, T (leading
+// dimension BM) in sm + T.
+template <int BM, bool kLapackSign>
+__device__ __forceinline__ void cluster_householder(float* W, int ldw, int base, int nrows, int b,
+                                                    float* sm, int cs) {
   using L = ClusterQrSmem<BM>;
   float* red = sm + L::red;
   float* tot = sm + L::tot;
@@ -162,18 +167,28 @@ __device__ __forceinline__ void cluster_householder(float* W, int ldw, int base,
     }
     __syncthreads();
     cluster_sum<L::kNP>(part, 2 * BM, tot, gather, j & 1, cs);
-    // LAPACK larfg: beta = -sign(alpha) mu
     const float sigma = tot[j];
     const float alpha = tot[BM + j];
     const float mu = sqrtf(alpha * alpha + sigma);
     const bool degenerate = sigma == 0.f;
-    const float sign_a = alpha >= 0.f ? 1.f : -1.f;
-    const float beta_nd = -sign_a * mu;
-    const float safe_beta = beta_nd == 0.f ? 1.f : beta_nd;
-    tau = degenerate ? 0.f : (beta_nd - alpha) / safe_beta;
-    beta = degenerate ? alpha : beta_nd;
-    const float denom = alpha - beta_nd;  // sign(alpha)(|alpha| + mu): no cancellation
-    inv_v0 = 1.f / (denom == 0.f ? 1.f : denom);
+    if constexpr (kLapackSign) {
+      // LAPACK larfg: beta = -sign(alpha) mu
+      const float sign_a = alpha >= 0.f ? 1.f : -1.f;
+      const float beta_nd = -sign_a * mu;
+      const float safe_beta = beta_nd == 0.f ? 1.f : beta_nd;
+      tau = degenerate ? 0.f : (beta_nd - alpha) / safe_beta;
+      beta = degenerate ? alpha : beta_nd;
+      const float denom = alpha - beta_nd;  // sign(alpha)(|alpha| + mu): no cancellation
+      inv_v0 = 1.f / (denom == 0.f ? 1.f : denom);
+    } else {
+      // house: beta = +mu, v0 = alpha - mu (formed without cancellation)
+      const float safe_denom = alpha + mu == 0.f ? 1.f : alpha + mu;
+      const float v0 = alpha <= 0.f ? alpha - mu : -sigma / safe_denom;
+      const float v0s = degenerate ? 1.f : v0;
+      tau = degenerate ? 0.f : 2.f * v0s * v0s / (sigma + v0s * v0s);
+      beta = degenerate ? alpha : mu;
+      inv_v0 = 1.f / v0s;
+    }
 #pragma unroll
     for (int c = 0; c < BM; ++c) acc[c] = (c > j && c < b) ? tot[BM + c] + tot[c] * inv_v0 : 0.f;
     if (tid == 0) s_tau[j] = tau;
@@ -181,25 +196,26 @@ __device__ __forceinline__ void cluster_householder(float* W, int ldw, int base,
   __syncthreads();
 
   // larft: V^T V[a][c] = v_a . v_c for a < c (v_c is zero above row c, one
-  // at it), threads split over (pair, group of rows).
+  // at it), threads split over (pair, group of rows); a block of fewer
+  // threads than pairs takes the pairs in turn.
   const int npairs = b * (b - 1) / 2;
   if (npairs > 0) {
     const int groups = max(1, nt / npairs);
-    float s = 0.f;
-    if (tid < npairs * groups) {
-      const int pidx = tid % npairs;
-      const int g = tid / npairs;
+    for (int q = tid; q < npairs * groups; q += nt) {
+      const int pidx = q % npairs;
+      const int g = q / npairs;
       int c = 1;
       while (c * (c + 1) / 2 <= pidx) ++c;
       const int a = pidx - c * (c - 1) / 2;
+      float s = 0.f;
       for (int lr = g; lr < nrows; lr += groups) {
         const int li = base + lr;
         if (li < c) continue;
         const float vc = li == c ? 1.f : W[c * ldw + lr];
         s += W[a * ldw + lr] * vc;
       }
+      red[q] = s;
     }
-    red[tid] = s;
     __syncthreads();
     for (int pidx = tid; pidx < npairs; pidx += nt) {
       float t = 0.f;

@@ -12,10 +12,10 @@ name                   bytes     used by
 =====================  ========  ===============================================
 SMEM_PER_BLOCK_MAX      232448   the hardware ceiling (227 KB) for one block;
                                  kernel B's 3b x 3b window must fit it
-PANEL_QR_SMEM           204800   kernel A's panel QR keeps each CTA's slice of
-                                 the (m - r0, b) panel, and kernel E its
-                                 (m, b) panel, in shared memory up to this
-                                 size, and works on it in global memory above
+PANEL_QR_SMEM           204800   the cluster panel QR of kernels A and E
+                                 keeps each CTA's slice of the panel's rows
+                                 in shared memory up to this size, and works
+                                 on it in a global workspace above
 BACKTRANSFORM_SMEM      188416   kernel C keeps its (n, cw) column strip in
                                  shared memory up to this size (one block per
                                  SM, beside its 40.5 KB of staged log), and
@@ -23,10 +23,10 @@ BACKTRANSFORM_SMEM      188416   kernel C keeps its (n, cw) column strip in
 =====================  ========  ===============================================
 
 ``PANEL_QR_CLUSTER`` is not a size in bytes: it is the most CTAs of the
-thread-block cluster over which kernel A splits each panel QR's rows (16,
-Hopper's non-portable maximum; the kernel falls back to the portable 8 when
-the card cannot co-schedule 16).  With ``PANEL_QR_SMEM`` each CTA keeps its
-slice of the panel in shared memory.
+thread-block cluster over which kernels A and E split each panel QR's rows
+(16, Hopper's non-portable maximum; the kernels fall back to the portable 8
+when the card cannot co-schedule 16).  With ``PANEL_QR_SMEM`` each CTA
+keeps its slice of the panel in shared memory.
 """
 from __future__ import annotations
 

@@ -6,7 +6,7 @@
 // one), with one std::thread per CUDA thread of the cluster.  Each CTA of
 // the running cluster has its own dynamic shared memory, its own block
 // barrier (__syncthreads) and its own warps (__shfl_xor_sync,
-// repro::mma_bf16_16816); the CTAs of a cluster run together, meet at
+// repro::mma_bf16_16816, repro::mma_tf32_1688); the CTAs of a cluster run together, meet at
 // repro::cluster_sync() and read each other's dynamic shared memory through
 // repro::cluster_peer().  Clusters run one after another, so this checks
 // what one cluster computes, not races between clusters.  A persistent
@@ -208,6 +208,58 @@ inline void mma_bf16_16816(float (&d)[4], const unsigned (&a)[4], const unsigned
       acc += av * bv;
     }
     d[i] = acc;
+  }
+  bar->arrive_and_wait();
+}
+
+// cvt.rna.tf32.f32: to nearest with ties away from zero on the magnitude
+// (sign and magnitude are separate bits, so adding half of the dropped
+// unit to the bits does it; a carry moves into the exponent as it should),
+// keeping 10 mantissa bits.  NaN stays NaN.
+inline unsigned to_tf32(float x) {
+  unsigned u;
+  std::memcpy(&u, &x, 4);
+  if ((u & 0x7f800000u) == 0x7f800000u) return (u & 0x007fffffu) ? (u | 0x00400000u) & ~0x1fffu : u;
+  return (u + 0x1000u) & ~0x1fffu;
+}
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, d += a b, by the PTX
+// fragment layout (g = lane / 4, t = lane % 4; one TF32 value per
+// register, whose low 13 bits the tensor cores ignore):
+//   a[r]: A (16 x 8, row-major) row g + 8 (r & 1), column t + 4 (r >> 1)
+//   b[r]: B (8 x 8, k x n) row t + 4 r, column g
+//   d[i]: D (16 x 8) row g + 8 (i >> 1), column 2t + (i & 1)
+// Products of two TF32 values are exact; d and the eight products are
+// summed exactly and rounded toward zero, as the H100's tensor cores round
+// (a 3xTF32 walk that chains all k through them drifts by ~4e-6 of max|ref|
+// at k = 256 on the card, as it does here).
+inline float tf32_value(unsigned reg) {
+  const unsigned u = reg & ~0x1fffu;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline void mma_tf32_1688(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  const int t = emu::tIdx.x;
+  const int w0 = t & ~31;
+  auto* bar = emu::cta->warp_bars[t / 32].get();
+  unsigned* fa = emu::cta->mma_a.data();
+  unsigned* fb = emu::cta->mma_b.data();
+  for (int r = 0; r < 4; ++r) fa[4 * t + r] = a[r];
+  for (int r = 0; r < 2; ++r) fb[2 * t + r] = b[r];
+  bar->arrive_and_wait();
+  const int lane = t - w0;
+  for (int i = 0; i < 4; ++i) {
+    const int row = lane / 4 + 8 * (i >> 1);
+    const int col = 2 * (lane % 4) + (i & 1);
+    long double acc = d[i];
+    for (int k = 0; k < 8; ++k) {
+      const float av = tf32_value(fa[4 * (w0 + (row % 8) * 4 + k % 4) + (row >= 8) + 2 * (k >= 4)]);
+      const float bv = tf32_value(fb[2 * (w0 + col * 4 + k % 4) + (k >= 4)]);
+      acc += (long double)av * bv;
+    }
+    float r = (float)acc;
+    if (std::fabs((long double)r) > std::fabs(acc)) r = std::nextafter(r, 0.f);
+    d[i] = r;
   }
   bar->arrive_and_wait();
 }

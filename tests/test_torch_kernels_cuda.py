@@ -21,6 +21,7 @@ from repro_torch.core.backtransform import backtransform_wy_xla, sweep_major_log
 from repro_torch.core.band_reduction import band_reduce, build_stage_schedule  # noqa: E402
 from repro_torch.core.bulge_chasing import chase_wavefront_slices  # noqa: E402
 from repro_torch.kernels import cuda_lib, limits, ops, ref  # noqa: E402
+from repro_torch.kernels import panel as ke  # noqa: E402
 from repro_torch.kernels.panel import panel_qr_body  # noqa: E402
 from repro_torch.solver import EvdConfig, by_count, plan  # noqa: E402
 
@@ -249,6 +250,27 @@ def test_syr2k_matches_plain(cuda_device, n, k, c_view):
         assert float((got - want).abs().max()) <= 2e-5 * max(float(want.abs().max()), 1.0)
 
 
+@pytest.mark.parametrize("n,k,c_view", [(3840, 256, True), (3840, 256, None), (130, 256, True)])
+def test_syr2k_fp32_keeps_fp32_accuracy(cuda_device, n, k, c_view):
+    """float32 kernel D on the tensor cores (3xTF32) within 2e-6 max|ref| of
+    a float64 reference at k = 256 (a one-pass TF32 product is ~4e-4
+    off)."""
+    rng = np.random.default_rng(n * k + 1)
+    a = torch.as_tensor(rng.normal(size=(n, k)).astype(np.float32), device=cuda_device)
+    b = torch.as_tensor(rng.normal(size=(n, k)).astype(np.float32), device=cuda_device)
+    ad, bd = a.double(), b.double()
+    want = -(ad @ bd.T + bd @ ad.T)
+    if c_view is None:
+        got = ops.syr2k(a, b, alpha=-1.0)
+    else:
+        C = torch.as_tensor(_sym(n + 2, n), device=cuda_device)[2:, 2:]
+        got = ops.trailing_update(C, b, a)
+        want += torch.tril(C.double()) + torch.tril(C.double(), -1).T
+    torch.cuda.synchronize()
+    assert torch.equal(got, got.T)
+    assert float((got.double() - want).abs().max()) <= 2e-6 * float(want.abs().max())
+
+
 @pytest.mark.parametrize(
     "n,k,c_view",
     [(64, 16, False), (100, 37, True), (3840, 256, True), (129, 37, None), (3840, 256, None)],
@@ -274,16 +296,54 @@ def test_syr2k_bf16_matches_plain(cuda_device, n, k, c_view):
     assert float((got.float() - want).abs().max()) <= 5e-2 * float(want.abs().max())
 
 
-@pytest.mark.parametrize("m,b,smem", [(4088, 8, None), (8192, 8, None), (17, 5, None), (300, 16, 0), (64, 32, None)])
-def test_panel_qr_matches_plain(cuda_device, monkeypatch, m, b, smem):
+@pytest.mark.parametrize("cluster", [1, 2, 3, 12, 16])
+@pytest.mark.parametrize(
+    "m,b,smem,degenerate",
+    [
+        (4088, 8, None, False),
+        (8192, 8, None, False),
+        (17, 5, None, False),   # at 16 CTAs, 7 hold no rows
+        (300, 16, 0, False),    # slices in the global workspace
+        (64, 32, None, False),
+        (24, 8, None, True),    # at 16 CTAs every pivot row starts a slice
+        (4088, 8, 0, True),     # global workspace at the path's largest panel
+    ],
+)
+def test_panel_qr_matches_plain(cuda_device, monkeypatch, m, b, smem, degenerate, cluster):
+    """Kernel E on clusters of 1, 2, 3, 12 and 16 CTAs (8 where the card
+    cannot co-schedule 12 or 16) against panel_qr_body(lapack_sign=False)."""
     if smem is not None:
         monkeypatch.setitem(limits.LIMITS, "PANEL_QR_SMEM", smem)
     P = torch.as_tensor(np.random.default_rng(m).normal(size=(m, b)).astype(np.float32), device=cuda_device)
-    got = ops.panel_qr(P)
+    if degenerate:
+        P[6:, 2] = 0.0  # sigma == 0 -> tau == 0
+    got = ke.panel_qr_cuda_cluster(P, cluster)
     want = panel_qr_body(P, b, lapack_sign=False)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) <= 5e-5 * max(float(w.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("smem", [None, 0])
+@pytest.mark.parametrize("m", [4088, 1500, 300, 8])
+def test_panel_qr_op_uses_the_cluster_rule(cuda_device, monkeypatch, m, smem):
+    """ops.panel_qr runs kernel E once, on cluster_size(m) CTAs (16, 12, 3
+    and 1 here), and agrees with panel_qr_body(lapack_sign=False); bitwise
+    what an explicit launch of that size gives."""
+    if smem is not None:
+        monkeypatch.setitem(limits.LIMITS, "PANEL_QR_SMEM", smem)
+    P = torch.as_tensor(np.random.default_rng(m + 1).normal(size=(m, 8)).astype(np.float32), device=cuda_device)
+    P[6:, 2] = 0.0  # sigma == 0 -> tau == 0
+    cuda_lib.reset_launch_counts()
+    got = ops.panel_qr(P)
+    assert cuda_lib.launch_counts()["panel_qr"] == 1 and cuda_lib.device_launch_counts()["panel_qr"] == 1
+    assert ke.cluster_size(m) == {4088: 16, 1500: 12, 300: 3, 8: 1}[m]
+    want = panel_qr_body(P, 8, lapack_sign=False)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 5e-5 * max(float(w.abs().max()), 1.0)
+    again = ke.panel_qr_cuda_cluster(P, ke.cluster_size(m))
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
 
 
 def test_band_reduce_kernel_panels_on_card(cuda_device):

@@ -50,6 +50,7 @@ def host(tmp_path_factory):
     procs = {}
     sources = {name: CSRC / f"{name}.cu" for name in ("fused_panel", "bulge", "backtransform", "syr2k", "panel")}
     sources["mma_probe"] = SHIM / "mma_probe.cu"
+    sources["mma_tf32_probe"] = SHIM / "mma_tf32_probe.cu"
     for name, src in sources.items():
         so = out / f"{name}.so"
         cmd = [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
@@ -79,7 +80,13 @@ def host(tmp_path_factory):
     mma = libs["mma_probe"].mma_probe_launch
     mma.argtypes = [ctypes.c_void_p] * 3
     mma.restype = ctypes.c_int
-    return fa, fb, fc, fd, fe, ws, wb, in_turn, mma
+    tf32 = libs["mma_tf32_probe"].mma_tf32_probe_launch
+    tf32.argtypes = [ctypes.c_void_p] * 4
+    tf32.restype = ctypes.c_int
+    plan = libs["panel"].panel_qr_plan
+    plan.argtypes = ke._PLAN_ARGTYPES
+    plan.restype = ctypes.c_int
+    return fa, fb, fc, fd, fe, ws, wb, in_turn, mma, tf32, plan
 
 
 def _sym(n, seed):
@@ -276,6 +283,29 @@ def test_syr2k_host(host, n, k, alpha, c_view):
     assert float((out - want).abs().max()) <= 2e-5 * max(float(want.abs().max()), 1.0)
 
 
+@pytest.mark.parametrize("n,c_view", [(96, True), (130, None)])
+def test_syr2k_host_3xtf32_accuracy(host, n, c_view):
+    """float32 kernel D on the (emulated) tensor cores keeps float32
+    accuracy at k = 256: within 2e-6 max|ref| of a float64 reference, which
+    a one-pass TF32 product (the small terms dropped: ~4e-4 here) misses,
+    and so does a walk that chains all of k through the tensor cores' sums,
+    which round toward zero (~5e-6)."""
+    k = 256
+    rng = np.random.default_rng(n * k)
+    A = torch.tensor(rng.normal(size=(n, k)).astype(np.float32))
+    B = torch.tensor(rng.normal(size=(n, k)).astype(np.float32))
+    C = None if c_view is None else _sym(n + 3, n)[3:, 3:]
+    out = torch.full((n, n), float("nan"))
+    assert host[3](A.data_ptr(), B.data_ptr(), k, n, k, -1.0, None if C is None else C.data_ptr(),
+                   0 if C is None else C.stride(0), out.data_ptr(), 0, None) == 0
+    Ad, Bd = A.double(), B.double()
+    want = -(Ad @ Bd.T + Bd @ Ad.T)
+    if C is not None:
+        want += torch.tril(C.double()) + torch.tril(C.double(), -1).T
+    assert torch.equal(out, out.T)
+    assert float((out.double() - want).abs().max()) <= 2e-6 * float(want.abs().max())
+
+
 @pytest.mark.parametrize(
     "n,k,c_view",
     [
@@ -318,14 +348,92 @@ def test_mma_bf16_16816_host(host):
     assert float((D.double() - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
-@pytest.mark.parametrize("m,b,smem", [(33, 8, SMEM), (17, 5, SMEM), (40, 8, 1024), (64, 16, SMEM), (8, 8, 0)])
-def test_panel_qr_host(host, m, b, smem):
-    """Kernel E against panel_qr_body(lapack_sign=False); a budget below
-    m * b * 4 bytes puts the panel in global memory."""
+def _tf32_round(x: np.ndarray) -> np.ndarray:
+    """float32 to TF32 bits: nearest, ties away from zero, 10 mantissa bits."""
+    u = x.astype(np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x1000) & ~np.uint64(0x1FFF)).astype(np.uint32)
+
+
+def test_mma_tf32_1688_host(host):
+    """repro::to_tf32 and repro::mma_tf32_1688 alone: the rounding of A
+    (with ties and a carry into the exponent) against numpy's, and a
+    16 x 8 by 8 x 8 TF32 product through the PTX fragment layout against a
+    float64 matmul of the rounded values."""
+    rng = np.random.default_rng(1688)
+    a = rng.normal(size=(16, 8)).astype(np.float32)
+    bits = a.view(np.uint32)
+    bits[0, :4] = (bits[0, :4] & ~np.uint32(0x1FFF)) | np.uint32(0x1000)  # ties: away from zero
+    bits[1, 0] = 0x3F7FFFFF  # just below 1.0: the carry reaches the exponent
+    bits[1, 1] = 0xBF7FF000  # a negative tie
+    b = rng.normal(size=(8, 8)).astype(np.float32)
+    A, B = torch.tensor(a), torch.tensor(b)
+    D = torch.full((16, 8), float("nan"))
+    RA = torch.zeros((16, 8), dtype=torch.int32)
+    assert host[9](A.data_ptr(), B.data_ptr(), D.data_ptr(), RA.data_ptr()) == 0
+    ra = RA.numpy().view(np.uint32)
+    assert np.array_equal(ra, _tf32_round(a))
+    assert ra[1, 0] == 0x3F800000 and ra[1, 1] == 0xBF800000
+    want = ra.view(np.float32).astype(np.float64) @ _tf32_round(b).view(np.float32).astype(np.float64)
+    assert float(np.abs(D.double().numpy() - want).max()) <= 1e-6 * float(np.abs(want).max())
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 12, 16])
+@pytest.mark.parametrize(
+    "m,b,smem",
+    [
+        (33, 8, SMEM),
+        (17, 5, SMEM),   # b = 5 on the 8-wide instantiation; at 16 CTAs, 7 hold no rows
+        (40, 8, 1024),   # one CTA's slice above the budget: global workspace
+        (64, 16, SMEM),
+        (8, 8, 0),       # every slice in the global workspace
+        (24, 8, SMEM),   # at 16 CTAs every pivot row starts a CTA's slice
+        (70, 8, 0),      # global workspace across the cluster
+        (40, 32, SMEM),  # b = 32: 496 larft pairs on blocks of 32-64 threads
+    ],
+)
+def test_panel_qr_host(host, m, b, smem, cluster):
+    """Kernel E against panel_qr_body(lapack_sign=False) on clusters of 1, 2,
+    3, 12 and 16 CTAs: uneven and empty slices, pivot rows on CTA
+    boundaries, a degenerate column, slices in shared memory or, below the
+    budget, in the global workspace."""
     P = torch.tensor(np.random.default_rng(m * b).normal(size=(m, b)).astype(np.float32))
     P[6:, 2] = 0.0  # a degenerate column: sigma == 0 -> tau == 0
     V, T, taus, R = torch.empty(m, b), torch.empty(b, b), torch.empty(b), torch.empty(b, b)
+    work = torch.full((m + cluster, b), float("nan"))
     assert host[4](P.data_ptr(), m, b, V.data_ptr(), T.data_ptr(), taus.data_ptr(),
-                   R.data_ptr(), smem, None) == 0
+                   R.data_ptr(), work.data_ptr(), smem, cluster, None) == 0
     for got, want in zip((V, T, taus, R), ke.panel_qr_body(P, b, lapack_sign=False)):
         assert float((got - want).abs().max()) <= 5e-5 * max(float(want.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize(
+    "m,b,smem,cluster,in_smem",
+    [(33, 8, SMEM, 2, True), (1500, 8, SMEM, 12, True), (40, 8, 1024, 1, False), (300, 16, 0, 3, False)],
+)
+def test_panel_qr_host_plan_and_workspace(host, m, b, smem, cluster, in_smem):
+    """panel_qr_plan says whether the slices fit shared memory; the launch
+    then takes no workspace (null), and refuses a null one where they do
+    not fit."""
+    fe, plan = host[4], host[10]
+    got_in_smem = ctypes.c_int(-1)
+    assert plan(m, b, smem, cluster, ctypes.byref(got_in_smem)) == cluster
+    assert bool(got_in_smem.value) == in_smem
+    P = torch.tensor(np.random.default_rng(m + b).normal(size=(m, b)).astype(np.float32))
+    V, T, taus, R = torch.empty(m, b), torch.empty(b, b), torch.empty(b), torch.empty(b, b)
+    rc = fe(P.data_ptr(), m, b, V.data_ptr(), T.data_ptr(), taus.data_ptr(), R.data_ptr(), None,
+            smem, cluster, None)
+    if not in_smem:
+        assert rc != 0
+        return
+    assert rc == 0
+    for got, want in zip((V, T, taus, R), ke.panel_qr_body(P, b, lapack_sign=False)):
+        assert float((got - want).abs().max()) <= 5e-5 * max(float(want.abs().max()), 1.0)
+
+
+def test_panel_qr_cluster_size_rule():
+    """Kernel E's cluster grows with the panel up to PANEL_QR_CLUSTER: the
+    n = 4096 path's first panels take 16 CTAs, its last ones one."""
+    assert ke.cluster_size(4088) == ke.cluster_size(8192) == limit("PANEL_QR_CLUSTER") == 16
+    assert ke.cluster_size(8) == ke.cluster_size(ke._ROWS_PER_CTA) == 1
+    assert ke.cluster_size(ke._ROWS_PER_CTA + 1) == 2
+    assert all(ke.cluster_size(m) <= ke.cluster_size(m + 1) for m in range(1, 5000, 7))
