@@ -45,6 +45,25 @@ Phases, each printing its own lines:
    band's eigenvalues against ``torch.linalg.eigvalsh(A)`` (and one CUDA
    launch a panel, as the wrapper declares it).
 
+6. Batched solves at full width.  (a) The Shampoo refresh of one decoder
+   layer of ``configs/llama32_3b.py`` under ``ShampooOptions()`` (blocks of
+   128): 6144 seeded PSD blocks G Gᵀ/256 + 1e-3 I through ``solve_many(...,
+   EvdConfig(b=8, nb=64), op="inverse_pth_root", p=4)``, against the
+   float64 ``torch.linalg.eigh`` formula; kernels A, B and C must launch
+   exactly 6144 x one ``plan(128)`` solve's calls.  Its wall time beside
+   batched ``torch.linalg.eigh`` plus the root formula, the peak memory,
+   the stage times of an eigh run of the same bucket beside the kernels'
+   device time, and its first 8 matrices against ``plan(128)`` one by one.
+   (b) Heterogeneous stacks (n = 128, 96, 127) with exact buckets (n = 127
+   runs ``method="direct"``) and padded into one bucket of 128, every leaf
+   through phase 3's gates.  (c) A medium bucket, (8, 1024, 1024), beside
+   batched ``torch.linalg.eigh``.
+7. The other methods on the card (plain torch): ``plan(1021)`` (odd n, the
+   direct method), ``method="jacobi"`` at n = 512, ``chase="sequential",
+   backtransform="scan"`` at n = 256, and the ``repro_torch.core``
+   wrappers at n = 256, each through phase 3's gates beside
+   ``torch.linalg.eigh``.
+
 Then one JSON line with the kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero and prints no result; so does a machine without a
@@ -65,6 +84,15 @@ from pathlib import Path
 N_MAIN = 4096
 N_ROOT = 1024
 SEED = 0
+# One decoder layer of configs/llama32_3b.py (d_model 3072, kv 1024, d_ff
+# 8192) in Shampoo's blocks of 128: wq, wo 576 each; wk, wv 192 each;
+# gate, up, down 1536 each.
+SHAMPOO_BLOCKS = {"wq": 576, "wo": 576, "wk": 192, "wv": 192, "gate": 1536, "up": 1536, "down": 1536}
+N_BLOCK = 128
+HETERO = ((512, 128), (512, 96), (64, 127))
+PAD_BUCKET = 128
+N_MEDIUM, B_MEDIUM = 1024, 8
+N_DIRECT, N_JACOBI, N_SEQUENTIAL = 1021, 512, 256
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, the
 # float32 rate outside the tensor cores, and the bf16 and TF32 tensor-core
@@ -99,6 +127,13 @@ TOL_EIG = 3e-4
 TOL_RESID = 1e-4
 TOL_ORTH = 1e-3
 TOL_ROOT = 1e-3
+# A bucket against plan(n) one matrix at a time (tests/test_torch_plan.py's
+# tolerances): eigenvalues at 1e-5 max|w|; sign-aligned vectors at 1e-4
+# plus, per column, 32 eps max|w| / its eigenvalue gap (what rounding
+# differences in the two runs move a vector by: kernel A's float atomics,
+# batched QR and GEMMs).
+TOL_LOOP_W = 1e-5
+TOL_LOOP_V = 1e-4
 
 
 def require(cond: bool, msg: str) -> None:
@@ -670,7 +705,272 @@ def phase_unfused(torch, gen):
     )
 
 
+def check_bucket(torch, phase: str, A, w, V) -> None:
+    """Phase 3's gates on every matrix of a bucket A (B, n, n) with its
+    ``w`` (B, n) and ``V`` (B, n, n); prints the worst of each over the
+    bucket."""
+    B, n = A.shape[0], A.shape[-1]
+    Ad, Vd, wd = A.double(), V.double(), w.double()
+    w_ref = torch.linalg.eigvalsh(Ad)
+    e_eig = float(((wd - w_ref).abs().amax(-1) / w_ref.abs().amax(-1)).max())
+    R = Ad @ Vd - Vd * wd[:, None, :]
+    resid = float((torch.linalg.norm(R, dim=(-2, -1)) / torch.linalg.norm(Ad, dim=(-2, -1))).max())
+    eye = torch.eye(n, dtype=torch.float64, device=A.device)
+    orth = float((Vd.mT @ Vd - eye).abs().amax((-2, -1)).max())
+    print(f"{phase} ({B} matrices, worst of each): eigenvalues max|w - w_ref|/max|w| = {e_eig:.3e} "
+          f"(tol {TOL_EIG:.0e}); ||AV - VW||_F/||A||_F = {resid:.3e} (tol {TOL_RESID:.0e}); "
+          f"max|V^T V - I| = {orth:.3e} (tol {TOL_ORTH:.0e})")
+    require(e_eig < TOL_EIG, f"{phase} eigenvalues")
+    require(resid < TOL_RESID, f"{phase} residual")
+    require(orth < TOL_ORTH, f"{phase} orthogonality")
+    require(bool(torch.isfinite(V).all()) and tuple(V.shape) == (B, n, n), f"{phase} V finite, (B, n, n)")
+
+
+def solve_launches(pl) -> dict:
+    """Kernel calls of one two-stage ``plan`` solve with eigenvectors:
+    kernel A once per DBR block (D on the unfused path), B once (the fused
+    generation), C once."""
+    from repro_torch.core.band_reduction import build_stage_schedule
+
+    blocks = len(build_stage_schedule(pl.n, pl.b, pl.nb).entries)
+    if pl.tridiag == "unfused":
+        return {"trailing_update": blocks, "backtransform_wy": 1}
+    return {"fused_panel_update": blocks, "bulge_wavefront": 1, "backtransform_wy": 1}
+
+
+def nonzero(counts) -> dict:
+    return {op: c for op, c in counts.items() if c}
+
+
+def phase_shampoo(torch, gen):
+    """Phase 6a: one decoder layer's Shampoo refresh through solve_many."""
+    from repro_torch.core.backtransform import sweep_major_log
+    from repro_torch.core.band_reduction import band_reduce, build_stage_schedule
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.backtransform import backtransform_wy_cuda
+    from repro_torch.kernels.bulge import bulge_wavefront_cuda
+    from repro_torch.kernels.fused_panel import fused_panel_update_cuda
+    from repro_torch.solver import EvdConfig, batch_plan, plan, solve_many
+    from repro_torch.solver.plan import _execute_bucket
+
+    n, p, eps = N_BLOCK, 4, 1e-6
+    B = sum(SHAMPOO_BLOCKS.values())
+    cfg = EvdConfig(b=8, nb=64)
+    G = torch.randn((B, n, 2 * n), generator=gen, device="cuda")
+    S = G @ G.mT / (2 * n) + 1e-3 * torch.eye(n, device="cuda")
+    del G
+    pl = plan(n, torch.float32, cfg)
+    print(f"phase 6 Shampoo refresh: {B} blocks of {n} ({SHAMPOO_BLOCKS}), G G^T/{2 * n} + 1e-3 I; "
+          f"{pl.describe()}")
+    cuda_lib.reset_launch_counts()
+    pl.inverse_pth_root(S[0], p, eps=eps)
+    torch.cuda.synchronize()
+    one, one_dev = nonzero(cuda_lib.launch_counts()), nonzero(cuda_lib.device_launch_counts())
+    require(one == solve_launches(pl), f"phase 6 one plan({n}) solve launched {one}")
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    out = {}
+    ms = wall_ms(torch, lambda: out.setdefault("X", solve_many(S, cfg, op="inverse_pth_root", p=p, eps=eps)))
+    peak = torch.cuda.max_memory_allocated()
+    got, got_dev = nonzero(cuda_lib.launch_counts()), nonzero(cuda_lib.device_launch_counts())
+    print(f"phase 6 Shampoo launches: one plan({n}) solve {one} (CUDA {one_dev}); the bucket {got} "
+          f"(CUDA {got_dev})")
+    require(got == {op: B * c for op, c in one.items()}, f"phase 6 bucket launches {got} != {B} x {one}")
+    require(got_dev == {op: B * c for op, c in one_dev.items()}, f"phase 6 bucket CUDA launches {got_dev}")
+    X = out["X"]
+    w, V = torch.linalg.eigh(S.double())
+    ridge = eps * w.amax(-1).clamp(min=1e-30)
+    X_ref = (V * (w.clamp(min=0) + ridge[:, None]).pow(-1.0 / p)[:, None, :]) @ V.mT
+    err = float(((X.double() - X_ref).abs().amax((-2, -1)) / X_ref.abs().amax((-2, -1))).max())
+    del w, V, X_ref
+    require(err < TOL_ROOT and bool(torch.isfinite(X).all()) and tuple(X.shape) == (B, n, n),
+            f"phase 6 Shampoo inverse roots: rel err {err}")
+
+    def library():
+        wl, Vl = torch.linalg.eigh(S)
+        r = eps * wl.amax(-1).clamp(min=1e-30)
+        return (Vl * (wl.clamp(min=0) + r[:, None]).pow(-1.0 / p)[:, None, :]) @ Vl.mT
+
+    lib_ms = wall_ms(torch, library)  # cuSOLVER is warm from phase 3
+    print(f"phase 6 Shampoo refresh B={B} n={n} p={p}: solve_many {ms:.1f} ms ({ms / B:.4f} ms a block), "
+          f"rel err vs float64 eigh {err:.3e} (tol {TOL_ROOT:.0e}); batched torch.linalg.eigh + root "
+          f"{lib_ms:.1f} ms; peak memory {peak / 2**20:.0f} MiB")
+
+    # The same bucket as an eigh run, stage by stage (each closed by a
+    # synchronize), beside the device time of its kernels.
+    stages, last = {}, [0.0]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[name] = stages.get(name, 0.0) + (now - last[0]) * 1e3
+        last[0] = now
+
+    base = batch_plan(n, B, torch.float32, cfg).base
+    torch.cuda.synchronize()
+    last[0] = time.perf_counter()
+    wb, Vb = _execute_bucket(S, base, True, on_stage=mark)
+    print("phase 6 Shampoo eigh bucket stages ms: " + ", ".join(f"{k}={v:.1f}" for k, v in stages.items())
+          + f"; total {sum(stages.values()):.1f}")
+    A0 = 0.5 * (S[0] + S[0].T)
+    entries = build_stage_schedule(n, pl.b, pl.nb).entries
+    a_ms = cuda_ms(torch, lambda M: [fused_panel_update_cuda(M[e.ci:, e.ci:], pl.b, e.w) for e in entries],
+                   20, lambda: (A0.clone(),))
+    band = band_reduce(A0, pl.b, pl.nb)
+    b_ms = cuda_ms(torch, lambda: bulge_wavefront_cuda(band, pl.b, return_log=True), 20)
+    vs, taus = sweep_major_log(bulge_wavefront_cuda(band, pl.b, return_log=True)[1])
+    Xv = torch.randn((n, n), generator=gen, device="cuda")
+    c_ms = cuda_ms(torch, lambda: backtransform_wy_cuda(Xv, vs, taus, b=pl.b), 20)
+    print(f"phase 6 Shampoo kernels' device time a matrix (CUDA events): A {a_ms:.4f} ms ({len(entries)} calls), "
+          f"B {b_ms:.4f} ms, C {c_ms:.4f} ms; x {B}: A {a_ms * B:.1f} ms (stage band_reduce "
+          f"{stages['band_reduce']:.1f}), B {b_ms * B:.1f} ms (stage chase {stages['chase']:.1f}), C "
+          f"{c_ms * B:.1f} ms (stage q2 {stages['q2']:.1f})")
+    # Kernel A sums its panel reductions with float atomics, so two calls on
+    # one input may differ in the last bits; a matrix's solve then differs
+    # from run to run, and an eigenvector moves by that over its gap.
+    runs = [fused_panel_update_cuda(A0.clone(), pl.b, entries[0].w)[0] for _ in range(2)]
+    a_same = torch.equal(runs[0], runs[1])
+    a_diff = float((runs[0] - runs[1]).abs().max())
+    eps32 = torch.finfo(torch.float32).eps
+
+    def vec_err(V, Vi):
+        sign = torch.sign((V * Vi).sum(0))
+        return (V * sign[None, :] - Vi).abs().amax(0)
+
+    ew = ev = ev_self = ev_self_w = 0.0
+    within = True
+    for i in range(8):
+        wi, Vi = pl(S[i])
+        wi2, Vi2 = pl(S[i])  # the same solve again
+        scale = float(wi.abs().max())
+        ew = max(ew, float((wi - wb[i]).abs().max()) / scale)
+        ev_self_w = max(ev_self_w, float((wi - wi2).abs().max()) / scale)
+        gaps = torch.full_like(wi, float("inf"))
+        gaps[1:] = wi.diff()
+        gaps[:-1] = torch.minimum(gaps[:-1], wi.diff())
+        err = vec_err(Vb[i], Vi)
+        ev = max(ev, float(err.max()))
+        ev_self = max(ev_self, float(vec_err(Vi2, Vi).max()))
+        within &= bool((err < TOL_LOOP_V + 32 * eps32 * scale / gaps).all())
+    print(f"phase 6 kernel A bitwise equal over two calls on one input: {a_same} (max diff {a_diff:.3e}); "
+          f"plan({n}) against itself, first 8: eigenvalues {ev_self_w:.3e} of max|w|, eigenvectors "
+          f"{ev_self:.3e}")
+    print(f"phase 6 Shampoo bucket vs plan({n}) one by one, first 8: eigenvalues {ew:.3e} of max|w| "
+          f"(tol {TOL_LOOP_W:.0e}), sign-aligned eigenvectors {ev:.3e} (each column within "
+          f"{TOL_LOOP_V:.0e} + 32 eps max|w| / its eigenvalue gap: {within})")
+    require(ew < TOL_LOOP_W and within, "phase 6 bucket vs plan loop")
+    return got, got_dev, dict(ms=ms, library_ms=lib_ms, blocks=B, peak_mib=peak / 2**20)
+
+
+def phase_buckets(torch, gen):
+    """Phase 6b-c: heterogeneous and padded buckets, and a medium bucket."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.solver import EvdConfig, PadPolicy, plan, solve_many
+
+    leaves = []
+    for count, n in HETERO:
+        X = torch.randn((count, n, n), generator=gen, device="cuda")
+        leaves.append(X + X.mT)
+    odd = HETERO[-1][1]
+    require(plan(odd, torch.float32, EvdConfig()).method == "direct", f"n = {odd} routes to the direct method")
+    for label, pad in (("exact buckets", PadPolicy()),
+                       (f"padded to {PAD_BUCKET}, batch_multiple 8", PadPolicy(bucket_sizes=(PAD_BUCKET,), batch_multiple=8))):
+        per_bucket, want = {}, {}
+        for count, n in HETERO:
+            per_bucket[pad.bucket_for(n)] = per_bucket.get(pad.bucket_for(n), 0) + count
+        for N, count in per_bucket.items():
+            pl = plan(N, torch.float32, EvdConfig())
+            if pl.method == "two_stage":  # with the identity matrices that pad the batch
+                for op, c in solve_launches(pl).items():
+                    want[op] = want.get(op, 0) + -(-count // pad.batch_multiple) * pad.batch_multiple * c
+        cuda_lib.reset_launch_counts()
+        out = {}
+        ms = wall_ms(torch, lambda: out.setdefault("r", solve_many(leaves, EvdConfig(), pad=pad)))
+        got = nonzero(cuda_lib.launch_counts())
+        print(f"phase 6 heterogeneous {[tuple(x.shape) for x in leaves]}, {label}: solve_many {ms:.1f} ms; "
+              f"launches {got}")
+        require(got == want, f"phase 6 {label}: launches {got}, expected {want}")
+        for A, (w, V) in zip(leaves, out["r"]):
+            check_bucket(torch, f"phase 6 {label} n={A.shape[-1]}", A, w, V)
+
+    n, B = N_MEDIUM, B_MEDIUM
+    X = torch.randn((B, n, n), generator=gen, device="cuda")
+    A = X + X.mT
+    del X
+    pl = plan(n, torch.float32, EvdConfig())
+    cuda_lib.reset_launch_counts()
+    out = {}
+    ms = wall_ms(torch, lambda: out.setdefault("r", solve_many(A, EvdConfig())))
+    got = nonzero(cuda_lib.launch_counts())
+    want = {op: B * c for op, c in solve_launches(pl).items()}
+    require(got == want, f"phase 6 medium bucket launches {got}, expected {want}")
+    check_bucket(torch, f"phase 6 medium bucket ({B}, {n}, {n})", A, *out["r"])
+    torch.linalg.eigh(A)
+    eigh_ms = wall_ms(torch, lambda: torch.linalg.eigh(A))
+    print(f"phase 6 medium bucket ({B}, {n}, {n}) {pl.describe()}: solve_many {ms:.1f} ms, launches {got}; "
+          f"batched torch.linalg.eigh {eigh_ms:.1f} ms")
+
+
+def phase_methods(torch, gen):
+    """Phase 7: the direct and Jacobi methods, the oracle generation and the
+    core wrappers, on the card (plain torch, no kernel but A in the oracle
+    generation's band reduction)."""
+    from repro_torch import core
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.solver import EvdConfig, plan
+
+    def sym(n):
+        X = torch.randn((n, n), generator=gen, device="cuda")
+        return X + X.T
+
+    def run(label, A, fn):
+        cuda_lib.reset_launch_counts()
+        out = {}
+        ms = wall_ms(torch, lambda: out.setdefault("r", fn(A)))
+        launches = nonzero(cuda_lib.launch_counts())
+        check_evd(torch, f"phase 7 {label}", A, *out["r"])
+        torch.linalg.eigh(A)
+        eigh_ms = wall_ms(torch, lambda: torch.linalg.eigh(A))
+        print(f"phase 7 {label} n={A.shape[0]}: {ms:.1f} ms, torch.linalg.eigh {eigh_ms:.1f} ms; "
+              f"kernel launches {launches}")
+        return launches
+
+    pl = plan(N_DIRECT, torch.float32, EvdConfig())
+    print(f"phase 7 {pl.describe()}")
+    require(pl.method == "direct", f"plan({N_DIRECT}) runs {pl.method}, expected direct")
+    require(not run(f"plan({N_DIRECT}), method=direct", sym(N_DIRECT), pl), "the direct method launched a kernel")
+    pj = plan(N_JACOBI, torch.float32, EvdConfig(method="jacobi"))
+    require(not run("method=jacobi", sym(N_JACOBI), pj), "the Jacobi method launched a kernel")
+    ps = plan(N_SEQUENTIAL, torch.float32, EvdConfig(chase="sequential", backtransform="scan"))
+    print(f"phase 7 {ps.describe()}")
+    got = run("chase=sequential, backtransform=scan", sym(N_SEQUENTIAL), ps)
+    require(got == {"fused_panel_update": solve_launches(ps)["fused_panel_update"]},
+            f"phase 7 oracle generation launches {got}: kernel A only")
+
+    n = N_SEQUENTIAL
+    A = sym(n)
+    run("core.eigh", A, core.eigh)
+    w_ref = torch.linalg.eigvalsh(A.double())
+    e = max_eig_err(core.eigvalsh(A), w_ref)
+    X = torch.randn((4, n, n), generator=gen, device="cuda")
+    As = X + X.mT
+    w, V = core.eigh_batched(As)
+    check_bucket(torch, "phase 7 core.eigh_batched", As, w, V)
+    e_b = float(((core.eigvalsh_batched(As).double() - torch.linalg.eigvalsh(As.double())).abs().amax(-1)
+                 / w.double().abs().amax(-1)).max())
+    G = torch.randn((n, 2 * n), generator=gen, device="cuda") / (2 * n) ** 0.5
+    S = G @ G.T + 0.1 * torch.eye(n, device="cuda")
+    Xr = core.inverse_pth_root(S, 4)
+    ws, Vs = torch.linalg.eigh(S.double())
+    X_ref = (Vs * (ws + 1e-6 * float(ws.max())).pow(-0.25)[None, :]) @ Vs.T
+    e_r = rel_err(Xr, X_ref)
+    print(f"phase 7 core.eigvalsh {e:.3e}, core.eigvalsh_batched {e_b:.3e} (tol {TOL_EIG:.0e}); "
+          f"core.inverse_pth_root rel err vs float64 {e_r:.3e} (tol {TOL_ROOT:.0e})")
+    require(e < TOL_EIG and e_b < TOL_EIG and e_r < TOL_ROOT, "phase 7 core wrappers")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -703,6 +1003,14 @@ def main() -> int:
     unfused, unfused_device = phase_unfused(torch, gen)
     launches.update(unfused)
     device_launches.update(unfused_device)
+    t6 = time.perf_counter()
+    batched, batched_device, shampoo = phase_shampoo(torch, gen)
+    phase_buckets(torch, gen)
+    t7 = time.perf_counter()
+    phase_methods(torch, gen)
+    t_end = time.perf_counter()
+    print(f"phase 6 took {t7 - t6:.1f} s, phase 7 {t_end - t7:.1f} s; the script {t_end - t_start:.1f} s "
+          f"in all (kernel build included)")
 
     # Kernel D serves two registry ops (syr2k, trailing_update); its launches
     # are the sum of both counters over the unfused plan(A) run.
@@ -717,9 +1025,12 @@ def main() -> int:
     for name, (source, replaces) in meta.items():
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": launches[name], "device_launches": device_launches[name]}
+        if name in batched:
+            row.update(shampoo_bucket_launches=batched[name],
+                       shampoo_bucket_device_launches=batched_device[name])
         row.update(rows[name])
         kernels.append(row)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "shampoo_refresh": shampoo}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -11,7 +11,11 @@ has two backends:
 There is no fallback between them.  A plan resolves its backend once
 (``EvdConfig.backend``, else the ``REPRO_TORCH_KERNEL_BACKEND`` env var,
 else ``"cuda"`` on a CUDA device and ``"torch"`` on the CPU), and an
-explicit ``"torch"`` on a CUDA device is an opt-in pin.
+explicit ``"torch"`` on a CUDA device is an opt-in pin.  The first-stage
+generation resolves the same way (:func:`default_tridiag`, the
+``REPRO_TORCH_TRIDIAG`` env var, else ``"fused"``); both are part of the
+plan-cache key.  The JAX package's switches (``REPRO_KERNEL_BACKEND``,
+``REPRO_TRIDIAG``) are not read.
 
 Every op is registered on both backends.  Where the port pairs differently
 from the JAX registry: JAX's jnp ``panel_qr`` is ``panel_qr_geqrf`` (LAPACK
@@ -31,15 +35,20 @@ import torch
 
 __all__ = [
     "ENV_VAR",
+    "TRIDIAG_ENV_VAR",
     "BACKENDS",
+    "TRIDIAGS",
     "OPS",
     "default_backend",
+    "default_tridiag",
     "validate_backend",
     "resolve",
 ]
 
 ENV_VAR = "REPRO_TORCH_KERNEL_BACKEND"
+TRIDIAG_ENV_VAR = "REPRO_TORCH_TRIDIAG"
 BACKENDS = ("torch", "cuda")
+TRIDIAGS = ("fused", "unfused")
 OPS = (
     "trailing_update",
     "syr2k",
@@ -65,6 +74,17 @@ def default_backend(device: torch.device) -> str:
     if env:
         return validate_backend(env)
     return "cuda" if device.type == "cuda" else "torch"
+
+
+def default_tridiag() -> str:
+    """The process-wide first-stage generation: ``"fused"`` unless
+    ``REPRO_TORCH_TRIDIAG=unfused`` pins the legacy composition."""
+    env = os.environ.get(TRIDIAG_ENV_VAR)
+    if not env:
+        return "fused"
+    if env not in TRIDIAGS:
+        raise ValueError(f"invalid {TRIDIAG_ENV_VAR}={env!r}; expected one of {TRIDIAGS}")
+    return env
 
 
 def _build_impls() -> None:

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.backend import registry
 
-from .panel_qr import panel_qr_geqrf, panel_qr_householder
+from .panel_qr import resolve_panel_qr
 
 __all__ = [
     "band_reduce",
@@ -160,7 +160,9 @@ def band_reduce(
     ``backend`` picks the registry ops' implementations (default: ``cuda``
     for a CUDA tensor, ``torch`` on the CPU).
 
-    ``mode`` is ``"fused"`` (the default) or ``"unfused"``.  The unfused
+    ``mode`` is ``"fused"`` or ``"unfused"`` (default: the process-wide
+    ``registry.default_tridiag()``, ``"fused"`` unless the env var says
+    otherwise).  The unfused
     composition takes ``panel_method``: ``"geqrf"`` (``panel_qr_geqrf``),
     ``"householder"`` (``panel_qr_householder``) or ``"kernel"`` (the
     ``panel_qr`` op on ``backend``: kernel E on ``cuda``; JAX names it
@@ -181,7 +183,7 @@ def band_reduce(
         raise ValueError(f"nb={nb} must be a multiple of b={b}")
     custom_phases = syr2k_update is not None or panel_method != "geqrf"
     if mode is None:
-        mode = "unfused" if custom_phases else "fused"
+        mode = "unfused" if custom_phases else registry.default_tridiag()
     if mode not in ("fused", "unfused"):
         raise ValueError(f"unknown band-reduction mode: {mode!r}")
     if mode == "fused" and custom_phases:
@@ -193,14 +195,7 @@ def band_reduce(
     if mode == "fused":
         fused_update = registry.resolve("fused_panel_update", backend)
     else:
-        if panel_method == "geqrf":
-            panel_qr_fn = panel_qr_geqrf
-        elif panel_method == "householder":
-            panel_qr_fn = panel_qr_householder
-        elif panel_method == "kernel":
-            panel_qr_fn = registry.resolve("panel_qr", backend)
-        else:
-            raise ValueError(f"unknown panel_method: {panel_method!r}")
+        panel_qr_fn = resolve_panel_qr(panel_method, backend)
         syr2k_update = syr2k_update or registry.resolve("trailing_update", backend)
 
     B = A.contiguous().clone()
@@ -228,14 +223,15 @@ def band_reduce(
 
 
 def apply_q_left(refl: BandReflectors, X: torch.Tensor, transpose: bool = False) -> torch.Tensor:
-    """Q1 @ X (or Q1^T @ X), one rank-b update per panel."""
+    """Q1 @ X (or Q1^T @ X), one rank-b update per panel; leading batch
+    dimensions of ``refl`` and ``X`` broadcast."""
     b = refl.b
-    P = refl.T.shape[0]
+    P = refl.T.shape[-3]
     order = range(P) if transpose else range(P - 1, -1, -1)
     for p in order:
-        V = refl.V[:, p * b : (p + 1) * b]
-        Tp = refl.T[p].T if transpose else refl.T[p]
-        X = X - V @ (Tp @ (V.T @ X))
+        V = refl.V[..., :, p * b : (p + 1) * b]
+        Tp = refl.T[..., p, :, :].mT if transpose else refl.T[..., p, :, :]
+        X = X - V @ (Tp @ (V.mT @ X))
     return X
 
 

@@ -1,7 +1,6 @@
 """Bulge chasing: symmetric band matrix -> tridiagonal (wavefront schedule).
 
-Port of ``repro.core.bulge_chasing`` for both generations (the sequential
-executor is not ported: ROADMAP Queue 1 item 8).  Op (s, k)
+Port of ``repro.core.bulge_chasing`` for both generations.  Op (s, k)
 of sweep ``s`` eliminates column ``s`` (k = 0) or ``s+1+(k-1)b`` (k >= 1)
 with one reflector on rows ``[s+1+kb, s+1+(k+1)b)``, as a two-sided update
 of the 3b-wide window starting at row ``s+1+(k-1)b``.  Op (s, k) runs at
@@ -12,6 +11,9 @@ batched update.
 :func:`chase_wavefront` is the executor: the plain version of the
 ``bulge_wavefront`` and ``bulge_chase`` ops, whose kernel is
 ``csrc/bulge.cu``, and the unfused generation's chase when a log is needed.
+:func:`chase_sequential` is the oracle (``chase="sequential"``): the ops one
+at a time in the paper's serial order, with an (L, b) log; :func:`apply_q2`
+applies either log reflector by reflector (``backtransform="scan"``).
 """
 from __future__ import annotations
 
@@ -27,9 +29,11 @@ from .householder import house
 
 __all__ = [
     "ChaseLog",
+    "chase_sequential",
     "chase_wavefront",
     "chase_wavefront_slices",
     "band_to_tridiag",
+    "apply_q2",
     "extract_tridiag",
     "num_wavefronts",
     "max_active_sweeps",
@@ -44,7 +48,8 @@ class ChaseLog:
     B = Q2 T Q2^T with Q2 = H_1 H_2 ... H_L in execution order.  Wavefront
     logs are ``vs`` (W, A, b), ``taus`` (W, A), ``row0`` (W, A) int32: the
     global start row of each reflector's support, sentinel ``n`` for an
-    inactive slot (whose ``tau`` is 0 and ``v`` is e_0).
+    inactive slot (whose ``tau`` is 0 and ``v`` is e_0).  Sequential logs
+    are (L, b), (L,) and (L,), one entry per op in execution order.
     """
 
     vs: torch.Tensor
@@ -133,6 +138,37 @@ def _trivial_log(B: torch.Tensor, b: int) -> ChaseLog:
     )
 
 
+def chase_sequential(B: torch.Tensor, b: int, return_log: bool = False):
+    """The oracle executor: ops one at a time in the paper's serial order
+    (sweep-major).  Returns ``T`` or ``(T, ChaseLog)`` with an (L, b) log."""
+    n = B.shape[0]
+    if n < 3 or b <= 1:
+        out = B.clone()
+        return (out, _trivial_log(B, b)) if return_log else out
+    dev, dtype = B.device, B.dtype
+    off, _, total = _pad_sizes(n, b)
+    w3 = 3 * b
+    kmax = _kmax_table(n, b)
+    sk = [(s, k) for s in range(n - 2) for k in range(int(kmax[s]) + 1)]
+    Bp = torch.zeros((total, total), dtype=dtype, device=dev)
+    Bp[off : off + n, off : off + n] = B
+    ks = torch.as_tensor([k for _, k in sk], device=dev)
+    vs = torch.empty((len(sk), b), dtype=dtype, device=dev)
+    taus = torch.empty((len(sk),), dtype=dtype, device=dev)
+    for i, (s, k) in enumerate(sk):
+        r0 = off + s + 1 + (k - 1) * b
+        win = Bp[r0 : r0 + w3, r0 : r0 + w3]
+        Wn, v, tau = _window_op(win[None], ks[i : i + 1], b)
+        win.copy_(Wn[0])
+        vs[i] = v[0]
+        taus[i] = tau[0]
+    out = Bp[off : off + n, off : off + n].clone()
+    if not return_log:
+        return out
+    row0 = torch.as_tensor([s + 1 + k * b for s, k in sk], dtype=torch.int32, device=dev)
+    return out, ChaseLog(vs=vs, taus=taus, row0=row0, n=n, b=b)
+
+
 def chase_wavefront(B: torch.Tensor, b: int, return_log: bool = False):
     """The wavefront executor: per wavefront, the windows of all
     A = ``max_active_sweeps`` slots are gathered from a zero-padded copy of
@@ -190,11 +226,14 @@ def band_to_tridiag(
     *,
     method: str = "wavefront",
     return_log: bool = False,
-    mode: str = "fused",
+    mode: Optional[str] = None,
     backend: Optional[str] = None,
 ):
     """Reduce a symmetric band matrix (dense storage) to tridiagonal form.
 
+    ``method="sequential"`` runs the oracle :func:`chase_sequential` (plain
+    tensor code on any device).  ``mode`` (default: the process-wide
+    ``registry.default_tridiag()``) picks the wavefront generation.
     ``mode="fused"`` runs the ``bulge_wavefront`` registry op (kernel B on
     the ``cuda`` backend, log included).  ``mode="unfused"`` is the legacy
     composition, as in the JAX package: the ``bulge_chase`` op (kernel B
@@ -202,11 +241,11 @@ def band_to_tridiag(
     tensor code on any device) when the log is needed.  ``backend``
     defaults to ``cuda`` for a CUDA tensor and ``torch`` on the CPU.
     """
+    if method == "sequential":
+        return chase_sequential(B, b, return_log)
     if method != "wavefront":
-        raise NotImplementedError(
-            f"band_to_tridiag(method={method!r}) is not ported yet: ROADMAP "
-            "Queue 1 item 8 (chase='sequential')"
-        )
+        raise ValueError(f"unknown bulge chasing method: {method!r}")
+    mode = mode or registry.default_tridiag()
     if mode not in ("fused", "unfused"):
         raise ValueError(f"unknown tridiag mode: {mode!r}")
     backend = backend or registry.default_backend(B.device)
@@ -218,5 +257,37 @@ def band_to_tridiag(
 
 
 def extract_tridiag(T: torch.Tensor):
-    """(diagonal, subdiagonal) of a (numerically) tridiagonal matrix."""
-    return torch.diagonal(T).clone(), torch.diagonal(T, offset=-1).clone()
+    """(diagonal, subdiagonal) of a (numerically) tridiagonal matrix
+    (..., n, n): (..., n) and (..., n-1)."""
+    return (
+        torch.diagonal(T, dim1=-2, dim2=-1).clone(),
+        torch.diagonal(T, offset=-1, dim1=-2, dim2=-1).clone(),
+    )
+
+
+def apply_q2(log: ChaseLog, X: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+    """Q2 @ X (or Q2^T @ X) from a reflector log, reflector by reflector.
+
+    Q2 = H_1 ... H_L in execution order, so Q2 @ X runs the log backwards
+    and Q2^T @ X forwards.  A wavefront log applies each wavefront's
+    reflectors as one batched update (their row supports are disjoint); a
+    sequential log is a run of wavefronts of one reflector.
+    """
+    n, b = log.n, log.b
+    m = X.shape[1]
+    # b zero rows below X: inactive reflectors (row0 == n) land there.
+    Xp = torch.zeros((n + b, m), dtype=X.dtype, device=X.device)
+    Xp[:n] = X
+    vs, taus, row0 = log.vs, log.taus, log.row0
+    if vs.ndim == 2:
+        vs, taus, row0 = vs[:, None], taus[:, None], row0[:, None]
+    rows_all = torch.clamp(row0.long()[..., None] + torch.arange(b, device=X.device), max=n + b - 1)
+    order = range(vs.shape[0]) if transpose else range(vs.shape[0] - 1, -1, -1)
+    for w in order:
+        rows = rows_all[w].reshape(-1)
+        v = vs[w]
+        Xg = Xp[rows].view(v.shape[0], b, m)
+        proj = torch.einsum("ab,abm->am", v, Xg)
+        upd = taus[w][:, None, None] * v[:, :, None] * proj[:, None, :]
+        Xp.index_add_(0, rows, upd.reshape(-1, m), alpha=-1.0)
+    return Xp[:n].clone()

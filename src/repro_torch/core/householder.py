@@ -9,7 +9,16 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["house", "larft", "wy_apply_left", "wy_apply_right"]
+__all__ = [
+    "house",
+    "house_masked",
+    "apply_house_left",
+    "apply_house_right",
+    "apply_house_both",
+    "larft",
+    "wy_apply_left",
+    "wy_apply_right",
+]
 
 
 def house(x: torch.Tensor):
@@ -39,6 +48,36 @@ def house(x: torch.Tensor):
     )
     v = torch.cat([torch.ones_like(alpha)[..., None], v_tail], dim=-1)
     return v, tau, beta
+
+
+def house_masked(x: torch.Tensor, mask: torch.Tensor):
+    """:func:`house` of ``x`` with the entries where ``mask`` is False taken
+    as exact zeros; ``v`` is zero there too.  A dead head entry gives
+    ``tau == 0`` and ``beta == 0``."""
+    x = torch.where(mask, x, 0.0)
+    v, tau, beta = house(x)
+    v = torch.where(mask, v, 0.0)
+    head_live = mask[..., 0]
+    return v, torch.where(head_live, tau, 0.0), torch.where(head_live, beta, x[..., 0])
+
+
+def apply_house_left(M: torch.Tensor, v: torch.Tensor, tau) -> torch.Tensor:
+    """(I - tau v v^T) @ M: ``v`` acts on the rows of ``M``."""
+    return M - tau * torch.outer(v, v @ M)
+
+
+def apply_house_right(M: torch.Tensor, v: torch.Tensor, tau) -> torch.Tensor:
+    """M @ (I - tau v v^T): ``v`` acts on the columns of ``M``."""
+    return M - tau * torch.outer(M @ v, v)
+
+
+def apply_house_both(M: torch.Tensor, v: torch.Tensor, tau) -> torch.Tensor:
+    """(I - tau v v^T) M (I - tau v v^T) for symmetric ``M``, as the
+    symmetric rank-2 update M - v w^T - w v^T with
+    w = tau (M v - (tau/2)(v^T M v) v)."""
+    Mv = M @ v
+    w = tau * (Mv - 0.5 * tau * (v @ Mv) * v)
+    return M - torch.outer(v, w) - torch.outer(w, v)
 
 
 def larft(V: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:

@@ -10,14 +10,22 @@ Both functions factor a tall (m, b) panel as ``Q [R; 0]`` with
 * ``panel_qr_householder`` — b column steps of :func:`house`, beta = +|x|
   (the JAX package's historical sign); ``band_reduce(panel_method=
   "householder")``.
+
+:func:`panel_qr` dispatches on ``method`` as ``band_reduce``'s
+``panel_method`` does, ``"kernel"`` being the ``panel_qr`` registry op
+(kernel E on ``cuda``; the JAX package names it ``"pallas"``).
 """
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
+
+from repro_torch.backend import registry
 
 from .householder import house, larft
 
-__all__ = ["panel_qr_geqrf", "panel_qr_householder"]
+__all__ = ["panel_qr", "panel_qr_geqrf", "panel_qr_householder"]
 
 
 def panel_qr_geqrf(panel: torch.Tensor):
@@ -49,3 +57,22 @@ def panel_qr_householder(panel: torch.Tensor):
         V[j:, j] = v_tail
         taus[j] = tau
     return V, larft(V, taus), taus, A[:b, :].clone()
+
+
+def resolve_panel_qr(method: str, backend: str) -> Callable:
+    """The panel factor ``method`` names: ``"geqrf"``, ``"householder"`` or
+    ``"kernel"`` (the ``panel_qr`` op on ``backend``)."""
+    if method == "geqrf":
+        return panel_qr_geqrf
+    if method == "householder":
+        return panel_qr_householder
+    if method == "kernel":
+        return registry.resolve("panel_qr", backend)
+    raise ValueError(f"unknown panel_method {method!r}; expected 'geqrf', 'householder' or 'kernel'")
+
+
+def panel_qr(panel: torch.Tensor, method: str = "geqrf", *, backend: Optional[str] = None):
+    """QR of a (m, b) panel by ``method`` (see :func:`resolve_panel_qr`;
+    ``backend`` defaults by the panel's device).  Returns
+    ``(V, T, taus, R)``."""
+    return resolve_panel_qr(method, backend or registry.default_backend(panel.device))(panel)

@@ -2,12 +2,17 @@
 
 Port of ``repro.core.tridiag_eig``: Sturm-sequence bisection for the
 eigenvalues and pivoted inverse iteration plus a QR polish for the
-eigenvectors.  The JAX package writes the recurrences as ``lax.scan``; here
-they are Python loops over the n rows, each step vectorized across the
-eigenvalue lanes.  One deliberate difference: the shift perturbation of
-:func:`eigvecs_inverse_iteration` stays bounded at large k (see there).
-They run on the plan's device (no Pallas kernel exists for them, so none is
-ported in this slice).
+eigenvectors.  The JAX package writes the recurrences as ``lax.scan`` and
+batches them with ``jax.vmap``; here they are Python loops over the n rows,
+each step vectorized across the eigenvalue lanes and across any leading
+batch dimensions: ``d`` is (..., n), ``e`` (..., n-1), ``lams`` (..., k).
+So one launch stream serves a whole bucket of matrices, as vmap does.
+Per-matrix quantities stay per matrix (the pivot floor, the Gershgorin
+bracket, the shift scale, the QR polish), and the steps are elementwise,
+so a bucket gives each matrix the bits it gets alone.  One deliberate
+difference: the shift perturbation of :func:`eigvecs_inverse_iteration`
+stays bounded at large k (see there).  They run on the plan's device (the
+JAX package has no Pallas kernel for them).
 """
 from __future__ import annotations
 
@@ -17,29 +22,37 @@ import torch
 
 __all__ = [
     "sturm_count",
+    "eigvalsh_tridiag",
     "eigvalsh_tridiag_range",
     "eigvecs_inverse_iteration",
+    "eigh_tridiag",
 ]
 
 
 def _pivmin(e: torch.Tensor, dtype) -> torch.Tensor:
+    """Pivot floor per matrix: max(max e² · tiny, tiny), shape (...)."""
     tiny = torch.finfo(dtype).tiny
-    e2max = (e * e).max() if e.numel() else torch.zeros((), dtype=dtype, device=e.device)
-    return torch.clamp(e2max * tiny, min=tiny)
+    if e.shape[-1] == 0:
+        return torch.full(e.shape[:-1], tiny, dtype=dtype, device=e.device)
+    return torch.clamp((e * e).amax(-1) * tiny, min=tiny)
 
 
 def sturm_count(d: torch.Tensor, e: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Number of eigenvalues of tridiag(d, e) strictly below each x (int32).
 
-    The safeguarded LDL^T sign-count recurrence (LAPACK dstebz style).
+    ``d`` (..., n), ``e`` (..., n-1), ``x`` (..., m); returns (..., m).  The
+    safeguarded LDL^T sign-count recurrence (LAPACK dstebz style).
     """
-    n = d.shape[0]
-    e2 = torch.cat([torch.zeros((1,), dtype=d.dtype, device=d.device), e * e])
-    pivmin = _pivmin(e, d.dtype)
+    n = d.shape[-1]
+    batch = torch.broadcast_shapes(d.shape[:-1], x.shape[:-1])
+    zero = torch.zeros(e.shape[:-1] + (1,), dtype=d.dtype, device=d.device)
+    # Rows first, so each step reads one contiguous (..., m) slice.
+    e2 = torch.cat([zero, e * e], dim=-1).movedim(-1, 0)[..., None]
+    pivmin = _pivmin(e, d.dtype)[..., None]
     neg_pivmin = -pivmin
-    dmx = d[:, None] - x[None, :]
-    neg = torch.empty((n, x.shape[0]), dtype=torch.bool, device=d.device)
-    q = torch.ones_like(x)
+    dmx = d.movedim(-1, 0)[..., None] - x[None]
+    neg = torch.empty((n,) + batch + (x.shape[-1],), dtype=torch.bool, device=d.device)
+    q = torch.ones(batch + x.shape[-1:], dtype=d.dtype, device=d.device)
     for i in range(n):
         q = torch.addcdiv(dmx[i], e2[i], q, value=-1.0)
         q = torch.where(q.abs() < pivmin, neg_pivmin, q)
@@ -48,22 +61,28 @@ def sturm_count(d: torch.Tensor, e: torch.Tensor, x: torch.Tensor) -> torch.Tens
 
 
 def _bisect_indices(d: torch.Tensor, e: torch.Tensor, ks: torch.Tensor, max_iter: int):
-    """Bisection lanes for eigenvalue indices ``ks`` (ascending order)."""
+    """Bisection lanes for eigenvalue indices ``ks`` (..., m), ascending."""
     dtype = d.dtype
-    zero = torch.zeros((1,), dtype=dtype, device=d.device)
-    e_abs = torch.cat([zero, e.abs()])
-    r = e_abs + torch.cat([e.abs(), zero])
-    lo0 = (d - r).min()
-    hi0 = (d + r).max()
+    zero = torch.zeros(e.shape[:-1] + (1,), dtype=dtype, device=d.device)
+    r = torch.cat([zero, e.abs()], dim=-1) + torch.cat([e.abs(), zero], dim=-1)
+    lo0 = (d - r).amin(-1)
+    hi0 = (d + r).amax(-1)
     span = torch.clamp(hi0 - lo0, min=torch.finfo(dtype).eps)
-    lo = (lo0 - 0.001 * span).expand(ks.shape[0]).clone()
-    hi = (hi0 + 0.001 * span).expand(ks.shape[0]).clone()
+    lanes = torch.broadcast_shapes(d.shape[:-1] + (1,), ks.shape)
+    lo =(lo0 - 0.001 * span)[..., None].expand(lanes).clone()
+    hi = (hi0 + 0.001 * span)[..., None].expand(lanes).clone()
     for _ in range(max_iter):
         mid = 0.5 * (lo + hi)
         go_up = sturm_count(d, e, mid) <= ks
         lo = torch.where(go_up, mid, lo)
         hi = torch.where(go_up, hi, mid)
     return 0.5 * (lo + hi)
+
+
+def eigvalsh_tridiag(d: torch.Tensor, e: torch.Tensor, max_iter: int = 48) -> torch.Tensor:
+    """All eigenvalues of tridiag(d, e), ascending, by parallel bisection."""
+    n = d.shape[-1]
+    return _bisect_indices(d, e, torch.arange(n, dtype=torch.int32, device=d.device), max_iter)
 
 
 def eigvalsh_tridiag_range(
@@ -75,8 +94,8 @@ def eigvalsh_tridiag_range(
     max_iter: int = 48,
 ) -> torch.Tensor:
     """Eigenvalues ``start .. start+count-1`` (ascending) of tridiag(d, e);
-    one bisection lane per requested eigenvalue."""
-    n = d.shape[0]
+    one bisection lane per requested eigenvalue.  Returns (..., count)."""
+    n = d.shape[-1]
     count = n - start if count is None else count
     if not (0 <= start and start + count <= n and count >= 1):
         raise ValueError(f"invalid spectrum window [start={start}, count={count}) for n={n}")
@@ -88,30 +107,36 @@ def _tridiag_solve_pivoted(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor, 
     """Solve tridiag(dl, d, du) x = rhs with partial pivoting (dgtsv-style)
     for every lane at once.
 
-    ``dl``/``du`` (n-1,) are shared; ``d`` and ``rhs`` are (n, m), one
-    column per lane.  Returns x (n, m).
+    ``dl``/``du`` (..., n-1) are shared by a matrix's lanes; ``d`` and
+    ``rhs`` are (..., n, m), one column per lane.  Returns x (..., n, m).
     """
-    n, m = d.shape
+    n, m = d.shape[-2:]
+    batch = d.shape[:-2]
     dtype, dev = d.dtype, d.device
     tiny = torch.finfo(dtype).tiny * 16
+    # Rows first: step i reads and writes contiguous (..., m) slices.
+    d, rhs = d.movedim(-2, 0), rhs.movedim(-2, 0)
     if n == 1:
         b0 = d[0]
-        return (rhs[0] / torch.where(b0.abs() < tiny, torch.where(b0 < 0, -tiny, tiny), b0))[None]
-    zrow = torch.zeros((1, m), dtype=dtype, device=dev)
+        x = rhs[0] / torch.where(b0.abs() < tiny, torch.where(b0 < 0, -tiny, tiny), b0)
+        return x[None].movedim(0, -2)
+    dl, du = dl.movedim(-1, 0)[..., None], du.movedim(-1, 0)[..., None]
+    zrow = torch.zeros((1,) + batch + (m,), dtype=dtype, device=dev)
+    lanes = batch + (m,)
     # Row i+1 of the matrix in columns (i, i+1, i+2) and its rhs, per step i.
     nxt = torch.stack(
         [
-            dl[:, None].expand(n - 1, m),
+            dl.expand((n - 1,) + lanes),
             d[1:],
-            torch.cat([du[1:], du.new_zeros(1)])[:, None].expand(n - 1, m),
+            torch.cat([du[1:], torch.zeros_like(du[:1])]).expand((n - 1,) + lanes),
             rhs[1:],
         ],
         dim=1,
     )
     absa = dl.abs()
     # cur = the running pivot-candidate row (b_cur, c_cur, 0, r_cur).
-    cur = torch.stack([d[0], du[0].expand(m), zrow[0], rhs[0]])
-    U = torch.empty((n - 1, 4, m), dtype=dtype, device=dev)
+    cur = torch.stack([d[0], du[0].expand(lanes), zrow[0], rhs[0]])
+    U = torch.empty((n - 1, 4) + lanes, dtype=dtype, device=dev)
     for i in range(n - 1):
         swap = absa[i] > cur[0].abs()
         P = torch.where(swap, nxt[i], cur)   # pivot row: (p1, p2, p3, pr)
@@ -124,16 +149,16 @@ def _tridiag_solve_pivoted(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor, 
         cur = torch.cat([new[:2], zrow, new[2:]])
     b_last = cur[0]
     b_safe = torch.where(b_last.abs() < tiny, torch.where(b_last < 0, -tiny, tiny), b_last)
-    x = torch.empty((n, m), dtype=dtype, device=dev)
+    x = torch.empty((n,) + lanes, dtype=dtype, device=dev)
     x[n - 1] = cur[3] / b_safe
-    x2 = torch.zeros((m,), dtype=dtype, device=dev)
+    x2 = torch.zeros(lanes, dtype=dtype, device=dev)
     for i in range(n - 2, -1, -1):
         u = U[i]
         t = torch.addcmul(u[3], u[1], x[i + 1], value=-1.0)
         t = torch.addcmul(t, u[2], x2, value=-1.0)
         torch.div(t, u[0], out=x[i])
         x2 = x[i + 1]
-    return x
+    return x.movedim(0, -2)
 
 
 def eigvecs_inverse_iteration(
@@ -142,10 +167,11 @@ def eigvecs_inverse_iteration(
     """Eigenvectors of tridiag(d, e) for ascending eigenvalues ``lams``.
 
     One inverse-iteration lane per eigenvalue, then a thin QR that
-    re-orthogonalizes clustered vectors.  Returns (n, k).
+    re-orthogonalizes clustered vectors.  ``d`` (..., n), ``e`` (..., n-1),
+    ``lams`` (..., k); returns (..., n, k).
     """
-    n = d.shape[0]
-    m = lams.shape[0]
+    n = d.shape[-1]
+    m = lams.shape[-1]
     dtype, dev = d.dtype, d.device
     i = torch.arange(n, dtype=dtype, device=dev)
     v0 = torch.cos(17.0 * (i + 1.0)) + 0.5
@@ -156,16 +182,24 @@ def eigvecs_inverse_iteration(
     # inverse iteration converges to a neighbour's vector (ROADMAP Queue 3).
     # Here the offset cycles over 8 values, so it stays a few ulps at any m.
     ulp = torch.finfo(dtype).eps
-    scale = torch.clamp(lams.abs().max(), min=1.0)
+    scale = torch.clamp(lams.abs().amax(-1), min=1.0)[..., None]
     lane = torch.arange(m, dtype=dtype, device=dev)
     lams_p = lams + (torch.remainder(lane, 8) - 3.5) * (8 * ulp) * scale
-    dsh = d[:, None] - lams_p[None, :]
-    V = v0[:, None].expand(n, m).contiguous()
+    dsh = d[..., :, None] - lams_p[..., None, :]
+    V = v0[:, None].expand(dsh.shape).contiguous()
     tiny = torch.finfo(dtype).tiny
     for _ in range(n_iter):
         X = _tridiag_solve_pivoted(e, dsh, e, V)
-        V = X / torch.clamp(torch.linalg.norm(X, dim=0), min=tiny)[None, :]
+        V = X / torch.clamp(torch.linalg.norm(X, dim=-2), min=tiny)[..., None, :]
     Q, R = torch.linalg.qr(V)
-    signs = torch.sign(torch.diagonal(R))
+    signs = torch.sign(torch.diagonal(R, dim1=-2, dim2=-1))
     signs = torch.where(signs == 0, 1.0, signs)
-    return Q * signs[None, :]
+    return Q * signs[..., None, :]
+
+
+def eigh_tridiag(d: torch.Tensor, e: torch.Tensor, *, eigenvectors: bool = True, max_iter: int = 48):
+    """Full symmetric tridiagonal eigendecomposition (ascending)."""
+    lams = eigvalsh_tridiag(d, e, max_iter=max_iter)
+    if not eigenvectors:
+        return lams
+    return lams, eigvecs_inverse_iteration(d, e, lams)

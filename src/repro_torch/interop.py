@@ -2,8 +2,8 @@
 
 The EVD has no weights; its carried state is the factor structures one
 stage hands the next.  These functions turn what the JAX package produced
-(``BandReflectors``, ``ChaseLog``, ``EvdConfig``, converted by the caller
-to numpy arrays and dicts) into the port's objects, so a test can feed one
+(``BandReflectors``, ``ChaseLog``, ``EvdConfig``, ``PadPolicy``,
+converted by the caller to numpy arrays and dicts) into the port's objects, so a test can feed one
 stage of the port the exact factors JAX made for it.  Nothing here imports
 JAX.
 """
@@ -16,9 +16,10 @@ import torch
 
 from .core.band_reduction import BandReflectors
 from .core.bulge_chasing import ChaseLog, max_active_sweeps
+from .solver.batch import PadPolicy
 from .solver.config import EvdConfig, Spectrum
 
-__all__ = ["band_reflectors", "chase_log", "evd_config"]
+__all__ = ["band_reflectors", "chase_log", "evd_config", "pad_policy"]
 
 # The JAX registry's backend names and their counterparts here.
 _BACKENDS = {None: None, "jnp": "torch", "pallas": "cuda"}
@@ -84,3 +85,11 @@ def evd_config(d: Mapping) -> EvdConfig:
         spectrum=Spectrum(**spec) if spec is not None else Spectrum(),
         **fields,
     )
+
+
+def pad_policy(d: Mapping) -> PadPolicy:
+    """``dataclasses.asdict(jax_pad_policy)`` -> :class:`PadPolicy` (same
+    fields and validation; ``donate`` is carried and ignored by the port)."""
+    fields = dict(d)
+    sizes = fields.pop("bucket_sizes", None)
+    return PadPolicy(bucket_sizes=None if sizes is None else tuple(sizes), **fields)

@@ -22,7 +22,6 @@ __all__ = [
     "resolve_blocking",
     "blocking_defaults",
     "backtransform_group",
-    "wavefront_group",
 ]
 
 # device type -> ((n_upper_exclusive | None, b, nb), ...) scanned in order.
@@ -35,13 +34,6 @@ _BT_GROUP_TABLE = {
     "cuda": ((1024, 8), (None, 16)),
     "cpu": ((None, 8),),
 }
-# Chase slots per CTA of the bulge kernel (the plain version ignores it).
-_WAVEFRONT_GROUP_TABLE = {
-    "cuda": ((None, 1),),
-    "cpu": ((None, 4),),
-}
-
-
 def _lookup(table, n: int, device_type: str):
     for row in table[device_type]:
         if row[0] is None or n < row[0]:
@@ -61,14 +53,6 @@ def backtransform_group(n: int, b: int, device_type: str = "cuda") -> int:
     (g,) = _lookup(_BT_GROUP_TABLE, n, device_type)
     _, K = _sweep_shape(n, b)
     return max(1, min(int(g), K))
-
-
-def wavefront_group(n: int, b: int, device_type: str = "cuda") -> int:
-    """Chase slots per CTA, clamped to [1, A] (A slots per wavefront)."""
-    from repro_torch.core.bulge_chasing import max_active_sweeps
-
-    (g,) = _lookup(_WAVEFRONT_GROUP_TABLE, n, device_type)
-    return max(1, min(int(g), max_active_sweeps(n, b)))
 
 
 @dataclasses.dataclass(frozen=True)

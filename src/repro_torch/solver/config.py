@@ -5,10 +5,7 @@ nothing of the JAX package) with the same fields, defaults and validation
 as ``repro.solver.config``, so a config built for one package converts to
 the other field by field (``repro_torch.interop.evd_config``).
 
-The option sets are the JAX package's.  Values the port does not run yet
-(``method="direct"|"jacobi"``, ``chase="sequential"``,
-``backtransform="scan"``) are accepted here and refused with
-``NotImplementedError`` when a plan is built (``repro_torch.solver.plan``).
+The option sets are the JAX package's, and the port runs all of them.
 """
 from __future__ import annotations
 
@@ -90,7 +87,8 @@ class EvdConfig:
     * ``method``  — ``two_stage`` (the paper) | ``direct`` | ``jacobi``.
     * ``chase``   — bulge-chase schedule: ``wavefront`` | ``sequential``.
     * ``backtransform`` — ``blocked`` (compact-WY) | ``scan``.
-    * ``tridiag`` — ``fused`` | ``unfused``; ``None`` = ``fused``.
+    * ``tridiag`` — ``fused`` | ``unfused``; ``None`` = the
+      ``REPRO_TORCH_TRIDIAG`` env var, else ``fused``.
     * ``b, nb``   — bandwidth / update block; ``None`` = the per-device
       table in ``repro_torch.solver.autotune``.
     * ``backend`` — kernel backend pin: ``cuda`` (the hand-written kernels)

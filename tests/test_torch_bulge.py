@@ -105,6 +105,15 @@ def test_trivial_sizes_match_jax():
 
 
 def test_unported_chase_options_raise():
-    B = torch.zeros((16, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbc.band_to_tridiag(B, 4, method="sequential")
+    """``method="sequential"`` raised until the oracle chase was ported; it
+    now runs ``chase_sequential`` (held against JAX in
+    tests/test_torch_methods.py), and an unknown method raises as in the
+    JAX package."""
+    B = torch.as_tensor(_band(16, 4, 2))
+    T, log = tbc.band_to_tridiag(B, 4, method="sequential", return_log=True)
+    Ts, ls = tbc.chase_sequential(B, 4, return_log=True)
+    assert torch.equal(T, Ts) and torch.equal(log.row0, ls.row0) and log.vs.ndim == 2
+    with pytest.raises(ValueError, match="method"):
+        tbc.band_to_tridiag(B, 4, method="bogus")
+    with pytest.raises(ValueError, match="method"):
+        jbc.band_to_tridiag(jnp.asarray(_band(16, 4, 2)), 4, method="bogus")

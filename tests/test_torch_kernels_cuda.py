@@ -405,3 +405,41 @@ def test_plan_on_card_uses_every_kernel(cuda_device, cfg, ops_run):
     resid = A.double() @ V.double() - V.double() * w.double()[None, :]
     assert float(resid.abs().max()) < 5e-4 * scale
     assert float((V.double().T @ V.double() - torch.eye(count, dtype=torch.float64, device=cuda_device)).abs().max()) < 2e-4
+
+
+@pytest.mark.parametrize("tridiag", ["fused", "unfused"])
+def test_solve_many_on_card_matches_plan_loop(cuda_device, tridiag):
+    """A 16 x 128 stack through solve_many against plan(128) one matrix at a
+    time on the card: the bucket launches each kernel 16 x one solve's
+    calls; eigenvalues agree at 1e-5 max|w| and sign-aligned eigenvector
+    columns at 1e-4 plus what the column's eigenvalue gap allows
+    (32 eps ||A|| / gap: the batched QR and GEMMs round otherwise than the
+    single ones, and a vector moves by the perturbation over its gap)."""
+    from repro_torch.solver import solve_many
+
+    n, B = 128, 16
+    cfg = EvdConfig(b=8, nb=64, tridiag=tridiag)
+    stack = torch.as_tensor(np.stack([_sym(n, 300 + i) for i in range(B)]), device=cuda_device)
+    pl = plan(n, torch.float32, cfg)
+    cuda_lib.reset_launch_counts()
+    pl(stack[0])
+    one = {op: c for op, c in cuda_lib.launch_counts().items() if c}
+    one_dev = {op: c for op, c in cuda_lib.device_launch_counts().items() if c}
+    cuda_lib.reset_launch_counts()
+    w, V = solve_many(stack, cfg)
+    assert {op: c for op, c in cuda_lib.launch_counts().items() if c} == {op: B * c for op, c in one.items()}
+    assert {op: c for op, c in cuda_lib.device_launch_counts().items() if c} == {
+        op: B * c for op, c in one_dev.items()
+    }
+    assert "backtransform_wy" in one and ("fused_panel_update" in one) == (tridiag == "fused")
+    eps = torch.finfo(torch.float32).eps
+    for i in range(B):
+        wi, Vi = pl(stack[i])
+        scale = float(wi.abs().max())
+        assert float((w[i] - wi).abs().max()) < 1e-5 * scale
+        gaps = torch.full_like(wi, float("inf"))
+        gaps[1:] = wi.diff()
+        gaps[:-1] = torch.minimum(gaps[:-1], wi.diff())
+        s = torch.sign((V[i] * Vi).sum(0))
+        err = (V[i] * s[None, :] - Vi).abs().amax(0)
+        assert bool((err < 1e-4 + 32 * eps * scale / gaps).all()), float(err.max())

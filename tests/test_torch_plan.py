@@ -24,6 +24,7 @@ from repro.solver import by_index as jax_by_index  # noqa: E402
 from repro.solver import plan as jax_plan  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.backend import probe, registry  # noqa: E402
+from repro_torch.core.band_reduction import band_reduce  # noqa: E402
 from repro_torch.solver import (  # noqa: E402
     EvdConfig,
     by_count,
@@ -144,19 +145,39 @@ def test_registry_ops():
     ],
 )
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plan(32, torch.float32, EvdConfig(**kw), device="cpu")
+    """These options raised NotImplementedError until they were ported; now
+    each plans as the JAX package plans it and solves to its tolerance.
+    What still raises is an option neither package has."""
+    n = 32
+    a = random_symmetric(np.random.default_rng(n), n)
+    cfg_j = JaxConfig(backend="jnp", **kw)
+    pt = plan(n, torch.float32, interop.evd_config(dataclasses.asdict(cfg_j)), device="cpu")
+    pj = jax_plan(n, jnp.float32, cfg_j)
+    assert (pt.method, pt.b, pt.nb, pt.bt_group) == (pj.method, pj.b, pj.nb, pj.bt_group)
+    wt = _np(pt.eigvals(torch.as_tensor(a)))
+    wj = _np(pj.eigvals(jnp.asarray(a)))
+    np.testing.assert_allclose(wt, wj, atol=1e-5 * float(np.abs(wj).max()))
+    field = next(iter(kw))
+    with pytest.raises(ValueError, match=field):
+        EvdConfig(**{field: "bogus"})
 
 
 def test_prime_n_direct_fallback_raises():
-    assert resolve_blocking(31, device_type="cpu").fallback_reason is not None
-    with pytest.raises(NotImplementedError, match="direct"):
-        plan(31, torch.float32, EvdConfig(), device="cpu")
+    """At prime n blocking collapses to b = 1, and the plan routes to the
+    direct method as the JAX package does (it raised before the direct
+    method was ported); the two-stage band reduction itself still refuses
+    an n that b does not divide."""
+    dec = resolve_blocking(31, device_type="cpu")
+    assert dec.b == 1 and "direct" in dec.fallback_reason
+    pl = plan(31, torch.float32, EvdConfig(), device="cpu")
+    assert pl.method == "direct" and pl.fallback_reason == dec.fallback_reason
+    with pytest.raises(ValueError, match="multiple"):
+        band_reduce(torch.zeros((31, 31)), 8)
 
 
 def test_batched_operand_raises():
     pl = plan(16, torch.float32, EvdConfig(), device="cpu")
-    with pytest.raises(ValueError, match="batched"):
+    with pytest.raises(ValueError, match="batched.*solve_many"):
         pl(torch.zeros((2, 16, 16)))
     with pytest.raises(ValueError, match="full spectrum"):
         plan(16, torch.float32, EvdConfig(spectrum=by_count(2)), device="cpu").inverse_pth_root(

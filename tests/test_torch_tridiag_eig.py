@@ -1,8 +1,10 @@
 """Port parity: tridiagonal eigensolvers (bisection, inverse iteration), CPU.
 
 The port writes the JAX package's ``lax.scan`` recurrences as Python loops
-vectorized over eigenvalue lanes.  Sturm counts match exactly; eigenvalues
-at atol 1e-5 · max|w|; eigenvectors sign-aligned, atol 1e-4.
+vectorized over eigenvalue lanes and over leading batch dimensions (where
+JAX vmaps).  Sturm counts match exactly; eigenvalues at atol 1e-5 · max|w|;
+eigenvectors sign-aligned, atol 1e-4.  A bucket gives each matrix the bits
+of a loop over its matrices.
 """
 import numpy as np
 import pytest
@@ -98,3 +100,56 @@ def test_inverse_iteration_shift_offset_stays_bounded():
     T = np.diag(d.astype(np.float64)) + np.diag(e, -1) + np.diag(e, 1)
     resid = np.linalg.norm(T @ V - V * w.double().numpy()[None, :], axis=0)
     assert resid.max() < 0.25  # a neighbour's vector leaves a residual ~ the gap, 1
+
+
+def _bucket(count, n, seed):
+    """Tridiagonals of different scales and one with a zero off-diagonal,
+    so each matrix has its own pivot floor and Gershgorin bracket."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(count, n)).astype(np.float32) * np.geomspace(0.01, 100, count, dtype=np.float32)[:, None]
+    e = rng.normal(size=(count, n - 1)).astype(np.float32)
+    e[0] = 0.0
+    return torch.as_tensor(d), torch.as_tensor(e)
+
+
+@pytest.mark.parametrize("n", [1, 9, 33])
+@pytest.mark.parametrize("start,count", [(0, None), (2, 5)])
+def test_batched_bisection_equals_loop_bit_for_bit(n, start, count):
+    if start + (count or 0) > n:
+        start, count = 0, None
+    d, e = _bucket(5, n, n)
+    got = tte.eigvalsh_tridiag_range(d, e, start=start, count=count)
+    for i in range(5):
+        assert torch.equal(got[i], tte.eigvalsh_tridiag_range(d[i], e[i], start=start, count=count))
+    x = torch.linspace(-3, 3, 7).expand(5, 7).contiguous()
+    counts = tte.sturm_count(d, e, x)
+    assert all(torch.equal(counts[i], tte.sturm_count(d[i], e[i], x[i])) for i in range(5))
+    # A (2, 3) batch shape: the leading dimensions are batch dimensions.
+    d6, e6 = _bucket(6, n, n + 1)
+    w6 = tte.eigvalsh_tridiag_range(d6.view(2, 3, n), e6.view(2, 3, n - 1), start=start, count=count)
+    assert torch.equal(w6.reshape(6, -1), tte.eigvalsh_tridiag_range(d6, e6, start=start, count=count))
+
+
+def test_batched_inverse_iteration_matches_loop():
+    n = 24
+    d, e = _bucket(4, n, 3)
+    w = tte.eigvalsh_tridiag_range(d, e)
+    V = tte.eigvecs_inverse_iteration(d, e, w)
+    assert tuple(V.shape) == (4, n, n)
+    for i in range(4):
+        np.testing.assert_allclose(_np(V[i]), _np(tte.eigvecs_inverse_iteration(d[i], e[i], w[i])), atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [1, 16, 40])
+def test_eigh_tridiag_matches_jax(n):
+    d, e = _tridiag(n, n + 7)
+    wt = tte.eigvalsh_tridiag(torch.as_tensor(d), torch.as_tensor(e))
+    wj = jte.eigvalsh_tridiag(jnp.asarray(d), jnp.asarray(e))
+    scale = float(np.abs(_np(wj)).max())
+    np.testing.assert_allclose(_np(wt), _np(wj), atol=1e-5 * scale)
+    lt, Vt = tte.eigh_tridiag(torch.as_tensor(d), torch.as_tensor(e))
+    lj, Vj = jte.eigh_tridiag(jnp.asarray(d), jnp.asarray(e))
+    np.testing.assert_allclose(_np(lt), _np(lj), atol=1e-5 * scale)
+    s = np.sign(np.sum(_np(Vt) * _np(Vj), axis=0))
+    np.testing.assert_allclose(_np(Vt) * s[None, :], _np(Vj), atol=1e-4)
+    assert torch.equal(tte.eigh_tridiag(torch.as_tensor(d), torch.as_tensor(e), eigenvectors=False), wt)
