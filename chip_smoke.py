@@ -45,15 +45,17 @@ Phases, each printing its own lines:
    band's eigenvalues against ``torch.linalg.eigvalsh(A)`` (and one CUDA
    launch a panel, as the wrapper declares it).
 
-6. Batched solves at full width.  (a) The Shampoo refresh of one decoder
-   layer of ``configs/llama32_3b.py`` under ``ShampooOptions()`` (blocks of
-   128): 6144 seeded PSD blocks G Gᵀ/256 + 1e-3 I through ``solve_many(...,
-   EvdConfig(b=8, nb=64), op="inverse_pth_root", p=4)``, against the
-   float64 ``torch.linalg.eigh`` formula; kernels A, B and C must launch
-   exactly 6144 x one ``plan(128)`` solve's calls.  Its wall time beside
-   batched ``torch.linalg.eigh`` plus the root formula, the peak memory,
-   the stage times of an eigh run of the same bucket beside the kernels'
-   device time, and its first 8 matrices against ``plan(128)`` one by one.
+6. Batched solves at full width.  (a) A synthetic Shampoo refresh: a
+   quarter (1536) of the 6144 blocks of 128 that one decoder layer of
+   llama3.2-3b gives under ``ShampooOptions()``, seeded PSD G Gᵀ/256 +
+   1e-3 I through ``solve_many(..., EvdConfig(b=8, nb=64),
+   op="inverse_pth_root", p=4)``, against the float64 ``torch.linalg.eigh``
+   formula; kernels A, B and C must launch exactly 1536 x one
+   ``plan(128)`` solve's calls.  Its wall time beside batched
+   ``torch.linalg.eigh`` plus the root formula, the peak memory, the stage
+   times of an eigh run of the same bucket beside the kernels' device
+   time, kernel A and ``plan(128)`` bitwise repeatable, and its first 8
+   matrices against ``plan(128)`` one by one.
    (b) Heterogeneous stacks (n = 128, 96, 127) with exact buckets (n = 127
    runs ``method="direct"``) and padded into one bucket of 128, every leaf
    through phase 3's gates.  (c) A medium bucket, (8, 1024, 1024), beside
@@ -63,6 +65,22 @@ Phases, each printing its own lines:
    backtransform="scan"`` at n = 256, and the ``repro_torch.core``
    wrappers at n = 256, each through phase 3's gates beside
    ``torch.linalg.eigh``.
+8. Shampoo training on the card through the port's entry points:
+   ``get_config("llama3.2-3b")`` at full width with its depth cut to 2
+   layers (bf16 activations, fp32 weights, ``remat="block"``), random
+   weights from the seed, ``shampoo(warmup_cosine(3e-4, ...),
+   ShampooOptions())``, ``make_train_step``, ``TrainLoop`` and
+   ``synthetic_batch`` (batch 8 x 128), 3 steps; step 1 refreshes the
+   preconditioners, two ``solve_many`` buckets of every block of 128.
+   Gates: finite losses, every weight moved, kernels A, B and C launched
+   exactly 2 x blocks x one ``plan(128)`` solve's over the run, the step-1
+   roots on 64 seeded blocks within 1e-3 of the float64 formula (beside
+   float32 ``torch.linalg.eigh``'s error on them), and step 1
+   repeated from the same state bit for bit (its refresh's stages timed).
+   Then the same 3 steps with AdamW, the step-1 statistics through
+   batched ``torch.linalg.eigh`` plus the root (the yardstick), the peak
+   memory, and ``python -m repro_torch.launch.train --arch llama3.2-3b
+   --smoke --steps 20 --optimizer shampoo`` on the card.
 
 Then one JSON line with the kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -75,6 +93,7 @@ versions' and the yardsticks', runs in full float32.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -88,7 +107,13 @@ SEED = 0
 # 8192) in Shampoo's blocks of 128: wq, wo 576 each; wk, wv 192 each;
 # gate, up, down 1536 each.
 SHAMPOO_BLOCKS = {"wq": 576, "wo": 576, "wk": 192, "wv": 192, "gate": 1536, "up": 1536, "down": 1536}
+# Phase 6a runs a quarter of that layer (phase 8 refreshes two whole layers).
+SHAMPOO_6A_BLOCKS = 1536
 N_BLOCK = 128
+# Phase 8: llama3.2-3b at full width with its depth cut to 2 layers, the
+# launcher's batch and sequence, 3 steps (step 1 refreshes).
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8, 128, 3
+ROOT_BLOCKS = 64
 HETERO = ((512, 128), (512, 96), (64, 127))
 PAD_BUCKET = 128
 N_MEDIUM, B_MEDIUM = 1024, 8
@@ -128,10 +153,7 @@ TOL_RESID = 1e-4
 TOL_ORTH = 1e-3
 TOL_ROOT = 1e-3
 # A bucket against plan(n) one matrix at a time (tests/test_torch_plan.py's
-# tolerances): eigenvalues at 1e-5 max|w|; sign-aligned vectors at 1e-4
-# plus, per column, 32 eps max|w| / its eigenvalue gap (what rounding
-# differences in the two runs move a vector by: kernel A's float atomics,
-# batched QR and GEMMs).
+# tolerances): eigenvalues at 1e-5 max|w|; sign-aligned vectors at 1e-4.
 TOL_LOOP_W = 1e-5
 TOL_LOOP_V = 1e-4
 
@@ -754,13 +776,14 @@ def phase_shampoo(torch, gen):
     from repro_torch.solver.plan import _execute_bucket
 
     n, p, eps = N_BLOCK, 4, 1e-6
-    B = sum(SHAMPOO_BLOCKS.values())
+    B = SHAMPOO_6A_BLOCKS
     cfg = EvdConfig(b=8, nb=64)
     G = torch.randn((B, n, 2 * n), generator=gen, device="cuda")
     S = G @ G.mT / (2 * n) + 1e-3 * torch.eye(n, device="cuda")
     del G
     pl = plan(n, torch.float32, cfg)
-    print(f"phase 6 Shampoo refresh: {B} blocks of {n} ({SHAMPOO_BLOCKS}), G G^T/{2 * n} + 1e-3 I; "
+    print(f"phase 6 Shampoo refresh: {B} blocks of {n} (of one layer's {sum(SHAMPOO_BLOCKS.values())}: "
+          f"{SHAMPOO_BLOCKS}), G G^T/{2 * n} + 1e-3 I; "
           f"{pl.describe()}")
     cuda_lib.reset_launch_counts()
     pl.inverse_pth_root(S[0], p, eps=eps)
@@ -825,40 +848,32 @@ def phase_shampoo(torch, gen):
           f"B {b_ms:.4f} ms, C {c_ms:.4f} ms; x {B}: A {a_ms * B:.1f} ms (stage band_reduce "
           f"{stages['band_reduce']:.1f}), B {b_ms * B:.1f} ms (stage chase {stages['chase']:.1f}), C "
           f"{c_ms * B:.1f} ms (stage q2 {stages['q2']:.1f})")
-    # Kernel A sums its panel reductions with float atomics, so two calls on
-    # one input may differ in the last bits; a matrix's solve then differs
-    # from run to run, and an eigenvector moves by that over its gap.
+    # Kernel A sums its reductions in a fixed order, so two calls on one
+    # input, and two solves of one matrix, give the same bits.
     runs = [fused_panel_update_cuda(A0.clone(), pl.b, entries[0].w)[0] for _ in range(2)]
     a_same = torch.equal(runs[0], runs[1])
     a_diff = float((runs[0] - runs[1]).abs().max())
-    eps32 = torch.finfo(torch.float32).eps
 
     def vec_err(V, Vi):
         sign = torch.sign((V * Vi).sum(0))
         return (V * sign[None, :] - Vi).abs().amax(0)
 
     ew = ev = ev_self = ev_self_w = 0.0
-    within = True
     for i in range(8):
         wi, Vi = pl(S[i])
         wi2, Vi2 = pl(S[i])  # the same solve again
         scale = float(wi.abs().max())
         ew = max(ew, float((wi - wb[i]).abs().max()) / scale)
         ev_self_w = max(ev_self_w, float((wi - wi2).abs().max()) / scale)
-        gaps = torch.full_like(wi, float("inf"))
-        gaps[1:] = wi.diff()
-        gaps[:-1] = torch.minimum(gaps[:-1], wi.diff())
-        err = vec_err(Vb[i], Vi)
-        ev = max(ev, float(err.max()))
+        ev = max(ev, float(vec_err(Vb[i], Vi).max()))
         ev_self = max(ev_self, float(vec_err(Vi2, Vi).max()))
-        within &= bool((err < TOL_LOOP_V + 32 * eps32 * scale / gaps).all())
     print(f"phase 6 kernel A bitwise equal over two calls on one input: {a_same} (max diff {a_diff:.3e}); "
           f"plan({n}) against itself, first 8: eigenvalues {ev_self_w:.3e} of max|w|, eigenvectors "
           f"{ev_self:.3e}")
+    require(a_same and ev_self_w == 0.0 and ev_self == 0.0, "phase 6 kernel A / plan bitwise repeatable")
     print(f"phase 6 Shampoo bucket vs plan({n}) one by one, first 8: eigenvalues {ew:.3e} of max|w| "
-          f"(tol {TOL_LOOP_W:.0e}), sign-aligned eigenvectors {ev:.3e} (each column within "
-          f"{TOL_LOOP_V:.0e} + 32 eps max|w| / its eigenvalue gap: {within})")
-    require(ew < TOL_LOOP_W and within, "phase 6 bucket vs plan loop")
+          f"(tol {TOL_LOOP_W:.0e}), sign-aligned eigenvectors {ev:.3e} (tol {TOL_LOOP_V:.0e})")
+    require(ew < TOL_LOOP_W and ev < TOL_LOOP_V, "phase 6 bucket vs plan loop")
     return got, got_dev, dict(ms=ms, library_ms=lib_ms, blocks=B, peak_mib=peak / 2**20)
 
 
@@ -969,6 +984,188 @@ def phase_methods(torch, gen):
     require(e < TOL_EIG and e_b < TOL_EIG and e_r < TOL_ROOT, "phase 7 core wrappers")
 
 
+def root_errors(torch, stats, pre, idx, eps):
+    """Per block of ``idx``: ``pre`` against the float64 formula V (w + eps
+    max|w|)^-1/4 V^T of ``stats``, relative to the block's largest entry;
+    the blocks' condition numbers under that ridge; and the same error of
+    float32 ``torch.linalg.eigh`` (cuSOLVER) on the blocks."""
+    S = stats[idx]
+    w, V = torch.linalg.eigh(S.double())
+    ridge = eps * w.amax(-1, keepdim=True).clamp(min=1e-30)
+    X = (V * (w.clamp(min=0) + ridge).pow(-0.25)[:, None, :]) @ V.mT
+    scale = X.abs().amax((-2, -1))
+    err = (pre[idx].double() - X).abs().amax((-2, -1)) / scale
+    cond = w.amax(-1) / torch.maximum(w.amin(-1), ridge[:, 0])
+    w32, V32 = torch.linalg.eigh(0.5 * (S + S.mT))
+    r32 = eps * w32.amax(-1, keepdim=True).clamp(min=1e-30)
+    X32 = (V32 * (w32.clamp(min=0) + r32).pow(-0.25)[:, None, :]) @ V32.mT
+    lib_err = (X32.double() - X).abs().amax((-2, -1)) / scale
+    return err, cond, lib_err
+
+
+def phase_training(torch, gen):
+    """Phase 8: Shampoo training of llama3.2-3b on the card (full width,
+    2 layers), through the port's entry points."""
+    import dataclasses
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import model_params, param_count, model_meta
+    from repro_torch.optim import ShampooOptions, adamw, shampoo, warmup_cosine
+    from repro_torch.optim.shampoo import leaf_plans
+    from repro_torch.solver import batch as solver_batch
+    from repro_torch.solver import plan
+    from repro_torch.train import TrainLoop, TrainLoopConfig, make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), n_layers=TRAIN_LAYERS)
+    opts = ShampooOptions()
+    params = model_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    _, NB = leaf_plans(params, opts)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=SEED)
+    batch_fn = lambda s: synthetic_batch(dc, s, device="cuda")  # noqa: E731
+    sched = warmup_cosine(3e-4, warmup=max(TRAIN_STEPS // 20, 1), total=TRAIN_STEPS)
+    pl = plan(N_BLOCK, torch.float32, opts.evd)
+    one = solve_launches(pl)
+    print(f"phase 8 {cfg.name} cut to {cfg.n_layers} layers: d_model {cfg.d_model}, heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads}x{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype} activations, "
+          f"{cfg.param_dtype} weights, remat={cfg.remat}; {param_count(model_meta(cfg)) / 1e9:.3f} B params; "
+          f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_STEPS} steps; Shampoo block {opts.block_size}, "
+          f"interval {opts.update_interval}: {NB} blocks a side, each {pl.describe()}")
+
+    def run(opt, label):
+        """TRAIN_STEPS steps through TrainLoop; returns the loop, the final
+        weights, the losses, the first step's outputs and the peak memory."""
+        first = {}
+
+        def step_fn(p, s, batch, step):
+            out = train_step(p, s, batch, step)
+            first.setdefault("out", out)
+            return out
+
+        train_step = make_train_step(cfg, opt)
+        state = opt.init(params)
+        loop = TrainLoop(step_fn, batch_fn, TrainLoopConfig(total_steps=TRAIN_STEPS, log_every=1),
+                         log_fn=lambda m: print(f"phase 8 {label} {m}"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+        final, _, hist = loop.run(params, state)
+        torch.cuda.synchronize()
+        return loop, final, hist, first["out"], state, torch.cuda.max_memory_allocated()
+
+    opt = shampoo(sched, opts)
+    loop, final, hist, first, state0, peak = run(opt, "shampoo")
+    got = nonzero(cuda_lib.launch_counts())
+    got_dev = nonzero(cuda_lib.device_launch_counts())
+    cuda_lib.reset_launch_counts()
+    pl(torch.eye(N_BLOCK, device="cuda"))
+    one_dev = nonzero(cuda_lib.device_launch_counts())
+    times = loop.step_times
+    print(f"phase 8 shampoo losses {hist}; step times s {[round(t, 3) for t in times]}: step 1 (refresh) "
+          f"{times[0]:.2f} s, steady {sum(times[1:]) / len(times[1:]) * 1e3:.1f} ms a step; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    print(f"phase 8 launches over the {TRAIN_STEPS} steps: {got} (CUDA {got_dev}); one plan({N_BLOCK}) solve "
+          f"{one} (CUDA {one_dev}), x 2 sides x {NB} blocks")
+    require(got == {op: 2 * NB * c for op, c in one.items()}, f"phase 8 launches {got}")
+    require(got_dev == {op: 2 * NB * c for op, c in one_dev.items()}, f"phase 8 CUDA launches {got_dev}")
+    require(len(hist) == TRAIN_STEPS and all(math.isfinite(h) for h in hist), f"phase 8 losses {hist}")
+    moved = [bool((a != b).any()) for a, b in zip(leaves(final), leaves(params))]
+    require(all(moved), f"phase 8 weights moved: {moved}")
+
+    # The first step's preconditioners against float64, on seeded blocks.
+    _, s1, _ = first
+    idx = torch.randperm(NB, generator=torch.Generator().manual_seed(SEED))[:ROOT_BLOCKS].cuda()
+    worst = {}
+    for side in ("l", "r"):
+        err, cond, lib_err = root_errors(torch, getattr(s1, "stats_" + side), getattr(s1, "pre_" + side), idx,
+                                         opts.eps)
+        ok = err < TOL_ROOT
+        worst[side] = float(err.max())
+        print(f"phase 8 pre_{side} on {ROOT_BLOCKS} seeded blocks vs float64: max rel err {float(err.max()):.3e} "
+              f"(median {float(err.median()):.3e}; {int((err >= TOL_ROOT).sum())} blocks at or above "
+              f"{TOL_ROOT:.0e}); block cond median {float(cond.median()):.3e}, max {float(cond.max()):.3e}; "
+              f"float32 torch.linalg.eigh on the same blocks: max {float(lib_err.max()):.3e}")
+        require(bool(ok.all()) and bool(torch.isfinite(getattr(s1, "pre_" + side)).all()),
+                f"phase 8 pre_{side} vs float64")
+
+    # Step 1 again from the same state, with the refresh's stages timed:
+    # bit for bit the first run's.
+    stages, last = {}, [0.0]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[name] = stages.get(name, 0.0) + (now - last[0]) * 1e3
+        last[0] = now
+
+    orig, orig_root = solver_batch._execute_bucket, solver_batch._roots_from_window
+
+    def timed(A, base, eigenvectors, on_stage=None):
+        torch.cuda.synchronize()
+        last[0] = time.perf_counter()
+        return orig(A, base, eigenvectors, on_stage=mark)
+
+    def timed_root(*args):
+        X = orig_root(*args)
+        mark("ritz_root")
+        return X
+
+    solver_batch._execute_bucket, solver_batch._roots_from_window = timed, timed_root
+    try:
+        t0 = time.perf_counter()
+        again = make_train_step(cfg, opt)(params, state0, batch_fn(0), 0)
+        torch.cuda.synchronize()
+        repeat_s = time.perf_counter() - t0
+    finally:
+        solver_batch._execute_bucket, solver_batch._roots_from_window = orig, orig_root
+    same = all(torch.equal(a, b) for a, b in zip(leaves(again), leaves(first)))
+    refresh_s = sum(stages.values()) / 1e3
+    print(f"phase 8 step 1 repeated from the same state: {repeat_s:.2f} s, bitwise identical: {same}; its "
+          f"refresh's stages (2 solve_many buckets of {NB}, each stage closed by a synchronize) ms: "
+          + ", ".join(f"{k}={v:.1f}" for k, v in stages.items()) + f"; {refresh_s:.2f} s in all, "
+          f"{refresh_s * 1e3 / (2 * NB):.3f} ms a block")
+    require(same, "phase 8 step 1 is not bitwise repeatable")
+
+    # The same steps with AdamW.
+    loop_a, _, hist_a, _, _, peak_a = run(adamw(sched), "adamw")
+    ta = loop_a.step_times
+    require(all(math.isfinite(h) for h in hist_a) and not nonzero(cuda_lib.launch_counts()),
+            f"phase 8 adamw losses {hist_a}")
+    print(f"phase 8 adamw losses {hist_a}; step times s {[round(t, 3) for t in ta]}: steady "
+          f"{sum(ta[1:]) / len(ta[1:]) * 1e3:.1f} ms a step; peak memory {peak_a / 2**30:.2f} GiB")
+
+    # The yardstick: the same statistics through batched float32
+    # torch.linalg.eigh (cuSOLVER) and the root formula.
+    def library():
+        for S in (s1.stats_l, s1.stats_r):
+            w, V = torch.linalg.eigh(S)
+            r = opts.eps * w.amax(-1).clamp(min=1e-30)
+            (V * (w.clamp(min=0) + r[:, None]).pow(-0.25)[:, None, :]) @ V.mT
+
+    lib_s = wall_ms(torch, library) / 1e3
+    print(f"phase 8 the step-1 statistics (2 x {NB} blocks) through batched torch.linalg.eigh + root: "
+          f"{lib_s:.2f} s, against the refresh's {refresh_s:.2f} s")
+
+    # The launcher's CLI on the card.
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3.2-3b", "--smoke", "--steps",
+           "20", "--optimizer", "shampoo"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+    cli_s = time.perf_counter() - t0
+    tail = out.stdout.strip().splitlines()[-1:] or [out.stderr[-400:]]
+    print(f"phase 8 `{' '.join(cmd[1:])}`: exit {out.returncode} in {cli_s:.1f} s: {tail[0]}")
+    require(out.returncode == 0 and "on NVIDIA" in out.stdout, "phase 8 the launcher's CLI on the card")
+    return got, got_dev, dict(
+        blocks_a_side=NB, step1_s=times[0], steady_ms=sum(times[1:]) / len(times[1:]) * 1e3,
+        refresh_s=refresh_s, refresh_ms_per_block=refresh_s * 1e3 / (2 * NB), stages_ms=stages,
+        library_s=lib_s, adamw_steady_ms=sum(ta[1:]) / len(ta[1:]) * 1e3, peak_gib=peak / 2**30,
+        root_err=worst, losses=hist, cli_s=cli_s)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1008,9 +1205,11 @@ def main() -> int:
     phase_buckets(torch, gen)
     t7 = time.perf_counter()
     phase_methods(torch, gen)
+    t8 = time.perf_counter()
+    trained, trained_device, training = phase_training(torch, gen)
     t_end = time.perf_counter()
-    print(f"phase 6 took {t7 - t6:.1f} s, phase 7 {t_end - t7:.1f} s; the script {t_end - t_start:.1f} s "
-          f"in all (kernel build included)")
+    print(f"phase 6 took {t7 - t6:.1f} s, phase 7 {t8 - t7:.1f} s, phase 8 {t_end - t8:.1f} s; the script "
+          f"{t_end - t_start:.1f} s in all (kernel build included)")
 
     # Kernel D serves two registry ops (syr2k, trailing_update); its launches
     # are the sum of both counters over the unfused plan(A) run.
@@ -1028,9 +1227,11 @@ def main() -> int:
         if name in batched:
             row.update(shampoo_bucket_launches=batched[name],
                        shampoo_bucket_device_launches=batched_device[name])
+        if name in trained:
+            row.update(training_launches=trained[name], training_device_launches=trained_device[name])
         row.update(rows[name])
         kernels.append(row)
-    print(json.dumps({"kernels": kernels, "shampoo_refresh": shampoo}))
+    print(json.dumps({"kernels": kernels, "shampoo_refresh": shampoo, "shampoo_training": training}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -70,21 +70,22 @@ def jacobi_eigh(A: torch.Tensor, max_sweeps: int = 16, tol: float = 1e-7):
     """Eigendecomposition of dense symmetric ``A`` (..., n, n) by parallel
     Jacobi.  Returns (eigenvalues ascending (..., n), eigenvectors as
     columns (..., n, n)).  ``n`` must be even."""
-    n = A.shape[-1]
+    shape, n = A.shape, A.shape[-1]
     rounds = torch.as_tensor(round_robin_pairs(n), dtype=torch.long, device=A.device)
-    A = A.clone()
+    A = A.reshape(-1, n, n).clone()
     V = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape).clone()
     bound = tol * torch.linalg.norm(A, dim=(-2, -1))
     active = _off_norm(A) > bound
     for _ in range(max_sweeps):
-        if not bool(active.any()):
+        # A sweep rotates only the matrices still above their bound.
+        idx = torch.nonzero(active).squeeze(-1)
+        if idx.numel() == 0:
             break
-        A1, V1 = A.clone(), V.clone()
+        A1, V1 = A[idx], V[idx]
         for pq in rounds:
             _one_round(A1, V1, pq[:, 0], pq[:, 1])
-        keep = active[..., None, None]
-        A = torch.where(keep, A1, A)
-        V = torch.where(keep, V1, V)
-        active = active & (_off_norm(A) > bound)
+        A[idx], V[idx] = A1, V1
+        active[idx] = _off_norm(A1) > bound[idx]
     lams, order = torch.sort(torch.diagonal(A, dim1=-2, dim2=-1), dim=-1, stable=True)
-    return lams, torch.take_along_dim(V, order[..., None, :], dim=-1)
+    V = torch.take_along_dim(V, order[..., None, :], dim=-1)
+    return lams.reshape(shape[:-1]), V.reshape(shape)

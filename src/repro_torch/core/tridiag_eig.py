@@ -169,6 +169,14 @@ def eigvecs_inverse_iteration(
     One inverse-iteration lane per eigenvalue, then a thin QR that
     re-orthogonalizes clustered vectors.  ``d`` (..., n), ``e`` (..., n-1),
     ``lams`` (..., k); returns (..., n, k).
+
+    The QR takes the lanes most isolated first (by the gap to their
+    nearest neighbour in ``lams``), so a cluster's vectors, which inverse
+    iteration cannot tell apart, are orthogonalized against the accurate
+    ones and not the other way round.  The JAX package orthogonalizes in
+    ascending order: on an ill-conditioned PSD matrix (a Shampoo
+    statistics block, with a hundred eigenvalues within a few ulps of 0)
+    that folds the cluster's noise into the top eigenvectors.
     """
     n = d.shape[-1]
     m = lams.shape[-1]
@@ -181,8 +189,10 @@ def eigvecs_inverse_iteration(
     # n = 2048 it moves the outer shifts by more than the eigenvalue gap and
     # inverse iteration converges to a neighbour's vector (ROADMAP Queue 3).
     # Here the offset cycles over 8 values, so it stays a few ulps at any m.
+    # Its scale is max|w| itself; the JAX package floors it at 1, which at
+    # max|w| << 1 (Shampoo's statistics) moves the shifts past the gaps too.
     ulp = torch.finfo(dtype).eps
-    scale = torch.clamp(lams.abs().amax(-1), min=1.0)[..., None]
+    scale = torch.clamp(lams.abs().amax(-1), min=torch.finfo(dtype).tiny)[..., None]
     lane = torch.arange(m, dtype=dtype, device=dev)
     lams_p = lams + (torch.remainder(lane, 8) - 3.5) * (8 * ulp) * scale
     dsh = d[..., :, None] - lams_p[..., None, :]
@@ -191,10 +201,14 @@ def eigvecs_inverse_iteration(
     for _ in range(n_iter):
         X = _tridiag_solve_pivoted(e, dsh, e, V)
         V = X / torch.clamp(torch.linalg.norm(X, dim=-2), min=tiny)[..., None, :]
-    Q, R = torch.linalg.qr(V)
+    inf = torch.full_like(lams[..., :1], float("inf"))
+    gaps = lams.diff(dim=-1)
+    gap = torch.minimum(torch.cat([inf, gaps], -1), torch.cat([gaps, inf], -1))
+    order = torch.argsort(-gap, dim=-1, stable=True)[..., None, :]
+    Q, R = torch.linalg.qr(torch.take_along_dim(V, order, dim=-1))
     signs = torch.sign(torch.diagonal(R, dim1=-2, dim2=-1))
     signs = torch.where(signs == 0, 1.0, signs)
-    return Q * signs[..., None, :]
+    return torch.empty_like(Q).scatter_(-1, order.expand_as(Q), Q * signs[..., None, :])
 
 
 def eigh_tridiag(d: torch.Tensor, e: torch.Tensor, *, eigenvectors: bool = True, max_iter: int = 48):

@@ -33,8 +33,9 @@
 //                        A slice lives in shared memory up to qr_smem_max
 //                        bytes and in global memory above.
 //   K2 panel_xred        many CTAs  X1 = V[:, :c0]^T Vhat, X2 = Z[:, :c0]^T Vhat
-//                        (32 rows per CTA in row groups, Vhat staged in
-//                        shared memory, one atomic per entry per CTA)
+//                        (128 rows by 32 columns per CTA in row groups,
+//                        Vhat staged in shared memory; partials per CTA,
+//                        summed in a fixed order, see last_arrival)
 //   K3 panel_gemv        a tall-skinny product: a warp owns 16 / b rows
 //                        (one CTA of 16 warps per SM at m = 4096), stages
 //                        Vhat (transposed) in shared memory in chunks of up
@@ -42,8 +43,8 @@
 //                        with 16 loads per row and lane in flight, the next
 //                        16 issued before the current ones are summed, and
 //                        computes M = Bv Vhat - Z X1 - V X2, MT = M T_j and
-//                        its share of Y = Vhat^T MT on chip (one atomic per
-//                        entry per CTA)
+//                        its share of Y = Vhat^T MT on chip (a partial per
+//                        CTA, summed in a fixed order)
 //   K4 panel_zfinal      many CTAs  Z_j = MT - 1/2 Vhat (T_j^T Y), then
 //                        F[:, c] -= Z_j V[c, c0:c0+b]^T + V[:, c0:c0+b] Z_j[c]^T
 //                        for the block's later columns c in [r0, w)
@@ -54,8 +55,9 @@
 //                      in 3xTF32; writes the tile and its mirror
 //   K6 write_f         the exact banded values F into Bv[:, :w] and F^T into
 //                      Bv[:w, w:]
-// Every product of the TPU kernel's body stays inside these kernels (no
-// cuBLAS).  Only K5 runs on the tensor cores; TMA and wgmma are later work.
+// No float atomics: every reduction adds its terms in an order fixed by the
+// shapes, so two calls on one input give the same bits.  Every product of
+// the TPU kernel's body stays inside these kernels (no cuBLAS).  Only K5 runs on the tensor cores; TMA and wgmma are later work.
 #include "panel_qr_cluster.cuh"
 #include "syr2k_tile.cuh"
 
@@ -66,8 +68,9 @@ constexpr int kTile = repro::kSyr2kTile;
 constexpr int kGemvSmemMax = 96 * 1024;  // X1, X2 in shared memory up to this
 constexpr int kZRows = 32;        // rows per CTA of panel_zfinal
 constexpr int kZCols = 256;       // later columns per chunk of panel_zfinal's update
-constexpr int kXredRows = 32;     // rows of the X reduction per CTA
-constexpr int kXredSmem = 48 * 1024;
+constexpr int kXredRows = 128;    // rows of the X reduction per CTA
+constexpr int kXredCols = 32;     // columns c < c0 per CTA (128 bytes of a row of V and Z)
+constexpr int kXredGroups = 8;    // row groups of kXredCols threads each
 constexpr int kGemvVh = 32768;    // floats of Vhat staged per chunk of the GEMV
 constexpr int kGemvUnroll = 16;   // loads of Bv in flight per row and lane
 constexpr int kGemvThreads = 512;
@@ -80,7 +83,7 @@ __global__ void panel_qr_cluster(const float* __restrict__ Bv, long long ldb, in
                                  int b, int c0, int jpanel,
                                  float* __restrict__ V, float* __restrict__ Vh, float* __restrict__ F,
                                  float* __restrict__ Ts, float* __restrict__ P,
-                                 float* __restrict__ X, float* __restrict__ Y) {
+                                 int* __restrict__ tickets, int ntickets) {
   REPRO_DYNAMIC_SMEM(sm);
   using L = repro::ClusterQrSmem<BM>;
   const int cs = gridDim.x;
@@ -99,9 +102,9 @@ __global__ void panel_qr_cluster(const float* __restrict__ Bv, long long ldb, in
   const int ub = rank * up;
   const int nup = max(0, min(up, r0 - ub));
 
-  // X and Y are reduced into by atomics later in this panel.
-  for (int e = rank * nt + tid; e < 2 * w * b; e += cs * nt) X[e] = 0.f;
-  for (int e = rank * nt + tid; e < b * b; e += cs * nt) Y[e] = 0.f;
+  // The tickets of last_arrival start at 0; each last CTA resets its own.
+  if (jpanel == 0 && rank == 0)
+    for (int e = tid; e < ntickets; e += nt) tickets[e] = 0;
 
   // P_j: the first panel is Bv's own columns; later ones were compensated
   // in F by the earlier panels' panel_zfinal.  The upper rows stay in F.
@@ -145,39 +148,55 @@ __global__ void panel_qr_cluster(const float* __restrict__ Bv, long long ldb, in
   // cluster barriers, so it may exit without another.
 }
 
-// X1 = V[:, :c0]^T Vhat and X2 = Z[:, :c0]^T Vhat, partial sums over
-// kXredRows rows per CTA (their Vhat rows staged in shared memory): the
-// CTA's row groups each sum every kGroups-th row, many loads in flight, add
-// into shared accumulators when X1, X2 fit there (kSx), and the CTA adds its
-// sums to X with one atomic per entry (X was zeroed by panel_qr_cluster).
-template <int BM>
-struct Xred {
-  static constexpr int kGroups = BM <= 8 ? 4 : 1;  // row groups of 256 threads each
-  static constexpr int kThreads = 256 * kGroups;
-};
-
-template <int BM, bool kSx>
-__global__ void __launch_bounds__(Xred<BM>::kThreads)
-    panel_xred(const float* __restrict__ V, const float* __restrict__ Z,
-               const float* __restrict__ Vh, int m, int w, int b, int r0, int c0,
-               float* __restrict__ X) {
-  REPRO_DYNAMIC_SMEM(sx);  // [2][c0][b] when kSx
-  __shared__ float sVh[kXredRows * BM];
-  constexpr int kGroups = Xred<BM>::kGroups;
-  const int i0 = r0 + blockIdx.x * kXredRows;
-  const int ni = min(kXredRows, m - i0);
-  const int cols = blockDim.x / kGroups;
-  const int g = threadIdx.x / cols;
-  for (int e = threadIdx.x; e < ni * b; e += blockDim.x) sVh[e] = Vh[(long long)(i0 - r0) * b + e];
-  if (kSx)
-    for (int e = threadIdx.x; e < 2 * c0 * b; e += blockDim.x) sx[e] = 0.f;
+// True in the CTA that is the last of ``count`` to arrive at ``ticket``
+// (which it resets to 0 for the next launch); the partials that the others
+// wrote before arriving are visible to it.  The sum it then forms walks the
+// partials in index order, so it does not depend on which CTA came last.
+__device__ __forceinline__ bool last_arrival(int* ticket, int count, int* s_last) {
+  __threadfence();
   __syncthreads();
-  for (int c = threadIdx.x % cols; c < c0; c += cols) {
-    float a1[BM], a2[BM];
+  if (threadIdx.x == 0) {
+    *s_last = atomicAdd(ticket, 1) == count - 1;
+    if (*s_last) *ticket = 0;
+  }
+  __syncthreads();
+  const bool last = *s_last != 0;
+  if (last) __threadfence();
+  return last;
+}
+
+// X1 = V[:, :c0]^T Vhat and X2 = Z[:, :c0]^T Vhat.  CTA blockIdx.x = ck *
+// nrc + rc sums rows [r0 + rc * kXredRows, +kXredRows) of the columns
+// [ck * kXredCols, +kXredCols) (their Vhat rows staged in shared memory):
+// its row groups each sum every kXredGroups-th row, the groups are added in
+// group order, and the CTA writes its partial to slot blockIdx.x of
+// ``part``.  The last CTA of column chunk ck to arrive adds the chunk's nrc
+// slots in row order into X.
+template <int BM>
+__global__ void __launch_bounds__(kXredCols * kXredGroups)
+    panel_xred(const float* __restrict__ V, const float* __restrict__ Z,
+               const float* __restrict__ Vh, int m, int w, int b, int r0, int c0, int nrc,
+               float* __restrict__ part, int* __restrict__ tickets, float* __restrict__ X) {
+  __shared__ float sVh[kXredRows * BM];
+  __shared__ float sx[2 * kXredCols * BM];
+  __shared__ int s_last;
+  constexpr int kSlot = 2 * kXredCols * BM;
+  const int rc = blockIdx.x % nrc;
+  const int ck = blockIdx.x / nrc;
+  const int i0 = r0 + rc * kXredRows;
+  const int ni = min(kXredRows, m - i0);
+  const int ncol = min(kXredCols, c0 - ck * kXredCols);
+  const int cl = threadIdx.x % kXredCols;
+  const int g = threadIdx.x / kXredCols;
+  const int c = ck * kXredCols + cl;
+  for (int e = threadIdx.x; e < ni * b; e += blockDim.x) sVh[e] = Vh[(long long)(i0 - r0) * b + e];
+  __syncthreads();
+  float a1[BM], a2[BM];
 #pragma unroll
-    for (int cc = 0; cc < BM; ++cc) a1[cc] = a2[cc] = 0.f;
-#pragma unroll 16
-    for (int ii = g; ii < ni; ii += kGroups) {
+  for (int cc = 0; cc < BM; ++cc) a1[cc] = a2[cc] = 0.f;
+  if (cl < ncol) {
+#pragma unroll 4
+    for (int ii = g; ii < ni; ii += kXredGroups) {
       const float v = V[(long long)(i0 + ii) * w + c];
       const float z = Z[(long long)(i0 + ii) * w + c];
       const float* vh = sVh + ii * b;
@@ -188,23 +207,35 @@ __global__ void __launch_bounds__(Xred<BM>::kThreads)
           a2[cc] += z * vh[cc];
         }
     }
-#pragma unroll
-    for (int cc = 0; cc < BM; ++cc)
-      if (cc < b) {
-        if (kSx) {
-          atomicAdd(&sx[c * b + cc], a1[cc]);
-          atomicAdd(&sx[c0 * b + c * b + cc], a2[cc]);
-        } else {
-          atomicAdd(&X[c * b + cc], a1[cc]);
-          atomicAdd(&X[w * b + c * b + cc], a2[cc]);
-        }
-      }
   }
-  if (!kSx) return;
-  __syncthreads();
-  for (int e = threadIdx.x; e < c0 * b; e += blockDim.x) {
-    atomicAdd(&X[e], sx[e]);
-    atomicAdd(&X[w * b + e], sx[c0 * b + e]);
+  for (int gg = 0; gg < kXredGroups; ++gg) {
+    if (g == gg && cl < ncol) {
+#pragma unroll
+      for (int cc = 0; cc < BM; ++cc) {
+        float* s1 = sx + cl * BM + cc;
+        float* s2 = s1 + kXredCols * BM;
+        *s1 = gg ? *s1 + a1[cc] : a1[cc];
+        *s2 = gg ? *s2 + a2[cc] : a2[cc];
+      }
+    }
+    __syncthreads();
+  }
+  float* slot = part + (long long)blockIdx.x * kSlot;
+  for (int e = threadIdx.x; e < 2 * ncol * BM; e += blockDim.x) {
+    const int h = e / (ncol * BM);
+    const int o = h * kXredCols * BM + e % (ncol * BM);
+    slot[o] = sx[o];
+  }
+  if (!last_arrival(tickets + ck, nrc, &s_last)) return;
+  const float* chunk = part + (long long)ck * nrc * kSlot;
+  for (int e = threadIdx.x; e < 2 * ncol * b; e += blockDim.x) {
+    const int h = e / (ncol * b);
+    const int cl2 = (e / b) % ncol;
+    const int cc = e % b;
+    const int o = h * kXredCols * BM + cl2 * BM + cc;
+    float s = 0.f;
+    for (int r = 0; r < nrc; ++r) s += __ldcg(chunk + (long long)r * kSlot + o);
+    X[(long long)h * w * b + (ck * kXredCols + cl2) * b + cc] = s;
   }
 }
 
@@ -217,15 +248,18 @@ struct Gemv {
 };
 
 // M[i] = Bv[i, r0:] Vh - Z[i, :c0] X1 - V[i, :c0] X2, MT[i] = M[i] T_j, and
-// this CTA's share of Y = Vhat^T MT.  A warp owns kRows rows; each lane
-// takes every 32nd k of a staged Vhat chunk and keeps kGemvUnroll loads of
-// each of its rows in flight.
+// Y = Vhat^T MT.  A warp owns kRows rows; each lane takes every 32nd k of a
+// staged Vhat chunk and keeps kGemvUnroll loads of each of its rows in
+// flight.  The CTA adds its warps' shares of Y in warp order and writes the
+// sum to its slot of ``part``; the last CTA to arrive adds the slots in
+// order into Y.
 template <int BM, bool kXSmem>
 __global__ void panel_gemv(const float* __restrict__ Bv, long long ldb, int m, int w,
                            int b, int r0, int c0, const float* __restrict__ V,
                            const float* __restrict__ Z, const float* __restrict__ Vh,
                            const float* __restrict__ X,
                            const float* __restrict__ T, float* __restrict__ MT,
+                           float* __restrict__ part, int* __restrict__ ticket,
                            float* __restrict__ Y) {
   constexpr int R = Gemv<BM>::kRows;
   constexpr int KC = Gemv<BM>::kChunk;
@@ -233,6 +267,7 @@ __global__ void panel_gemv(const float* __restrict__ Bv, long long ldb, int m, i
   REPRO_DYNAMIC_SMEM(smem);
   __shared__ float sT[BM * BM];
   __shared__ float sY[BM * BM];
+  __shared__ int s_last;
   float* sVh = smem;           // [BM][KC]: Vhat chunk, transposed
   float* sx = smem + BM * KC;  // X1^T, X2^T ([b][c0] each) when they fit
   const int tid = threadIdx.x;
@@ -247,10 +282,7 @@ __global__ void panel_gemv(const float* __restrict__ Bv, long long ldb, int m, i
       sx[(b + cc) * c0 + c] = X[w * b + e];
     }
   }
-  for (int e = tid; e < b * b; e += blockDim.x) {
-    sT[e] = T[e];
-    sY[e] = 0.f;
-  }
+  for (int e = tid; e < b * b; e += blockDim.x) sT[e] = T[e];
   // X1[c][cc] = x1[c * xs + cc * xt], X2 likewise.
   const float* x1 = kXSmem ? sx : X;
   const float* x2 = kXSmem ? sx + b * c0 : X + w * b;
@@ -329,10 +361,10 @@ __global__ void panel_gemv(const float* __restrict__ Bv, long long ldb, int m, i
     for (int cc = 0; cc < BM; ++cc)
       if (cc < b) acc[r][cc] = repro::warp_sum(acc[r][cc]);
   // MT = M T_j (lane = column), and Vhat[i]^T MT[i] summed over the warp's rows.
-  if (lane < b) {
-    float ya[BM];
+  float ya[BM];
 #pragma unroll
-    for (int a = 0; a < BM; ++a) ya[a] = 0.f;
+  for (int a = 0; a < BM; ++a) ya[a] = 0.f;
+  if (lane < b) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int i = row0 + r;
@@ -350,12 +382,23 @@ __global__ void panel_gemv(const float* __restrict__ Bv, long long ldb, int m, i
         }
       }
     }
-#pragma unroll
-    for (int a = 0; a < BM; ++a)
-      if (a < b) atomicAdd(&sY[a * b + lane], ya[a]);
   }
-  __syncthreads();
-  for (int e = tid; e < b * b; e += blockDim.x) atomicAdd(&Y[e], sY[e]);
+  for (int wp = 0; wp < nwarps; ++wp) {
+    if (warp == wp && lane < b) {
+#pragma unroll
+      for (int a = 0; a < BM; ++a)
+        if (a < b) sY[a * b + lane] = wp ? sY[a * b + lane] + ya[a] : ya[a];
+    }
+    __syncthreads();
+  }
+  float* slot = part + (long long)blockIdx.x * b * b;
+  for (int e = tid; e < b * b; e += blockDim.x) slot[e] = sY[e];
+  if (!last_arrival(ticket, gridDim.x, &s_last)) return;
+  for (int e = tid; e < b * b; e += blockDim.x) {
+    float s = 0.f;
+    for (int r = 0; r < (int)gridDim.x; ++r) s += __ldcg(part + (long long)r * b * b + e);
+    Y[e] = s;
+  }
 }
 
 // Z_j = MT - 1/2 Vhat G with G = T_j^T Y for kZRows rows per CTA, then the
@@ -464,10 +507,17 @@ __global__ void write_f(float* __restrict__ Bv, long long ldb, int m, int w,
 
 inline unsigned blocks_for(long long n, int per) { return (unsigned)((n + per - 1) / per); }
 
+// Column chunks of panel_xred over c < c0, and the floats of its partials
+// over every panel of a call (slots of 2 * kXredCols * 32 floats).
+inline int xred_chunks(int c0) { return (int)blocks_for(c0, kXredCols); }
+inline long long xred_part_floats(int m, int w, int b) {
+  return (long long)blocks_for(m, kXredRows) * xred_chunks(w) * 2 * kXredCols * 32;
+}
+
 template <int BM>
 int run(float* Bv, long long ldb, int m, int w, int b, float* V, float* Ts, float* Z,
-        float* F, float* P, float* Vh, float* MT, float* X, float* Y, int qr_smem_max,
-        int cluster, cudaStream_t st) {
+        float* F, float* P, float* Vh, float* MT, float* X, float* Y, float* R, int* tickets,
+        int qr_smem_max, int cluster, cudaStream_t st) {
   using L = repro::ClusterQrSmem<BM>;
   const int vh_bytes = BM * Gemv<BM>::kChunk * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -499,27 +549,30 @@ int run(float* Bv, long long ldb, int m, int w, int b, float* V, float* Ts, floa
   }
   const int q = w / b;
   const int gemv_rows = (kGemvThreads / 32) * Gemv<BM>::kRows;
+  // R: the partials of panel_xred, then (after them) of panel_gemv; the
+  // last ticket is panel_gemv's.
+  const int ntickets = xred_chunks(w) + 1;
+  float* gemv_part = R + xred_part_floats(m, w, b);
   for (int j = 0; j < q; ++j) {
     const int c0 = j * b;
     const int r0 = c0 + b;
     err = REPRO_LAUNCH_CLUSTER(qr, dim3(cs), dim3(repro::kQrThreads), (size_t)qr_smem, st,
                                (unsigned)cs, (const float*)Bv, ldb, m, w, b, c0, j, V, Vh, F,
-                               Ts, P, X, Y);
+                               Ts, P, tickets, ntickets);
     if (err != cudaSuccess) return (int)err;
     REPRO_CHECK_LAUNCH();
     if (j > 0) {
-      const int sx_bytes = 2 * c0 * b * (int)sizeof(float);
-      const bool sx_ok = sx_bytes <= kXredSmem;
-      auto xred = sx_ok ? panel_xred<BM, true> : panel_xred<BM, false>;
-      REPRO_LAUNCH(xred, blocks_for(m - r0, kXredRows), Xred<BM>::kThreads, sx_ok ? sx_bytes : 0, st)
-      (V, Z, Vh, m, w, b, r0, c0, X);
+      const int nrc = (int)blocks_for(m - r0, kXredRows);
+      REPRO_LAUNCH(panel_xred<BM>, (unsigned)(nrc * xred_chunks(c0)), kXredCols * kXredGroups, 0, st)
+      (V, Z, Vh, m, w, b, r0, c0, nrc, R, tickets, X);
       REPRO_CHECK_LAUNCH();
     }
     const int x_bytes = 2 * c0 * b * (int)sizeof(float);
     const bool x_in_smem = x_bytes <= kGemvSmemMax;
     auto gemv = x_in_smem ? panel_gemv<BM, true> : panel_gemv<BM, false>;
     REPRO_LAUNCH(gemv, blocks_for(m, gemv_rows), kGemvThreads, vh_bytes + (x_in_smem ? x_bytes : 0), st)
-    (Bv, ldb, m, w, b, r0, c0, V, Z, Vh, X, Ts + (long long)j * b * b, MT, Y);
+    (Bv, ldb, m, w, b, r0, c0, V, Z, Vh, X, Ts + (long long)j * b * b, MT, gemv_part,
+     tickets + ntickets - 1, Y);
     REPRO_CHECK_LAUNCH();
     REPRO_LAUNCH(panel_zfinal<BM>, blocks_for(m, kZRows), kThreads, 0, st)
     (MT, Vh, Ts + (long long)j * b * b, Y, Bv, ldb, m, w, b, r0, c0, V, Z, F);
@@ -540,19 +593,31 @@ int run(float* Bv, long long ldb, int m, int w, int b, float* V, float* Ts, floa
 
 }  // namespace
 
+// The workspace of one call: floats of R (the reductions' partials) and
+// ints of the tickets (no initial value needed).
+extern "C" long long fused_panel_update_workspace(int m, int w, int b, int* ntickets) {
+  *ntickets = xred_chunks(w) + 1;
+  return xred_part_floats(m, w, b) + (long long)blocks_for(m, kGemvThreads / 32) * 32 * 32;
+}
+
 // Launch count of one call: 4 per panel (3 for the first) + 2.  cluster:
 // CTAs of the panel QR's cluster, 1 to 16 (8 where the card cannot
 // co-schedule more).  P, (m + cluster) * b floats, holds the panel slices
-// when a slice exceeds qr_smem_max bytes.
+// when a slice exceeds qr_smem_max bytes.  R and tickets: the workspace
+// that fused_panel_update_workspace sizes.
 extern "C" int fused_panel_update_launch(float* Bv, long long ldb, int m, int w, int b,
                                          float* V, float* Ts, float* Z, float* F, float* P,
-                                         float* Vh, float* MT, float* X, float* Y,
-                                         int qr_smem_max, int cluster, void* stream) {
+                                         float* Vh, float* MT, float* X, float* Y, float* R,
+                                         int* tickets, int qr_smem_max, int cluster,
+                                         void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (b < 1 || w % b != 0 || w < b || m - w < b || cluster < 1 || cluster > 16)
     return (int)cudaErrorInvalidValue;
-  if (b <= 8) return run<8>(Bv, ldb, m, w, b, V, Ts, Z, F, P, Vh, MT, X, Y, qr_smem_max, cluster, st);
-  if (b <= 16) return run<16>(Bv, ldb, m, w, b, V, Ts, Z, F, P, Vh, MT, X, Y, qr_smem_max, cluster, st);
-  if (b <= 32) return run<32>(Bv, ldb, m, w, b, V, Ts, Z, F, P, Vh, MT, X, Y, qr_smem_max, cluster, st);
+  if (b <= 8)
+    return run<8>(Bv, ldb, m, w, b, V, Ts, Z, F, P, Vh, MT, X, Y, R, tickets, qr_smem_max, cluster, st);
+  if (b <= 16)
+    return run<16>(Bv, ldb, m, w, b, V, Ts, Z, F, P, Vh, MT, X, Y, R, tickets, qr_smem_max, cluster, st);
+  if (b <= 32)
+    return run<32>(Bv, ldb, m, w, b, V, Ts, Z, F, P, Vh, MT, X, Y, R, tickets, qr_smem_max, cluster, st);
   return (int)cudaErrorInvalidValue;
 }

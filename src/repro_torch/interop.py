@@ -1,25 +1,39 @@
 """Carry the JAX package's state across, as numpy arrays and plain dicts.
 
-The EVD has no weights; its carried state is the factor structures one
-stage hands the next.  These functions turn what the JAX package produced
-(``BandReflectors``, ``ChaseLog``, ``EvdConfig``, ``PadPolicy``,
-converted by the caller to numpy arrays and dicts) into the port's objects, so a test can feed one
-stage of the port the exact factors JAX made for it.  Nothing here imports
-JAX.
+For the EVD, the carried state is the factor structures one stage hands
+the next (``BandReflectors``, ``ChaseLog``, ``EvdConfig``, ``PadPolicy``);
+for training, the model's weights and the optimizer's state.  These
+functions turn what the JAX package produced (converted by the caller to
+numpy arrays, dicts and NamedTuples, e.g. with ``jax.tree_util.tree_map(
+np.asarray, tree)``) into the port's objects, and the port's trees back to
+numpy, so a test can start both packages from one state.  Nothing here
+imports JAX.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Union
+from typing import Any, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from .core.band_reduction import BandReflectors
+from .optim.adamw import AdamWState
+from .optim.shampoo import ShampooState
 from .core.bulge_chasing import ChaseLog, max_active_sweeps
 from .solver.batch import PadPolicy
 from .solver.config import EvdConfig, Spectrum
+from .tree import tree_map
 
-__all__ = ["band_reflectors", "chase_log", "evd_config", "pad_policy"]
+__all__ = [
+    "band_reflectors",
+    "chase_log",
+    "evd_config",
+    "pad_policy",
+    "model_params",
+    "to_numpy",
+    "adamw_state",
+    "shampoo_state",
+]
 
 # The JAX registry's backend names and their counterparts here.
 _BACKENDS = {None: None, "jnp": "torch", "pallas": "cuda"}
@@ -93,3 +107,39 @@ def pad_policy(d: Mapping) -> PadPolicy:
     fields = dict(d)
     sizes = fields.pop("bucket_sizes", None)
     return PadPolicy(bucket_sizes=None if sizes is None else tuple(sizes), **fields)
+
+
+def model_params(tree: Any, device: Device = "cpu"):
+    """The JAX params tree (nested dicts of numpy arrays, stacked units and
+    all) -> the port's tree: the same names, shapes and dtypes."""
+    return tree_map(lambda a: _t(a, device), tree)
+
+
+def to_numpy(tree: Any):
+    """A port tree (params, gradients or optimizer state) -> numpy arrays,
+    the same structure."""
+    return tree_map(lambda t: torch.as_tensor(t).detach().cpu().numpy(), tree)
+
+
+def _fields(state) -> dict:
+    return state._asdict() if hasattr(state, "_asdict") else dict(state)
+
+
+def adamw_state(state: Any, device: Device = "cpu") -> AdamWState:
+    """JAX ``AdamWState`` (or a dict of its fields), as numpy -> the port's."""
+    f = _fields(state)
+    return AdamWState(step=_t(f["step"], device, torch.int32), mu=model_params(f["mu"], device),
+                      nu=model_params(f["nu"], device))
+
+
+def shampoo_state(state: Any, device: Device = "cpu") -> ShampooState:
+    """JAX ``ShampooState`` (or a dict of its fields), as numpy -> the
+    port's: step, momentum and diagonal trees, the (NB, bs, bs) statistics
+    and preconditioner stacks."""
+    f = _fields(state)
+    return ShampooState(
+        step=_t(f["step"], device, torch.int32),
+        mu=model_params(f["mu"], device),
+        nu=model_params(f["nu"], device),
+        **{k: _t(f[k], device) for k in ("stats_l", "stats_r", "pre_l", "pre_r")},
+    )

@@ -14,12 +14,13 @@ import torch
 from . import cuda_lib
 from .limits import limit
 
-__all__ = ["fused_panel_update_cuda", "cluster_size", "MAX_B"]
+__all__ = ["fused_panel_update_cuda", "cluster_size", "buffers", "MAX_B"]
 
 MAX_B = 32
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P]
+             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P]
+_WORKSPACE_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
 _ROWS_PER_CTA = 64
 
 
@@ -28,7 +29,29 @@ def _lib():
     fn = lib.fused_panel_update_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    return fn
+    ws = lib.fused_panel_update_workspace
+    ws.argtypes = _WORKSPACE_ARGTYPES
+    ws.restype = ctypes.c_longlong
+    return fn, ws
+
+
+def buffers(m: int, w: int, b: int, cluster: int, device, workspace) -> dict:
+    """The buffers of one call, in the launcher's argument order after
+    ``Bv``: V, Ts, Z, F, P, Vh, MT, X, Y, then the reductions' partials R
+    and their tickets, sized by ``workspace`` (the library's
+    ``fused_panel_update_workspace``)."""
+    q = w // b
+    kw = dict(dtype=torch.float32, device=device)
+    ntickets = ctypes.c_int(0)
+    r_floats = workspace(m, w, b, ctypes.byref(ntickets))
+    return dict(
+        V=torch.empty((m, w), **kw), Ts=torch.empty((q, b, b), **kw),
+        Z=torch.empty((m, w), **kw), F=torch.empty((m, w), **kw),
+        P=torch.empty((m + cluster, b), **kw), Vh=torch.empty((m, b), **kw),
+        MT=torch.empty((m, b), **kw), X=torch.empty((2 * w * b,), **kw),
+        Y=torch.empty((b * b,), **kw), R=torch.empty((r_floats,), **kw),
+        tickets=torch.empty((ntickets.value,), dtype=torch.int32, device=device),
+    )
 
 
 def cluster_size(m: int, b: int) -> int:
@@ -57,25 +80,14 @@ def fused_panel_update_cuda(Bv: torch.Tensor, b: int, w: int):
     if not (1 <= b <= MAX_B) or w % b != 0 or w < b or m - w < b:
         raise ValueError(f"need 1 <= b <= {MAX_B}, w % b == 0 and b <= m - w; got m={m} w={w} b={b}")
     q = w // b
-    kw = dict(dtype=torch.float32, device=Bv.device)
-    V = torch.empty((m, w), **kw)
-    Ts = torch.empty((q, b, b), **kw)
-    Z = torch.empty((m, w), **kw)
-    F = torch.empty((m, w), **kw)
     cluster = cluster_size(m, b)
-    P = torch.empty((m + cluster, b), **kw)
-    Vh = torch.empty((m, b), **kw)
-    MT = torch.empty((m, b), **kw)
-    X = torch.empty((2 * w * b,), **kw)
-    Y = torch.empty((b * b,), **kw)
-    fn = _lib()
+    fn, workspace = _lib()
+    buf = buffers(m, w, b, cluster, Bv.device, workspace)
     with torch.cuda.device(Bv.device):
         err = fn(
-            Bv.data_ptr(), Bv.stride(0), m, w, b,
-            V.data_ptr(), Ts.data_ptr(), Z.data_ptr(), F.data_ptr(), P.data_ptr(),
-            Vh.data_ptr(), MT.data_ptr(), X.data_ptr(), Y.data_ptr(),
+            Bv.data_ptr(), Bv.stride(0), m, w, b, *(t.data_ptr() for t in buf.values()),
             limit("PANEL_QR_SMEM"), cluster, torch.cuda.current_stream().cuda_stream,
         )
     cuda_lib.check(err, "fused_panel_update")
     cuda_lib.count("fused_panel_update", 4 * q + 1)
-    return Bv, V, Ts
+    return Bv, buf["V"], buf["Ts"]

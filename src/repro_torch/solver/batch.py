@@ -140,8 +140,9 @@ class BatchPlan:
         """Stacked A^{-1/p} for symmetric PSD matrices (Shampoo's refresh)."""
         self.base._require_full_spectrum()
         self._check_operand(A)
-        w, V = _execute_bucket(A, self.base, True)
-        return _roots_from_window(w, V, p, eps)
+        A = 0.5 * (A + A.mT)
+        _, V = _execute_bucket(A, self.base, True)
+        return _roots_from_window(A, V, p, eps)
 
     def describe(self) -> str:
         return f"BatchPlan(batch={self.batch}, base={self.base.describe()})"

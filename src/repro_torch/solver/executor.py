@@ -191,14 +191,13 @@ def solve_many(
         # so they are dropped before V root(w) V^T is formed.
         cfg = config.replace(spectrum=Spectrum.all()) if padded else config
         exec_op = "eigh" if (padded and op == "inverse_pth_root") else op
-        segs = [infos[i]["leaf"].reshape((-1,) + infos[i]["leaf"].shape[-2:]) for i in leaf_ids]
-        if padded:
-            segs = [_embed(s, N, pad.ridge) for s in segs]
+        raw = [infos[i]["leaf"].reshape((-1,) + infos[i]["leaf"].shape[-2:]) for i in leaf_ids]
+        segs = [_embed(s, N, pad.ridge) for s in raw] if padded else raw
         stack = segs[0] if len(segs) == 1 else torch.cat(segs)
         out = _run_bucket(stack, cfg, exec_op, p, eps, pad)
 
         off = 0
-        for i in leaf_ids:
+        for i, A_i in zip(leaf_ids, raw):
             n, m, bshape = infos[i]["n"], infos[i]["count"], infos[i]["batch_shape"]
             start, count = config.spectrum.index_range(n)
             if op == "eigh":
@@ -213,8 +212,8 @@ def solve_many(
                 results[i] = w.reshape(bshape + w.shape[1:])
             else:
                 if padded:
-                    w, V = out[0][off : off + m], out[1][off : off + m]
-                    X = _roots_from_window(w[:, :n], V[:, :n, :n], p, eps)
+                    V = out[1][off : off + m]
+                    X = _roots_from_window(0.5 * (A_i + A_i.mT), V[:, :n, :n], p, eps)
                 else:
                     X = out[off : off + m]
                 results[i] = X.reshape(bshape + X.shape[1:])

@@ -129,8 +129,9 @@ class EvdPlan:
         """A^{-1/p} for symmetric PSD A (the Shampoo preconditioner)."""
         self._require_full_spectrum()
         self._check_operand(A)
-        w, V = _execute_bucket(A[None], self, True)
-        return _roots_from_window(w, V, p, eps)[0]
+        A = 0.5 * (A + A.mT)
+        _, V = _execute_bucket(A[None], self, True)
+        return _roots_from_window(A[None], V, p, eps)[0]
 
     def _require_full_spectrum(self) -> None:
         if not self.config.spectrum.is_full:
@@ -302,11 +303,17 @@ def _execute_bucket(A: torch.Tensor, pl: EvdPlan, eigenvectors: bool, on_stage: 
     (``chip_smoke.py`` closes each with a synchronize)."""
     mark = on_stage or (lambda name: None)
     start, count = pl.spectrum_range
+    # Each matrix is scaled by the power of 2 at or above its largest entry
+    # (exact), and its eigenvalues scaled back: the Householder norms and the
+    # pivots square entries, which in float32 underflow below max|A| ~ 1e-16
+    # (Shampoo's statistics of clipped gradients reach that).
     A = 0.5 * (A + A.mT)
+    scale = torch.ldexp(torch.ones_like(A[..., 0, 0]), torch.frexp(A.abs().amax((-2, -1)))[1])
+    A = A / scale[..., None, None]
     if pl.method == "jacobi":
         w, V = jacobi_eigh(A, max_sweeps=pl.config.max_sweeps)
         mark("jacobi")
-        w = w[..., start : start + count]
+        w = w[..., start : start + count] * scale[..., None]
         return (w, V[..., start : start + count]) if eigenvectors else w
     mode = pl.config.backtransform if pl.method == "two_stage" else "scan"
     out = _tridiag_bucket(
@@ -317,14 +324,14 @@ def _execute_bucket(A: torch.Tensor, pl: EvdPlan, eigenvectors: bool, on_stage: 
     w = eigvalsh_tridiag_range(d, e, start=start, count=count, max_iter=pl.bisect_iters)
     mark("bisection")
     if not eigenvectors:
-        return w
+        return w * scale[..., None]
     # Partial spectrum: one inverse-iteration lane per selected eigenvalue,
     # so the eigenvector phase costs O(k), not O(n).
     VT = eigvecs_inverse_iteration(d, e, w)
     mark("inverse_iteration")
     V = _backtransform_bucket(out[2], VT, mode=mode, group=pl.bt_group, backend=pl.backend,
                               on_stage=on_stage)
-    return w, V
+    return w * scale[..., None], V
 
 
 def _execute(A: torch.Tensor, pl: EvdPlan, eigenvectors: bool, on_stage: Stage = None):
@@ -333,13 +340,47 @@ def _execute(A: torch.Tensor, pl: EvdPlan, eigenvectors: bool, on_stage: Stage =
     return (out[0][0], out[1][0]) if eigenvectors else out[0]
 
 
-def _roots_from_window(w: torch.Tensor, V: torch.Tensor, p: int, eps: float) -> torch.Tensor:
-    """V root(w) V^T per matrix of (..., k) / (..., n, k): the eigenvalues
-    clamped at 0, ridged by ``eps * max(w)`` and raised to ``-1/p``."""
-    wmax = torch.clamp(w.amax(-1), min=0.0)
+# Rayleigh-Ritz stops when the off-diagonal of V^T A V is below 1e-10 of
+# its norm: an off-diagonal d moves w^-1/4 by ~d / (4 (w + ridge)), which
+# at the root's ridge of 1e-6 max|w| is below 1e-4.
+_RITZ_TOL = 1e-10
+_RITZ_SWEEPS = 8
+
+
+def _rayleigh_ritz(A: torch.Tensor, V: torch.Tensor):
+    """Ritz values and vectors of symmetric ``A`` (..., n, n) on the span of
+    ``V`` (..., n, n), in float64: C = V^T A V diagonalized by the port's
+    Jacobi (C is diagonal but for clusters, so it converges in a few
+    sweeps).  Returns (theta ascending (..., n), V Y)."""
+    Vd = V.to(torch.float64)
+    C = Vd.mT @ (A.to(torch.float64) @ Vd)
+    C = 0.5 * (C + C.mT)
+    n = C.shape[-1]
+    if n % 2:  # Jacobi pairs indices: one decoupled entry above the spectrum
+        top = torch.diagonal(C, dim1=-2, dim2=-1).amax(-1) + torch.linalg.norm(C, dim=(-2, -1)) + 1.0
+        C = torch.nn.functional.pad(C, (0, 1, 0, 1))
+        C[..., n, n] = top
+    theta, Y = jacobi_eigh(C, max_sweeps=_RITZ_SWEEPS, tol=_RITZ_TOL)
+    return theta[..., :n], Vd @ Y[..., :n, :n]
+
+
+def _roots_from_window(A: torch.Tensor, V: torch.Tensor, p: int, eps: float) -> torch.Tensor:
+    """A^{-1/p} per matrix from eigenvectors ``V`` (..., n, n) of symmetric
+    ``A``: V root(theta) V^T with the Ritz values theta of a Rayleigh-Ritz
+    step on V (float64), clamped at 0, ridged by ``eps * max(theta)`` and
+    raised to ``-1/p``; returned in A's dtype.
+
+    The Rayleigh-Ritz step is the port's own: inverse iteration cannot tell
+    apart the vectors of a cluster, and a Shampoo statistics block has a
+    hundred eigenvalues within a few ulps of 0, where the root's ridge
+    makes ``w^-1/p`` vary most.  Pairing bisection's eigenvalues with those
+    vectors put the roots tens of percent off; the Ritz pairs are
+    consistent, so the root is as good as A and V's span."""
+    theta, V = _rayleigh_ritz(A, V)
+    wmax = torch.clamp(theta.amax(-1), min=0.0)
     ridge = eps * torch.clamp(wmax, min=1e-30)
-    root = torch.pow(torch.clamp(w, min=0.0) + ridge[..., None], -1.0 / p)
-    return (V * root[..., None, :]) @ V.mT
+    root = torch.pow(torch.clamp(theta, min=0.0) + ridge[..., None], -1.0 / p)
+    return ((V * root[..., None, :]) @ V.mT).to(A.dtype)
 
 
 def tridiagonalize(

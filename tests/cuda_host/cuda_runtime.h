@@ -101,6 +101,7 @@ inline float atomicAdd(float* p, float v) {
   return old;
 }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 template <class T>
 inline T __ldcg(const T* p) { return *p; }
 struct alignas(16) float4 {

@@ -117,6 +117,26 @@ def test_fused_panel_update_in_place_on_a_strided_view(cuda_device):
     assert torch.equal(B1[:ci], A[:ci]) and torch.equal(B1[:, :ci], A[:, :ci])
 
 
+@pytest.mark.parametrize("m,w,b", [(4096, 256, 8), (128, 64, 8), (300, 48, 16)])
+def test_fused_panel_update_bitwise_repeatable(cuda_device, m, w, b):
+    """Kernel A sums its reductions in a fixed order (no float atomics), so
+    two calls on one input give the same bits."""
+    A = torch.as_tensor(_sym(m, 7), device=cuda_device)
+    runs = [ops.fused_panel_update(A.clone(), b, w) for _ in range(2)]
+    torch.cuda.synchronize()
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+
+
+def test_plan_bitwise_repeatable(cuda_device):
+    """plan(128) (Shampoo's block size and blocking) twice on one matrix:
+    the same eigenvalues and eigenvectors, bit for bit."""
+    A = torch.as_tensor(_sym(128, 8), device=cuda_device)
+    pl = plan(128, torch.float32, EvdConfig(b=8, nb=64))
+    (w1, V1), (w2, V2) = pl(A), pl(A)
+    assert torch.equal(w1, w2) and torch.equal(V1, V2)
+
+
 def _reflectors(log, active):
     v, t = log.vs[active], log.taus[active]
     return t[:, None, None] * v[:, :, None] * v[:, None, :]
@@ -412,9 +432,7 @@ def test_solve_many_on_card_matches_plan_loop(cuda_device, tridiag):
     """A 16 x 128 stack through solve_many against plan(128) one matrix at a
     time on the card: the bucket launches each kernel 16 x one solve's
     calls; eigenvalues agree at 1e-5 max|w| and sign-aligned eigenvector
-    columns at 1e-4 plus what the column's eigenvalue gap allows
-    (32 eps ||A|| / gap: the batched QR and GEMMs round otherwise than the
-    single ones, and a vector moves by the perturbation over its gap)."""
+    columns at 1e-4."""
     from repro_torch.solver import solve_many
 
     n, B = 128, 16
@@ -432,14 +450,8 @@ def test_solve_many_on_card_matches_plan_loop(cuda_device, tridiag):
         op: B * c for op, c in one_dev.items()
     }
     assert "backtransform_wy" in one and ("fused_panel_update" in one) == (tridiag == "fused")
-    eps = torch.finfo(torch.float32).eps
     for i in range(B):
         wi, Vi = pl(stack[i])
-        scale = float(wi.abs().max())
-        assert float((w[i] - wi).abs().max()) < 1e-5 * scale
-        gaps = torch.full_like(wi, float("inf"))
-        gaps[1:] = wi.diff()
-        gaps[:-1] = torch.minimum(gaps[:-1], wi.diff())
+        assert float((w[i] - wi).abs().max()) < 1e-5 * float(wi.abs().max())
         s = torch.sign((V[i] * Vi).sum(0))
-        err = (V[i] * s[None, :] - Vi).abs().amax(0)
-        assert bool((err < 1e-4 + 32 * eps * scale / gaps).all()), float(err.max())
+        assert float((V[i] * s[None, :] - Vi).abs().max()) < 1e-4

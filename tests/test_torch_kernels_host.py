@@ -69,6 +69,10 @@ def host(tmp_path_factory):
     for fn, mod in ((fa, ka), (fb, kb), (fc, kc), (fd, kd), (fe, ke)):
         fn.argtypes = mod._ARGTYPES
         fn.restype = ctypes.c_int
+    wa = libs["fused_panel"].fused_panel_update_workspace
+    wa.argtypes = ka._WORKSPACE_ARGTYPES
+    wa.restype = ctypes.c_longlong
+    fa = (fa, wa)
     ws = libs["backtransform"].backtransform_wy_workspace
     ws.argtypes = kc._WORKSPACE_ARGTYPES
     ws.restype = ctypes.c_longlong
@@ -107,22 +111,21 @@ def _rel(x, y):
 
 def _fused(fa, Bv, b, w, qr_smem=SMEM, cluster=None):
     """The launcher's buffers (repro_torch.kernels.fused_panel), on the CPU."""
+    fa, wa = fa
     m = Bv.shape[0]
-    q = w // b
     cluster = ka.cluster_size(m, b) if cluster is None else cluster
-    e = torch.empty
-    V, Ts, Z, F = e(m, w), e(q, b, b), e(m, w), e(m, w)
-    P, Vh, MT, X, Y = e(m + cluster, b), e(m, b), e(m, b), e(2 * w * b), e(b * b)
-    err = fa(Bv.data_ptr(), Bv.stride(0), m, w, b, V.data_ptr(), Ts.data_ptr(), Z.data_ptr(),
-             F.data_ptr(), P.data_ptr(), Vh.data_ptr(), MT.data_ptr(), X.data_ptr(), Y.data_ptr(),
+    buf = ka.buffers(m, w, b, cluster, "cpu", wa)
+    err = fa(Bv.data_ptr(), Bv.stride(0), m, w, b, *(t.data_ptr() for t in buf.values()),
              qr_smem, cluster, None)
     assert err == 0
-    return Bv, V, Ts
+    return Bv, buf["V"], buf["Ts"]
 
 
 @pytest.mark.parametrize(
     "m,w,b,qr_smem",
-    [(48, 16, 8, SMEM), (40, 32, 8, SMEM), (36, 12, 4, SMEM), (72, 32, 8, 0), (48, 32, 16, SMEM)],
+    [(48, 16, 8, SMEM), (40, 32, 8, SMEM), (36, 12, 4, SMEM), (72, 32, 8, 0), (48, 32, 16, SMEM),
+     # panel_xred over 2 column chunks and 3 row chunks, panel_gemv over 9 CTAs
+     (300, 48, 8, SMEM)],
 )
 def test_fused_panel_host(host, m, w, b, qr_smem):
     A = _sym(m, m)

@@ -190,3 +190,20 @@ def test_interop_config_roundtrip():
     cfg = interop.evd_config(dataclasses.asdict(jcfg))
     assert cfg == EvdConfig(backend="torch", spectrum=by_count(5, largest=False), tol=1e-3, b=4)
     assert interop.evd_config(dataclasses.asdict(JaxConfig())) == EvdConfig()
+
+
+@pytest.mark.parametrize("method", ["two_stage", "jacobi"])
+@pytest.mark.parametrize("exp2", [-100, -60, 40])
+def test_plan_is_scale_invariant(method, exp2):
+    """A and 2^k A: the executor scales each matrix by a power of 2 near its
+    largest entry, so the eigenvalues come out scaled by exactly 2^k and
+    the eigenvectors bit for bit equal, down to max|A| ~ 1e-30 (unscaled,
+    the squared entries of the Householder norms underflowed and the
+    vectors failed below max|A| ~ 1e-16; Shampoo's statistics of clipped
+    gradients go that low)."""
+    rng = np.random.default_rng(11)
+    A = torch.as_tensor(random_symmetric(rng, 32))
+    pl = plan(32, torch.float32, EvdConfig(b=4, nb=8, method=method), device="cpu")
+    w, V = pl(A)
+    ws, Vs = pl(torch.ldexp(A, torch.tensor(exp2)))
+    assert torch.equal(ws, torch.ldexp(w, torch.tensor(exp2))) and torch.equal(Vs, V)
