@@ -66,8 +66,8 @@ Phases, each printing its own lines:
    wrappers at n = 256, each through phase 3's gates beside
    ``torch.linalg.eigh``.
 8. Shampoo training on the card through the port's entry points:
-   ``get_config("llama3.2-3b")`` at full width with its depth cut to 2
-   layers (bf16 activations, fp32 weights, ``remat="block"``), random
+   ``get_config("llama3.2-3b")`` at full width with its depth cut to 1
+   layer (bf16 activations, fp32 weights, ``remat="block"``), random
    weights from the seed, ``shampoo(warmup_cosine(3e-4, ...),
    ShampooOptions())``, ``make_train_step``, ``TrainLoop`` and
    ``synthetic_batch`` (batch 8 x 128), 3 steps; step 1 refreshes the
@@ -81,6 +81,32 @@ Phases, each printing its own lines:
    batched ``torch.linalg.eigh`` plus the root (the yardstick), the peak
    memory, and ``python -m repro_torch.launch.train --arch llama3.2-3b
    --smoke --steps 20 --optimizer shampoo`` on the card.
+9. Serving on the card through the port's entry points (``get_config``,
+   ``model_params``, ``cache_init``, ``make_serve_step``, ``make_prefill``,
+   ``decode_step``), random weights from the seed, bf16 activations and
+   fp32 weights as published: (a) llama3.2-3b at full width and depth,
+   batch 8, prompt 64, gen 32; (b) codeqwen1.5-7b, stablelm-3b and
+   qwen3-14b at full width cut to 2 layers, and granite-moe-3b-a800m at
+   full width and depth, each at the launcher's batch 4, prompt 32, gen 16;
+   (c) mixtral-8x7b at full width with its window of 4096, cut to 2 layers,
+   batch 2, 4224 teacher-forced positions and 16 generated (its ring buffer
+   wraps past position 4096).  Each cell times the serve loop (the prompt
+   by teacher-forced decode steps, then greedy decode), the full-sequence
+   ``make_prefill``, the peak memory, and a step's device time (the step
+   captured as one CUDA graph).  Gates: a float32 copy of the config on the
+   same weights (granite-moe's first 4 layers: see ``SERVE_CELLS``),
+   teacher-forced over the prompt and then greedy, gives decode logits
+   within ``TOL_SERVE`` of max|logits| of ``forward``'s over the same
+   tokens at every position, or within 4x the forward's own change under a
+   1-ulp move of its embedding where that is larger, and at the median
+   position within 4x the forward's median change (MoE archs: the forward
+   with ``moe_impl="dense"`` and the decode's expert choices replayed;
+   mixtral's positions past 4096 also on their own); its greedy tokens, and
+   ``make_prefill``'s, are the forward's argmax (or within that tolerance
+   of its max, a tie); the bf16 decode logits over the same tokens are
+   finite and within 0.1 (mean) of max|logits| of the float32 ones; kernels
+   A-E launch no time.  Then ``python -m repro_torch.launch.serve --arch
+   mixtral-8x7b --smoke`` on the card.
 
 Then one JSON line with the kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -92,6 +118,8 @@ versions' and the yardsticks', runs in full float32.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import math
 import re
@@ -107,13 +135,29 @@ SEED = 0
 # 8192) in Shampoo's blocks of 128: wq, wo 576 each; wk, wv 192 each;
 # gate, up, down 1536 each.
 SHAMPOO_BLOCKS = {"wq": 576, "wo": 576, "wk": 192, "wv": 192, "gate": 1536, "up": 1536, "down": 1536}
-# Phase 6a runs a quarter of that layer (phase 8 refreshes two whole layers).
+# Phase 6a runs a quarter of that layer (phase 8 refreshes a whole layer).
 SHAMPOO_6A_BLOCKS = 1536
 N_BLOCK = 128
-# Phase 8: llama3.2-3b at full width with its depth cut to 2 layers, the
+# Phase 8: llama3.2-3b at full width with its depth cut to 1 layer (so
+# that the script, phase 9 included, stays near half its time limit), the
 # launcher's batch and sequence, 3 steps (step 1 refreshes).
-TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8, 128, 3
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 1, 8, 128, 3
 ROOT_BLOCKS = 64
+# Phase 9 cells: (arch, layers kept or None for all, batch, prompt, gen,
+# layers the float32 gates run on or None for the same).  Random-weight
+# granite-moe is chaotic in depth: one ulp moved in its embedding moves
+# its float32 logits by 7e-4 of the largest at 4 layers, 8.6e-2 at 8 and
+# 0.63 at 32 (scripts/serve_sensitivity.py on an H100), so no two float32
+# computations of the 32-layer model agree and its gates run on its
+# first 4 layers.
+SERVE_CELLS = (
+    ("llama3.2-3b", None, 8, 64, 32, None),
+    ("codeqwen1.5-7b", 2, 4, 32, 16, None),
+    ("stablelm-3b", 2, 4, 32, 16, None),
+    ("qwen3-14b", 2, 4, 32, 16, None),
+    ("granite-moe-3b-a800m", None, 4, 32, 16, 4),
+    ("mixtral-8x7b", 2, 2, 4224, 16, None),
+)
 HETERO = ((512, 128), (512, 96), (64, 127))
 PAD_BUCKET = 128
 N_MEDIUM, B_MEDIUM = 1024, 8
@@ -152,6 +196,25 @@ TOL_EIG = 3e-4
 TOL_RESID = 1e-4
 TOL_ORTH = 1e-3
 TOL_ROOT = 1e-3
+# Serving gates.  Float32 decode against the float32 forward, per position
+# the largest |difference| relative to the largest logit: at most 1e-4, or
+# 4x the forward's own largest change when its embedding table moves by
+# one ulp (measured in each cell) if larger; and at the median position
+# within 4x the forward's median change (at least 1e-5).  The random
+# weights make the forward ill-conditioned: the init law draws stacked
+# leaves with std 1/sqrt(layers) (the JAX package's fan-in rule), so q and
+# k entries are large, softmax is nearly one-hot, and rounding flips
+# near-tied keys at a few positions (mixtral, 2 layers, 4240 positions:
+# a 1-ulp change of 1.9e-5 at the median position, 3.4e-2 at the worst).
+# On llama3.2-3b the 1-ulp change grows from 1.9e-5 (1 layer) to 5.4e-4
+# (28 layers), and decode sits within 2x of it at every depth
+# (scripts/serve_sensitivity.py on an H100).  The bf16 decode against the
+# float32 one: mean |difference| over every logit below 0.1 of the largest
+# (bf16 rounds each product chain to ~2^-9: 2e-3 on qwen3-14b, 2 layers,
+# to 7e-2 on mixtral, where it flips near-tied keys at many positions).
+TOL_SERVE = 1e-4
+SENS_FACTOR = 4.0
+TOL_SERVE_BF16 = 0.1
 # A bucket against plan(n) one matrix at a time (tests/test_torch_plan.py's
 # tolerances): eigenvalues at 1e-5 max|w|; sign-aligned vectors at 1e-4.
 TOL_LOOP_W = 1e-5
@@ -1005,7 +1068,7 @@ def root_errors(torch, stats, pre, idx, eps):
 
 def phase_training(torch, gen):
     """Phase 8: Shampoo training of llama3.2-3b on the card (full width,
-    2 layers), through the port's entry points."""
+    1 layer), through the port's entry points."""
     import dataclasses
     import os
 
@@ -1166,6 +1229,253 @@ def phase_training(torch, gen):
         root_err=worst, losses=hist, cli_s=cli_s)
 
 
+def _chunk(S: int) -> int:
+    """The flash chunk length for a forward over S tokens: the configs'
+    1024, or the largest divisor of S below it (the forward needs one)."""
+    n = -(-S // 1024)
+    while S % n:
+        n += 1
+    return S // n
+
+
+@contextlib.contextmanager
+def _moe_routing(torch, record=None, replay=None, n_layers=1, flips=None):
+    """Record the MoE routing of a decode run (one ``_router`` call per layer
+    and step, in order), or replay a recorded one into another decode run
+    or into forwards (one call per layer, the first S positions), with the
+    weights renormalized from the replaying run's own probabilities.  With
+    replay, ``flips[0]`` counts the (token, layer) pairs whose own top-k
+    set differed.  Rounding flips near-tied choices, and a flip moves the
+    logits by O(1) through the layers above it (granite-moe: 0.6 of
+    max|logits| at 32 layers from a 1-ulp change of the embedding), so the
+    float32 and bf16 comparisons of a MoE arch replay the float32 decode's
+    choices."""
+    from repro_torch.models import moe
+
+    orig, calls = moe._router, itertools.count()
+
+    def router(p, cfg, x):
+        w, idx, aux = orig(p, cfg, x)
+        i = next(calls)
+        if record is not None:
+            record.append(idx)
+            return w, idx, aux
+        S = x.shape[1]
+        pinned = replay[i] if S == 1 else torch.cat(replay[i % n_layers :: n_layers], dim=1)[:, :S]
+        flips[0] += int((pinned.sort(-1).values != idx.sort(-1).values).any(-1).sum())
+        probs = torch.softmax(x.to(torch.float32) @ p["router"].to(x.dtype).to(torch.float32), dim=-1)
+        w = probs.gather(-1, pinned)
+        return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), pinned, aux
+
+    moe._router = router
+    try:
+        yield
+    finally:
+        moe._router = orig
+
+
+def _decode_logits(torch, params, cfg, fed, greedy_from: int):
+    """``decode_step`` over the tokens ``fed`` (B, T), one position a step:
+    positions below ``greedy_from`` as given, each later one the argmax of
+    the step before (written into ``fed``).  Returns the logits (B, T, V)."""
+    from repro_torch.models import cache_init, decode_step
+
+    B, T = fed.shape
+    cache = cache_init(cfg, B, T)
+    out = torch.empty((B, T, cfg.vocab), dtype=torch.float32, device="cuda")
+    for t in range(T):
+        logits, cache = decode_step(params, cfg, cache, tokens=fed[:, t : t + 1])
+        out[:, t] = logits[:, 0]
+        if greedy_from <= t + 1 < T:
+            fed[:, t + 1] = logits[:, 0].argmax(-1)
+    require(int(cache["pos"]) == T, f"decode ran {int(cache['pos'])} of {T} positions")
+    return out
+
+
+def _greedy_check(torch, ref, picked, tol: float):
+    """Tokens ``picked`` (B, n) against the logits ``ref`` (B, n, V): each the
+    argmax, or within ``tol`` of the row's max (a tie at this tolerance).
+    Returns (all within tol, how many are the exact argmax, how many)."""
+    got = ref.gather(-1, picked[..., None].long())[..., 0]
+    within = bool((ref.amax(-1) - got <= tol).all())
+    return within, int((ref.argmax(-1) == picked).sum()), picked.numel()
+
+
+def _graph_ms(torch, step) -> float:
+    """The device time of one ``step()``: the step captured once in a CUDA
+    graph, its replays timed by ``cuda_ms`` (one launch each, so no host
+    work between the kernels)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    return cuda_ms(torch, graph.replay, 10)
+
+
+def phase_serving(torch, gen):
+    """Phase 9: the serve path on the card, through the port's entry points."""
+    import dataclasses
+    import gc
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import cache_init, forward, model_meta, model_params, param_count
+    from repro_torch.train import make_prefill, make_serve_step
+    from repro_torch.tree import tree_map
+
+    replace = dataclasses.replace
+    cells = {}
+    cuda_lib.reset_launch_counts()
+    for arch, layers, B, P, G, gate_layers in SERVE_CELLS:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = replace(cfg, n_layers=layers)
+        T = P + G
+        params = model_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), model_axis=1,
+                              device="cuda")
+        prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device="cuda", dtype=torch.int32)
+        serve = make_serve_step(cfg)
+        W = min(cfg.sliding_window, T) if cfg.sliding_window else T
+        n_params = param_count(model_meta(cfg))
+        print(f"phase 9 {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+              f"{cfg.n_kv_heads}x{cfg.head_dim}, d_ff {cfg.d_ff}, experts {cfg.n_experts} top-{cfg.top_k} "
+              f"({cfg.moe_impl}), vocab {cfg.vocab}, window {cfg.sliding_window}; "
+              f"{n_params / 1e9:.3f} B params, {cfg.dtype} activations, {cfg.param_dtype} "
+              f"weights; batch {B}, prompt {P}, gen {G}, cache {W} slots a layer")
+
+        # The serve loop as the launcher runs it, timed after one step on a
+        # throwaway cache (the first step's cuBLAS and allocator set-up).
+        with torch.inference_mode():
+            serve(params, cache_init(cfg, B, 1), prompts[:, :1])
+        cache = cache_init(cfg, B, T)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            for t in range(P):
+                nxt, cache = serve(params, cache, prompts[:, t : t + 1])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tok = nxt[:, None]
+            for _ in range(G):
+                nxt, cache = serve(params, cache, tok)
+                tok = nxt[:, None]
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            peak = torch.cuda.max_memory_allocated()
+            # A step's device time, at the last position of the prompt.
+            cache["pos"].fill_(P - 1)
+            dev_ms = _graph_ms(torch, lambda: serve(params, cache, prompts[:, P - 1 :]))
+            # The full-sequence prefill (the forward over the prompt).
+            prefill = make_prefill(replace(cfg, attn_chunk=_chunk(P), attn_kv_chunk=_chunk(P)))
+            prefill(params, {"tokens": prompts})
+            fwd_ms = wall_ms(torch, lambda: prefill(params, {"tokens": prompts}))
+        del cache
+        prefill_ms, decode_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3 / G
+        print(f"phase 9 {cfg.name} serve loop: prefill by {P} decode steps {prefill_ms:.1f} ms "
+              f"({prefill_ms / P:.2f} ms a step), decode {decode_ms:.2f} ms/token/batch; a step's device time "
+              f"{dev_ms:.2f} ms (as one CUDA graph; device idle {1 - dev_ms / decode_ms:.1%} of an eager decode "
+              f"step); make_prefill (forward over the prompt) {fwd_ms:.1f} ms; peak memory {peak / 2**30:.2f} GiB")
+
+        # The gates: a float32 copy on the same weights against forward,
+        # MoE archs replaying the float32 decode's routing.
+        if gate_layers is not None:
+            cfg = replace(cfg, n_layers=gate_layers)
+            params = dict(params, units=tree_map(lambda t: t[:gate_layers], params["units"]))
+        cfg32 = replace(cfg, dtype="float32")
+        ref_cfg = replace(cfg32, moe_impl="dense", attn_chunk=_chunk(T), attn_kv_chunk=_chunk(T))
+        routing, flips, flips16 = [], [0], [0]
+        moe = cfg.n_experts > 0
+        with torch.inference_mode():
+            fed = torch.zeros((B, T), dtype=torch.int32, device="cuda")
+            fed[:, :P] = prompts
+            with _moe_routing(torch, record=routing) if moe else contextlib.nullcontext():
+                lg32 = _decode_logits(torch, params, cfg32, fed, P)
+            with _moe_routing(torch, replay=routing, n_layers=cfg.n_layers, flips=flips) if moe \
+                    else contextlib.nullcontext():
+                ref, _ = forward(params, ref_cfg, tokens=fed)
+            with _moe_routing(torch, replay=routing, n_layers=cfg.n_layers, flips=[0]) if moe \
+                    else contextlib.nullcontext():
+                first = make_prefill(replace(cfg32, moe_impl="dense", attn_chunk=_chunk(P),
+                                             attn_kv_chunk=_chunk(P)))(params, {"tokens": prompts})
+                ulp = torch.randint(0, 2, params["embed"].shape, generator=gen, device="cuda") * 2.0 - 1
+                bumped = dict(params, embed=params["embed"] * (1 + ulp * 2.0 ** -23))
+                del ulp
+                moved, _ = forward(bumped, ref_cfg, tokens=fed)
+                del bumped
+            # Per position, the largest logit difference over the batch row
+            # and the vocabulary, relative to the largest logit.
+            scale = float(ref.abs().max())
+            err_pos = (lg32 - ref).abs().amax(-1) / scale
+            sens_pos = (moved - ref).abs().amax(-1) / scale
+            del moved
+            tol = max(TOL_SERVE, SENS_FACTOR * float(sens_pos.max()))
+            spans = {"every position": slice(0, T)}
+            if cfg.sliding_window and T > cfg.sliding_window:
+                spans[f"positions {cfg.sliding_window}.. (ring wrapped)"] = slice(cfg.sliding_window, T)
+            gates = {name: (float(err_pos[:, sl].max()), float(err_pos[:, sl].median()),
+                            max(TOL_SERVE / 10, SENS_FACTOR * float(sens_pos[:, sl].median())))
+                     for name, sl in spans.items()}
+            greedy_ok, exact, n_greedy = _greedy_check(torch, ref[:, P - 1 : T - 1], fed[:, P:], tol * scale)
+            prefill_ok, _, _ = _greedy_check(torch, ref[:, P - 1 : P], first[:, None], tol * scale)
+            with _moe_routing(torch, replay=routing, n_layers=cfg.n_layers, flips=flips16) if moe \
+                    else contextlib.nullcontext():
+                lg16 = _decode_logits(torch, params, cfg, fed, T)
+            finite = bool(torch.isfinite(lg16).all())
+            diff = (lg16 - lg32).abs()
+            mean16, max16 = float(diff.mean()) / scale, float(diff.max()) / scale
+            agree16 = float((lg16.argmax(-1) == lg32.argmax(-1)).float().mean())
+        n_route = B * T * cfg.n_layers
+        print(f"phase 9 {cfg.name} float32 decode vs forward ({cfg.n_layers} layers, "
+              f"{'dense MoE on the decode routing, ' if moe else ''}{T} positions; max|logits| {scale:.4f}; the "
+              f"forward moves {float(sens_pos.max()):.2e} at most, {float(sens_pos.median()):.2e} at the median "
+              f"position, when its embedding moves 1 ulp): "
+              + "; ".join(f"{name} max {mx:.3e} (tol {tol:.2e}), median {md:.3e} (tol {md_tol:.2e})"
+                          for name, (mx, md, md_tol) in gates.items())
+              + f"; greedy tokens the forward's argmax {exact}/{n_greedy} (all within tol: {greedy_ok}), "
+              f"make_prefill's within tol: {prefill_ok}; bf16 decode vs float32: mean {mean16:.3e} "
+              f"(tol {TOL_SERVE_BF16:.0e}), max {max16:.3e} of max|logits|, finite {finite}, argmax agrees at "
+              f"{agree16:.1%} of positions"
+              + (f"; routing the forward would choose otherwise: {flips[0]} of {n_route} (token, layer) pairs, "
+                 f"the bf16 decode {flips16[0]}" if moe else ""))
+        for name, (mx, md, md_tol) in gates.items():
+            require(mx < tol and md < md_tol, f"phase 9 {cfg.name} float32 decode vs forward, {name}: max "
+                    f"{mx:.3e} (tol {tol:.2e}), median {md:.3e} (tol {md_tol:.2e})")
+        require(greedy_ok and prefill_ok, f"phase 9 {cfg.name} greedy tokens vs the forward's argmax")
+        require(finite and mean16 < TOL_SERVE_BF16, f"phase 9 {cfg.name} bf16 logits vs float32 {mean16:.3e}")
+        cells[cfg.name] = dict(
+            layers=layers or get_config(arch).n_layers, gate_layers=cfg.n_layers, batch=B, prompt=P, gen=G,
+            params_b=n_params / 1e9, prefill_ms=prefill_ms, decode_ms_per_token=decode_ms, step_device_ms=dev_ms,
+            forward_prefill_ms=fwd_ms, peak_gib=peak / 2**30, fp32_tol=tol,
+            ulp_sensitivity=float(sens_pos.max()), fp32_gates={k: list(v) for k, v in gates.items()},
+            greedy_exact=f"{exact}/{n_greedy}", bf16_mean_err=mean16, bf16_max_err=max16,
+            routing_flips=flips[0] if moe else None)
+        del params, prompts, lg32, ref, lg16, diff, fed, routing, err_pos, sens_pos
+        gc.collect()
+        torch.cuda.empty_cache()
+    got = nonzero(cuda_lib.launch_counts())
+    print(f"phase 9 kernel launches over the serve path: {got or 'none'}")
+    require(not got, f"phase 9 launched {got}")
+
+    # The launcher's CLI on the card.
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "mixtral-8x7b", "--smoke"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+    cli_s = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    print(f"phase 9 `{' '.join(cmd[1:])}`: exit {out.returncode} in {cli_s:.1f} s: "
+          + (" | ".join(lines[-3:]) or out.stderr[-400:]))
+    require(out.returncode == 0 and len(lines) >= 3 and lines[-3].startswith("[serve] mixtral-8x7b"),
+            "phase 9 the serve launcher's CLI on the card")
+    return cells
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1207,9 +1517,11 @@ def main() -> int:
     phase_methods(torch, gen)
     t8 = time.perf_counter()
     trained, trained_device, training = phase_training(torch, gen)
+    t9 = time.perf_counter()
+    serving = phase_serving(torch, gen)
     t_end = time.perf_counter()
-    print(f"phase 6 took {t7 - t6:.1f} s, phase 7 {t8 - t7:.1f} s, phase 8 {t_end - t8:.1f} s; the script "
-          f"{t_end - t_start:.1f} s in all (kernel build included)")
+    print(f"phase 6 took {t7 - t6:.1f} s, phase 7 {t8 - t7:.1f} s, phase 8 {t9 - t8:.1f} s, phase 9 "
+          f"{t_end - t9:.1f} s; the script {t_end - t_start:.1f} s in all (kernel build included)")
 
     # Kernel D serves two registry ops (syr2k, trailing_update); its launches
     # are the sum of both counters over the unfused plan(A) run.
@@ -1231,7 +1543,8 @@ def main() -> int:
             row.update(training_launches=trained[name], training_device_launches=trained_device[name])
         row.update(rows[name])
         kernels.append(row)
-    print(json.dumps({"kernels": kernels, "shampoo_refresh": shampoo, "shampoo_training": training}))
+    print(json.dumps({"kernels": kernels, "shampoo_refresh": shampoo, "shampoo_training": training,
+                      "serving": serving}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -111,7 +111,8 @@ def pad_policy(d: Mapping) -> PadPolicy:
 
 def model_params(tree: Any, device: Device = "cpu"):
     """The JAX params tree (nested dicts of numpy arrays, stacked units and
-    all) -> the port's tree: the same names, shapes and dtypes."""
+    all) -> the port's tree: the same names, shapes and dtypes.  A decode
+    cache carries the same way (its 0-d int32 ``pos`` as a 0-d tensor)."""
     return tree_map(lambda a: _t(a, device), tree)
 
 

@@ -1,3 +1,3 @@
-"""repro_torch.launch — the training launcher (``python -m
-repro_torch.launch.train``).  Meshes, the serve launcher and the dry-run are
-not ported yet."""
+"""repro_torch.launch — the training and serve launchers (``python -m
+repro_torch.launch.train``, ``python -m repro_torch.launch.serve``).
+Meshes and the dry-run are not ported yet."""

@@ -1,14 +1,26 @@
-"""repro_torch.models — the dense decoder LM (port of ``repro.models``).
+"""repro_torch.models — the decoder LM (port of ``repro.models``).
 
 Ported: the config, the meta-first parameters, norms and rotary, chunked
-flash attention with its recomputing backward, GQA attention, the dense
-MLPs, the "attn" block and the stacked-unit LM (``forward``, ``LM``).  Not
-yet: MoE, Mamba2 and RG-LRU blocks (ROADMAP Queue 1 item 13), one-token
-decode and caches (the serve path), ``partition_specs`` (item 12).
+flash attention with its recomputing backward, GQA attention with
+sliding windows, the dense MLPs and the MoE feed-forward (``dense`` and
+``dropping``), the "attn" block, the stacked-unit LM (``forward``,
+``LM``), and one-token decode against K/V caches (``cache_meta``,
+``cache_init``, ``decode_step``; ring buffers for windowed layers).  Not
+yet: the Mamba2 and RG-LRU blocks and the frontends (ROADMAP Queue 1 item
+13(b)), ``partition_specs`` (item 12).
 """
 from .config import ModelConfig
 from .params import ParamMeta, abstract_params, init_params, partition_specs, param_count
-from .lm import LM, forward, model_meta, model_params, pattern_unit
+from .lm import (
+    LM,
+    cache_init,
+    cache_meta,
+    decode_step,
+    forward,
+    model_meta,
+    model_params,
+    pattern_unit,
+)
 
 __all__ = [
     "ModelConfig",
@@ -19,7 +31,10 @@ __all__ = [
     "param_count",
     "model_meta",
     "model_params",
+    "cache_meta",
+    "cache_init",
     "forward",
+    "decode_step",
     "pattern_unit",
     "LM",
 ]

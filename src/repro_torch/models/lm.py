@@ -1,5 +1,5 @@
 """Full decoder LM: embedding -> stacked pattern units -> head (port of
-``repro.models.lm`` for training and prefill).
+``repro.models.lm``).
 
 Layers are grouped into the smallest repeating **pattern unit** (one layer
 for homogeneous archs) and their parameters are **stacked** along a leading
@@ -12,8 +12,17 @@ with ``cfg.remat == "block"`` each unit runs under
 backward).  Remainder layers run one by one.
 
 Parameters are nested dicts of tensors (``model_params``), as in the JAX
-package; :class:`LM` holds the same tree as ``nn.Parameter``s.  One-token
-decode against a cache is the serve path and is not ported yet.
+package; :class:`LM` holds the same tree as ``nn.Parameter``s.
+
+Entry points:
+  * ``forward``     — full-sequence logits (train / prefill)
+  * ``decode_step`` — one token against a cache, updated in place
+  * ``model_meta`` / ``cache_meta`` — shapes (``ParamMeta`` / ``meta``
+    tensors); ``model_params`` / ``cache_init`` materialize them
+
+The cache is the JAX package's tree: ``units`` (each layer's K/V stacked
+along n_units like the parameters), ``rem`` and a 0-d int32 ``pos``, so a
+JAX-made cache carries across with ``interop.model_params``.
 """
 from __future__ import annotations
 
@@ -24,14 +33,24 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.backend import probe
 from repro_torch.tree import tree_map
 
-from .blocks import ZERO_AUX, block_forward, block_meta
+from .blocks import ZERO_AUX, block_cache_meta, block_decode, block_forward, block_meta
 from .config import ModelConfig
 from .layers import apply_norm, embed_lookup, embed_meta, rmsnorm_meta, unembed
 from .params import ParamMeta, init_params
 
-__all__ = ["pattern_unit", "model_meta", "model_params", "forward", "LM"]
+__all__ = [
+    "pattern_unit",
+    "model_meta",
+    "model_params",
+    "cache_meta",
+    "cache_init",
+    "forward",
+    "decode_step",
+    "LM",
+]
 
 
 def pattern_unit(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
@@ -83,8 +102,6 @@ def model_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     generator on ``device`` seeded with 0) and placed on ``device`` (default
     ``"cuda"``, which raises without a card: pass ``device="cpu"``)."""
     if generator is None:
-        from repro_torch.backend import probe
-
         generator = torch.Generator(device=probe.resolve_device(device)).manual_seed(0)
     return init_params(model_meta(cfg, model_axis), generator, device)
 
@@ -138,6 +155,64 @@ def forward(
     return unembed(x, table, cfg.logit_softcap), aux
 
 
+# ----------------------------------------------------------------------
+# Decode
+# ----------------------------------------------------------------------
+
+def cache_meta(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """The decode cache's shapes and dtypes as ``meta``-device tensors."""
+    pat, n_units, rem = pattern_unit(cfg)
+
+    def stack(tree):
+        return tree_map(lambda t: torch.empty((n_units, *t.shape), dtype=t.dtype, device="meta"), tree)
+
+    unit = {f"L{i}_{kind}": block_cache_meta(cfg, kind, batch, max_len) for i, kind in enumerate(pat)}
+    return {
+        "units": stack(unit),
+        "rem": {f"R{i}_{kind}": block_cache_meta(cfg, kind, batch, max_len) for i, kind in enumerate(rem)},
+        "pos": torch.empty((), dtype=torch.int32, device="meta"),
+    }
+
+
+def cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
+               device: Optional[Union[str, torch.device]] = None) -> dict:
+    """A zero cache (``pos`` 0) on ``device`` (default ``"cuda"``, which
+    raises without a card: pass ``device="cpu"``)."""
+    dev = probe.resolve_device(device)
+    return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=dev),
+                    cache_meta(cfg, batch, max_len))
+
+
+def decode_step(
+    params: dict,
+    cfg: ModelConfig,
+    cache: dict,
+    tokens: Optional[torch.Tensor] = None,
+    embeds: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, dict]:
+    """One decode step.  tokens: (B, 1) int (or embeds (B, 1, F)), on the
+    cache's device.
+
+    Returns (logits (B, 1, V) fp32, cache): the same cache dict, its K/V
+    written in place (the JAX serve step donates it) and ``pos`` + 1."""
+    pat, n_units, rem = pattern_unit(cfg)
+    pos = cache["pos"]
+    x = _embed_input(params, cfg, tokens, embeds)
+    for u in range(n_units):
+        for i, kind in enumerate(pat):
+            key = f"L{i}_{kind}"
+            x, _ = block_decode(tree_map(lambda t: t[u], params["units"][key]), cfg, kind, x,
+                                tree_map(lambda t: t[u], cache["units"][key]), pos)
+    for i, kind in enumerate(rem):
+        key = f"R{i}_{kind}"
+        x, _ = block_decode(params["rem"][key], cfg, kind, x, cache["rem"][key], pos)
+
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    cache["pos"] = pos + 1
+    return unembed(x, table, cfg.logit_softcap), cache
+
+
 class _ParamTree(nn.Module):
     """A nested dict of tensors held as submodules and ``nn.Parameter``s."""
 
@@ -158,7 +233,8 @@ class _ParamTree(nn.Module):
 class LM(nn.Module):
     """The decoder LM as an ``nn.Module``: ``params`` (a tree from
     :func:`model_params`) held as stacked ``nn.Parameter``s, and
-    ``lm(tokens)`` = :func:`forward` on them.  ``lm.params()`` gives the
+    ``lm(tokens)`` = :func:`forward` and ``lm.decode_step(cache, tokens)``
+    = :func:`decode_step` on them.  ``lm.params()`` gives the
     tree back (the Parameters themselves) for the functional train step and
     optimizers."""
 
@@ -172,3 +248,7 @@ class LM(nn.Module):
 
     def forward(self, tokens=None, embeds=None, return_hidden: bool = False):
         return forward(self.params(), self.cfg, tokens, embeds, return_hidden)
+
+    def decode_step(self, cache: dict, tokens=None, embeds=None):
+        """:func:`decode_step` on the module's weights."""
+        return decode_step(self.params(), self.cfg, cache, tokens, embeds)

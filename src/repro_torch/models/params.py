@@ -63,7 +63,8 @@ def _draw(m: ParamMeta, gen: torch.Generator) -> torch.Tensor:
         return torch.ones(m.shape, dtype=m.dtype, device=gen.device)
     if m.init not in ("normal", "embed"):
         raise NotImplementedError(
-            f"init law {m.init!r} belongs to a block that is not ported yet: ROADMAP Queue 1 item 13"
+            f"init law {m.init!r} belongs to the Mamba2 or RG-LRU block, which is not ported yet: "
+            "ROADMAP Queue 1 item 13(b)"
         )
     if m.fan_in_axis is not None:
         fan_in = m.shape[m.fan_in_axis]

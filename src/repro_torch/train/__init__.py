@@ -1,6 +1,13 @@
-"""repro_torch.train — the train step and the fault-tolerant training loop
-(port of ``repro.train``; the serve-path steps are not ported yet)."""
-from .step import chunked_cross_entropy, cross_entropy, make_loss_fn, make_train_step
+"""repro_torch.train — the train and serve step builders and the
+fault-tolerant training loop (port of ``repro.train``)."""
+from .step import (
+    chunked_cross_entropy,
+    cross_entropy,
+    make_loss_fn,
+    make_prefill,
+    make_serve_step,
+    make_train_step,
+)
 from .loop import TrainLoop, TrainLoopConfig
 
 __all__ = [
@@ -8,6 +15,8 @@ __all__ = [
     "chunked_cross_entropy",
     "make_loss_fn",
     "make_train_step",
+    "make_prefill",
+    "make_serve_step",
     "TrainLoop",
     "TrainLoopConfig",
 ]

@@ -1,4 +1,4 @@
-"""The train step (port of ``repro.train.step`` for training).
+"""Train / serve step builders (port of ``repro.train.step``).
 
 ``make_train_step`` returns a function
 
@@ -9,17 +9,23 @@ MoE aux terms, zero for dense blocks), with optional gradient microbatching
 (sequential accumulation) and error-feedback int8 compression.  Gradients
 come from ``torch.autograd.grad`` on detached copies of the parameters, so
 the step is a pure function like its JAX counterpart and returns new
-parameter tensors.  ``make_prefill`` / ``make_serve_step`` are the serve
-path and are not ported yet.
+parameter tensors.
+
+``make_prefill`` / ``make_serve_step`` build the inference entry points:
+a full-sequence forward returning the next token, and one-token decode
+against a cache (updated in place, as the JAX serve step donates it).
+Both run under ``torch.inference_mode()`` on the device they are built
+for.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import ModelConfig, forward
+from repro_torch.backend import probe
+from repro_torch.models import ModelConfig, decode_step, forward
 from repro_torch.optim import Optimizer, apply_updates, global_norm
 from repro_torch.tree import flatten_with_paths, tree_map
 
@@ -28,6 +34,8 @@ __all__ = [
     "chunked_cross_entropy",
     "make_loss_fn",
     "make_train_step",
+    "make_prefill",
+    "make_serve_step",
 ]
 
 MOE_LB_COEF = 0.01
@@ -164,3 +172,39 @@ def make_train_step(
         return params, opt_state, metrics
 
     return train_step
+
+
+def make_prefill(cfg: ModelConfig, *, device: Optional[Union[str, torch.device]] = None) -> Callable:
+    """Full-sequence inference forward — the prefill shape.  The returned
+    ``prefill(params, batch)`` gives the next token (int32, (B,)) after
+    each row of ``batch["tokens"]`` (or ``batch["embeds"]``), moved to
+    ``device`` (default ``"cuda"``, which raises without a card: pass
+    ``device="cpu"``)."""
+    dev = probe.resolve_device(device)
+
+    @torch.inference_mode()
+    def prefill(params, batch):
+        if cfg.frontend and "embeds" in batch:
+            kwargs = {"embeds": batch["embeds"].to(dev)}
+        else:
+            kwargs = {"tokens": batch["tokens"].to(dev)}
+        logits, _ = forward(params, cfg, **kwargs)
+        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+
+    return prefill
+
+
+def make_serve_step(cfg: ModelConfig, *, device: Optional[Union[str, torch.device]] = None) -> Callable:
+    """One-token decode against a cache — the decode shapes.  The returned
+    ``serve_step(params, cache, tokens)`` takes tokens (B, 1), moved to
+    ``device`` (default ``"cuda"``, which raises without a card: pass
+    ``device="cpu"``), and gives (the greedy next token, int32 (B,), the
+    cache updated in place)."""
+    dev = probe.resolve_device(device)
+
+    @torch.inference_mode()
+    def serve_step(params, cache, tokens):
+        logits, cache = decode_step(params, cfg, cache, tokens=tokens.to(dev))
+        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32), cache
+
+    return serve_step

@@ -9,8 +9,9 @@ numpy batch, at 1e-5 (logits, loss) and 5e-4 (gradients) of the largest
 entry.  Flash attention (causal and windowed, GQA, several query and key
 chunks) and its backward, the norms and rotary at 1e-5.  Initialisation
 uses torch's generator, so it is held to the JAX package's shapes, init
-laws and fan-in rule in distribution.  Plus the configs, the ``LM``
-module, and the device rule (no card and no ``device="cpu"``: raise).
+laws and fan-in rule in distribution.  Plus every ported arch's config
+and parameter shapes against the JAX package's, the ``LM`` module, and
+the device rule (no card and no ``device="cpu"``: raise).
 """
 import dataclasses
 
@@ -62,33 +63,39 @@ def smoke():
     return jcfg, cfg, jparams, params, {"tokens": tokens, "labels": labels}
 
 
-def test_smoke_config_equals_jax():
-    jcfg = jconfigs.get_smoke_config(ARCH)
-    cfg = configs.get_smoke_config(ARCH)
+@pytest.mark.parametrize("arch", configs.PORTED)
+def test_smoke_config_equals_jax(arch):
+    jcfg = jconfigs.get_smoke_config(arch)
+    cfg = configs.get_smoke_config(arch)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-    full = configs.get_config(ARCH)
-    assert dataclasses.asdict(full) == dataclasses.asdict(jconfigs.get_config(ARCH))
+    full = configs.get_config(arch)
+    assert dataclasses.asdict(full) == dataclasses.asdict(jconfigs.get_config(arch))
     assert full.activation_dtype == torch.bfloat16 and full.parameter_dtype == torch.float32
-    assert cfg.activation_dtype == torch.float32 and full.layer_kinds == ("attn",) * 28
-    assert full.param_counts() == jconfigs.get_config(ARCH).param_counts()
+    assert cfg.activation_dtype == torch.float32 and full.layer_kinds == ("attn",) * full.n_layers
+    assert full.param_counts() == jconfigs.get_config(arch).param_counts()
 
 
 def test_configs_names_and_unported_archs():
+    """Six archs are ported; the four that need the Mamba2 or RG-LRU block or
+    a frontend raise, naming what they need."""
     assert configs.ARCHS == jconfigs.ARCHS
     for name in ("llama3.2-3b", "llama32-3b", "llama32_3b"):
         assert configs.canonical(name) == jconfigs.canonical(name) == "llama32_3b"
     with pytest.raises(KeyError):
         configs.canonical("gpt-5")
-    for arch in configs.ARCHS:
-        if arch != "llama32_3b":
-            with pytest.raises(NotImplementedError, match="item 13"):
-                configs.get_config(arch)
+    unported = {"mamba2_370m": "Mamba2", "recurrentgemma_2b": "RG-LRU", "musicgen_large": "audio",
+                "llava_next_mistral_7b": "vision"}
+    assert set(configs.PORTED) == set(configs.ARCHS) - set(unported)
+    for arch, needs in unported.items():
+        with pytest.raises(NotImplementedError, match=f"{needs}.*item 13"):
+            configs.get_config(arch)
 
 
-def test_meta_shapes_and_counts_equal_jax():
+@pytest.mark.parametrize("arch", configs.PORTED)
+def test_meta_shapes_and_counts_equal_jax(arch):
     for cfg_fn in (configs.get_config, configs.get_smoke_config):
         jcfg_fn = getattr(jconfigs, cfg_fn.__name__)
-        meta, jmeta = models.model_meta(cfg_fn(ARCH)), jmodels.model_meta(jcfg_fn(ARCH))
+        meta, jmeta = models.model_meta(cfg_fn(arch)), jmodels.model_meta(jcfg_fn(arch))
         paths, metas, _ = flatten_with_paths(meta)
         jflat = jax.tree_util.tree_flatten_with_path(jmeta, is_leaf=lambda x: hasattr(x, "axes"))[0]
         assert paths == ["/".join(str(k) for k in p) for p, _ in jflat]
@@ -96,8 +103,10 @@ def test_meta_shapes_and_counts_equal_jax():
             assert (m.shape, m.axes, m.init, m.scale, m.fan_in_axis) == (
                 jm.shape, jm.axes, jm.init, jm.scale, jm.fan_in_axis)
         assert models.param_count(meta) == jmodels.param_count(jmeta)
-    full = models.abstract_params(models.model_meta(configs.get_config(ARCH)))
-    assert tuple(full["units"]["L0_attn"]["attn"]["wq"].shape) == (28, 3072, 24, 128)
+    cfg = configs.get_config(arch)
+    full = models.abstract_params(models.model_meta(cfg))
+    assert tuple(full["units"]["L0_attn"]["attn"]["wq"].shape) == (
+        cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim)
     assert full["embed"].device.type == "meta"
 
 
