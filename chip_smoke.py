@@ -90,7 +90,13 @@ Phases, each printing its own lines:
    full width and depth, each at the launcher's batch 4, prompt 32, gen 16;
    (c) mixtral-8x7b at full width with its window of 4096, cut to 2 layers,
    batch 2, 4224 teacher-forced positions and 16 generated (its ring buffer
-   wraps past position 4096).  Each cell times the serve loop (the prompt
+   wraps past position 4096); (d) mamba2-370m at all 48 layers, batch 4,
+   prompt 512, gen 16 (the forward's SSD in 6 chunks of 88), and
+   recurrentgemma-2b at all 26 layers, batch 2, prompt 528, gen 16 (2
+   RG-LRU chunks of 272, a local-attention cache of 544 slots), each
+   decoding on its recurrent states; musicgen-large and
+   llava-next-mistral-7b at full width cut to 2 layers, batch 4, prompt
+   32, gen 16, on tokens.  Each cell times the serve loop (the prompt
    by teacher-forced decode steps, then greedy decode), the full-sequence
    ``make_prefill``, the peak memory, and a step's device time (the step
    captured as one CUDA graph).  Gates: a float32 copy of the config on the
@@ -107,6 +113,20 @@ Phases, each printing its own lines:
    finite and within 0.1 (mean) of max|logits| of the float32 ones; kernels
    A-E launch no time.  Then ``python -m repro_torch.launch.serve --arch
    mixtral-8x7b --smoke`` on the card.
+10. The Mamba2 and RG-LRU families and the frontends on the card, through
+   the port's entry points.  (a) Shampoo training with phase 8's gates
+   (one shared helper): mamba2-370m at full width cut to 4 layers, batch
+   8 x 256 (two SSD chunks of 128), 3 steps, step 1 repeated bit for bit
+   (1749 blocks a side); recurrentgemma-2b cut to one (rglru, rglru, attn)
+   unit, batch 4 x 1024 (two RG-LRU chunks of 512, the checkpointed carry
+   run backward), 2 steps, its refresh's stages timed in the run (14 560
+   blocks a side); kernels A, B and C launched exactly 2 x blocks x one
+   ``plan(128)``'s in each.  (b) is phase 9's (d).  (c) musicgen-large and
+   llava-next-mistral-7b at full width cut to 1 layer, 2 AdamW steps on
+   ``synthetic_batch``'s embeddings: finite losses, ``frontend_proj``
+   moved.  (d) ``python -m repro_torch.launch.serve --arch mamba2-370m
+   --smoke`` and ``python -m repro_torch.launch.train --arch
+   recurrentgemma-2b --smoke --steps 20 --optimizer shampoo`` on the card.
 
 Then one JSON line with the kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -150,6 +170,10 @@ ROOT_BLOCKS = 64
 # 0.63 at 32 (scripts/serve_sensitivity.py on an H100), so no two float32
 # computations of the 32-layer model agree and its gates run on its
 # first 4 layers.
+# mamba2-370m and recurrentgemma-2b run all their layers, over prompts
+# that cross their scans' chunks (528 positions: 6 SSD chunks of 88; 544:
+# 2 RG-LRU chunks of 272); the frontend archs' backbones on tokens, cut as
+# the other dense cells are.
 SERVE_CELLS = (
     ("llama3.2-3b", None, 8, 64, 32, None),
     ("codeqwen1.5-7b", 2, 4, 32, 16, None),
@@ -157,7 +181,33 @@ SERVE_CELLS = (
     ("qwen3-14b", 2, 4, 32, 16, None),
     ("granite-moe-3b-a800m", None, 4, 32, 16, 4),
     ("mixtral-8x7b", 2, 2, 4224, 16, None),
+    ("mamba2-370m", None, 4, 512, 16, None),
+    ("recurrentgemma-2b", None, 2, 528, 16, None),
+    ("musicgen-large", 2, 4, 32, 16, None),
+    ("llava-next-mistral-7b", 2, 4, 32, 16, None),
 )
+# Layers the bf16-vs-float32 decode gate runs on, where fewer than the
+# float32 gates'.  Random-weight mamba2-370m is chaotic in bf16 with depth:
+# the init law draws the stacked w_dt with std 1/sqrt(48), so dt reaches
+# ~20, where one bf16 rounding of dt_raw (ulp 2^-3) moves dt A by up to 1
+# (A down to -16); its bf16
+# decode sits 2.2e-2 (mean) of max|logits| from the float32 forward at 8
+# layers, 7.1e-2 at 16 and 0.134 at 48, where its argmax agrees with
+# float32's at 1 % of positions, while its float32 decode stays within 2x
+# of the forward's 1-ulp change at every depth (scripts/serve_sensitivity.py
+# on an H100).
+BF16_GATE_LAYERS = {"mamba2-370m": 8}
+# Phase 10 Shampoo training cuts: (arch, layers, batch, seq, steps, step 1
+# repeated bit for bit).  mamba2-370m's 4 of 48 layers over 256 positions
+# (two SSD chunks of 128); one (rglru, rglru, attn) unit of
+# recurrentgemma-2b over 1024 (two RG-LRU chunks of 512, the checkpointed
+# carry in the backward), not repeated: its refresh is ~8x mamba2's.
+FAMILY_TRAIN_CELLS = (
+    ("mamba2-370m", 4, 8, 256, 3, True),
+    ("recurrentgemma-2b", 3, 4, 1024, 2, False),
+)
+# Phase 10 frontend cells: (arch, layers), 2 AdamW steps on embeds.
+FRONTEND_CELLS = (("musicgen-large", 1), ("llava-next-mistral-7b", 1))
 HETERO = ((512, 128), (512, 96), (64, 127))
 PAD_BUCKET = 128
 N_MEDIUM, B_MEDIUM = 1024, 8
@@ -1066,97 +1116,14 @@ def root_errors(torch, stats, pre, idx, eps):
     return err, cond, lib_err
 
 
-def phase_training(torch, gen):
-    """Phase 8: Shampoo training of llama3.2-3b on the card (full width,
-    1 layer), through the port's entry points."""
-    import dataclasses
-    import os
-
-    from repro_torch.configs import get_config
-    from repro_torch.data import DataConfig, synthetic_batch
-    from repro_torch.kernels import cuda_lib
-    from repro_torch.models import model_params, param_count, model_meta
-    from repro_torch.optim import ShampooOptions, adamw, shampoo, warmup_cosine
-    from repro_torch.optim.shampoo import leaf_plans
+@contextlib.contextmanager
+def _stage_timer(torch, stages: dict):
+    """Time the refresh's stages: every ``solve_many`` bucket's executor
+    stages (each closed by a synchronize) and the Rayleigh-Ritz root, summed
+    into ``stages`` (ms) while the context is open."""
     from repro_torch.solver import batch as solver_batch
-    from repro_torch.solver import plan
-    from repro_torch.train import TrainLoop, TrainLoopConfig, make_train_step
-    from repro_torch.tree import leaves
 
-    cfg = dataclasses.replace(get_config("llama3.2-3b"), n_layers=TRAIN_LAYERS)
-    opts = ShampooOptions()
-    params = model_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
-    _, NB = leaf_plans(params, opts)
-    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=SEED)
-    batch_fn = lambda s: synthetic_batch(dc, s, device="cuda")  # noqa: E731
-    sched = warmup_cosine(3e-4, warmup=max(TRAIN_STEPS // 20, 1), total=TRAIN_STEPS)
-    pl = plan(N_BLOCK, torch.float32, opts.evd)
-    one = solve_launches(pl)
-    print(f"phase 8 {cfg.name} cut to {cfg.n_layers} layers: d_model {cfg.d_model}, heads {cfg.n_heads}/"
-          f"{cfg.n_kv_heads}x{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype} activations, "
-          f"{cfg.param_dtype} weights, remat={cfg.remat}; {param_count(model_meta(cfg)) / 1e9:.3f} B params; "
-          f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_STEPS} steps; Shampoo block {opts.block_size}, "
-          f"interval {opts.update_interval}: {NB} blocks a side, each {pl.describe()}")
-
-    def run(opt, label):
-        """TRAIN_STEPS steps through TrainLoop; returns the loop, the final
-        weights, the losses, the first step's outputs and the peak memory."""
-        first = {}
-
-        def step_fn(p, s, batch, step):
-            out = train_step(p, s, batch, step)
-            first.setdefault("out", out)
-            return out
-
-        train_step = make_train_step(cfg, opt)
-        state = opt.init(params)
-        loop = TrainLoop(step_fn, batch_fn, TrainLoopConfig(total_steps=TRAIN_STEPS, log_every=1),
-                         log_fn=lambda m: print(f"phase 8 {label} {m}"))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        cuda_lib.reset_launch_counts()
-        final, _, hist = loop.run(params, state)
-        torch.cuda.synchronize()
-        return loop, final, hist, first["out"], state, torch.cuda.max_memory_allocated()
-
-    opt = shampoo(sched, opts)
-    loop, final, hist, first, state0, peak = run(opt, "shampoo")
-    got = nonzero(cuda_lib.launch_counts())
-    got_dev = nonzero(cuda_lib.device_launch_counts())
-    cuda_lib.reset_launch_counts()
-    pl(torch.eye(N_BLOCK, device="cuda"))
-    one_dev = nonzero(cuda_lib.device_launch_counts())
-    times = loop.step_times
-    print(f"phase 8 shampoo losses {hist}; step times s {[round(t, 3) for t in times]}: step 1 (refresh) "
-          f"{times[0]:.2f} s, steady {sum(times[1:]) / len(times[1:]) * 1e3:.1f} ms a step; peak memory "
-          f"{peak / 2**30:.2f} GiB")
-    print(f"phase 8 launches over the {TRAIN_STEPS} steps: {got} (CUDA {got_dev}); one plan({N_BLOCK}) solve "
-          f"{one} (CUDA {one_dev}), x 2 sides x {NB} blocks")
-    require(got == {op: 2 * NB * c for op, c in one.items()}, f"phase 8 launches {got}")
-    require(got_dev == {op: 2 * NB * c for op, c in one_dev.items()}, f"phase 8 CUDA launches {got_dev}")
-    require(len(hist) == TRAIN_STEPS and all(math.isfinite(h) for h in hist), f"phase 8 losses {hist}")
-    moved = [bool((a != b).any()) for a, b in zip(leaves(final), leaves(params))]
-    require(all(moved), f"phase 8 weights moved: {moved}")
-
-    # The first step's preconditioners against float64, on seeded blocks.
-    _, s1, _ = first
-    idx = torch.randperm(NB, generator=torch.Generator().manual_seed(SEED))[:ROOT_BLOCKS].cuda()
-    worst = {}
-    for side in ("l", "r"):
-        err, cond, lib_err = root_errors(torch, getattr(s1, "stats_" + side), getattr(s1, "pre_" + side), idx,
-                                         opts.eps)
-        ok = err < TOL_ROOT
-        worst[side] = float(err.max())
-        print(f"phase 8 pre_{side} on {ROOT_BLOCKS} seeded blocks vs float64: max rel err {float(err.max()):.3e} "
-              f"(median {float(err.median()):.3e}; {int((err >= TOL_ROOT).sum())} blocks at or above "
-              f"{TOL_ROOT:.0e}); block cond median {float(cond.median()):.3e}, max {float(cond.max()):.3e}; "
-              f"float32 torch.linalg.eigh on the same blocks: max {float(lib_err.max()):.3e}")
-        require(bool(ok.all()) and bool(torch.isfinite(getattr(s1, "pre_" + side)).all()),
-                f"phase 8 pre_{side} vs float64")
-
-    # Step 1 again from the same state, with the refresh's stages timed:
-    # bit for bit the first run's.
-    stages, last = {}, [0.0]
+    last = [0.0]
 
     def mark(name):
         torch.cuda.synchronize()
@@ -1178,22 +1145,155 @@ def phase_training(torch, gen):
 
     solver_batch._execute_bucket, solver_batch._roots_from_window = timed, timed_root
     try:
-        t0 = time.perf_counter()
-        again = make_train_step(cfg, opt)(params, state0, batch_fn(0), 0)
-        torch.cuda.synchronize()
-        repeat_s = time.perf_counter() - t0
+        yield
     finally:
         solver_batch._execute_bucket, solver_batch._roots_from_window = orig, orig_root
-    same = all(torch.equal(a, b) for a, b in zip(leaves(again), leaves(first)))
+
+
+def _train_run(torch, cfg, opt, params, batch_fn, steps: int, label: str):
+    """``steps`` steps of ``make_train_step(cfg, opt)`` through TrainLoop from
+    ``params``, the launch counters reset just before.  Returns the loop,
+    the final weights, the losses, the first step's outputs, the starting
+    optimizer state and the peak memory."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.train import TrainLoop, TrainLoopConfig, make_train_step
+
+    first = {}
+    train_step = make_train_step(cfg, opt)
+
+    def step_fn(p, s, batch, step):
+        out = train_step(p, s, batch, step)
+        first.setdefault("out", out)
+        return out
+
+    state = opt.init(params)
+    loop = TrainLoop(step_fn, batch_fn, TrainLoopConfig(total_steps=steps, log_every=1),
+                     log_fn=lambda m: print(f"{label} {m}"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    final, _, hist = loop.run(params, state)
+    torch.cuda.synchronize()
+    return loop, final, hist, first["out"], state, torch.cuda.max_memory_allocated()
+
+
+def shampoo_training(torch, phase: str, cfg, batch: int, seq: int, steps: int, repeat: bool):
+    """Shampoo training of ``cfg`` on the card through the port's entry
+    points (random weights from the seed, ``shampoo(warmup_cosine(3e-4,
+    ...), ShampooOptions())``, ``make_train_step``, ``TrainLoop``,
+    ``synthetic_batch``), with phase 8's gates: finite losses, every weight
+    moved, kernels A, B and C launched exactly 2 x blocks x one
+    ``plan(128)`` solve's, the step-1 roots on ``ROOT_BLOCKS`` seeded blocks
+    within ``TOL_ROOT`` of the float64 formula (beside float32
+    ``torch.linalg.eigh``'s error), and with ``repeat`` step 1 run again
+    from the same state and bit for bit the first run's.  The refresh's
+    stages are timed in the repeat, or else in the run itself.  Returns
+    (launches, CUDA launches, record, (params, batch_fn, sched, opts, step-1
+    state))."""
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import model_meta, model_params, param_count, pattern_unit
+    from repro_torch.optim import ShampooOptions, shampoo, warmup_cosine
+    from repro_torch.optim.shampoo import leaf_plans
+    from repro_torch.solver import plan
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import leaves
+
+    opts = ShampooOptions()
+    params = model_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    _, NB = leaf_plans(params, opts)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=SEED)
+    batch_fn = lambda s: synthetic_batch(dc, s, device="cuda")  # noqa: E731
+    sched = warmup_cosine(3e-4, warmup=max(steps // 20, 1), total=steps)
+    pl = plan(N_BLOCK, torch.float32, opts.evd)
+    one = solve_launches(pl)
+    pat, n_units, rem = pattern_unit(cfg)
+    print(f"{phase} {cfg.name} cut to {cfg.n_layers} layers ({n_units} x {pat} + {rem}): d_model {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.dtype} activations, {cfg.param_dtype} weights, remat={cfg.remat}; "
+          f"{param_count(model_meta(cfg)) / 1e9:.3f} B params; batch {batch} x seq {seq}, {steps} steps; Shampoo "
+          f"block {opts.block_size}, interval {opts.update_interval}: {NB} blocks a side, each {pl.describe()}")
+
+    opt = shampoo(sched, opts)
+    stages = {}
+    with contextlib.nullcontext() if repeat else _stage_timer(torch, stages):
+        loop, final, hist, first, state0, peak = _train_run(torch, cfg, opt, params, batch_fn, steps,
+                                                            f"{phase} {cfg.name} shampoo")
+    got = nonzero(cuda_lib.launch_counts())
+    got_dev = nonzero(cuda_lib.device_launch_counts())
+    cuda_lib.reset_launch_counts()
+    pl(torch.eye(N_BLOCK, device="cuda"))
+    one_dev = nonzero(cuda_lib.device_launch_counts())
+    times = loop.step_times
+    steady_ms = sum(times[1:]) / len(times[1:]) * 1e3
+    print(f"{phase} {cfg.name} shampoo losses {hist}; step times s {[round(t, 3) for t in times]}: step 1 "
+          f"(refresh{'' if repeat else ', its stages timed'}) {times[0]:.2f} s, steady {steady_ms:.1f} ms a step; "
+          f"peak memory {peak / 2**30:.2f} GiB")
+    print(f"{phase} {cfg.name} launches over the {steps} steps: {got} (CUDA {got_dev}); one plan({N_BLOCK}) "
+          f"solve {one} (CUDA {one_dev}), x 2 sides x {NB} blocks")
+    require(got == {op: 2 * NB * c for op, c in one.items()}, f"{phase} {cfg.name} launches {got}")
+    require(got_dev == {op: 2 * NB * c for op, c in one_dev.items()}, f"{phase} {cfg.name} CUDA launches {got_dev}")
+    require(len(hist) == steps and all(math.isfinite(h) for h in hist), f"{phase} {cfg.name} losses {hist}")
+    moved = [bool((a != b).any()) for a, b in zip(leaves(final), leaves(params))]
+    require(all(moved), f"{phase} {cfg.name} weights moved: {moved}")
+    del final
+
+    # The first step's preconditioners against float64, on seeded blocks.
+    _, s1, _ = first
+    idx = torch.randperm(NB, generator=torch.Generator().manual_seed(SEED))[:ROOT_BLOCKS].cuda()
+    worst = {}
+    for side in ("l", "r"):
+        err, cond, lib_err = root_errors(torch, getattr(s1, "stats_" + side), getattr(s1, "pre_" + side), idx,
+                                         opts.eps)
+        worst[side] = float(err.max())
+        print(f"{phase} {cfg.name} pre_{side} on {ROOT_BLOCKS} seeded blocks vs float64: max rel err "
+              f"{float(err.max()):.3e} (median {float(err.median()):.3e}; {int((err >= TOL_ROOT).sum())} blocks at "
+              f"or above {TOL_ROOT:.0e}); block cond median {float(cond.median()):.3e}, max "
+              f"{float(cond.max()):.3e}; float32 torch.linalg.eigh on the same blocks: max {float(lib_err.max()):.3e}")
+        require(bool((err < TOL_ROOT).all()) and bool(torch.isfinite(getattr(s1, "pre_" + side)).all()),
+                f"{phase} {cfg.name} pre_{side} vs float64")
+
+    same, repeat_s = None, None
+    if repeat:
+        # Step 1 again from the same state, with the refresh's stages timed:
+        # bit for bit the first run's.
+        with _stage_timer(torch, stages):
+            t0 = time.perf_counter()
+            again = make_train_step(cfg, opt)(params, state0, batch_fn(0), 0)
+            torch.cuda.synchronize()
+            repeat_s = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(leaves(again), leaves(first)))
+        del again
+        print(f"{phase} {cfg.name} step 1 repeated from the same state: {repeat_s:.2f} s, bitwise identical: {same}")
+        require(same, f"{phase} {cfg.name} step 1 is not bitwise repeatable")
     refresh_s = sum(stages.values()) / 1e3
-    print(f"phase 8 step 1 repeated from the same state: {repeat_s:.2f} s, bitwise identical: {same}; its "
-          f"refresh's stages (2 solve_many buckets of {NB}, each stage closed by a synchronize) ms: "
-          + ", ".join(f"{k}={v:.1f}" for k, v in stages.items()) + f"; {refresh_s:.2f} s in all, "
-          f"{refresh_s * 1e3 / (2 * NB):.3f} ms a block")
-    require(same, "phase 8 step 1 is not bitwise repeatable")
+    print(f"{phase} {cfg.name} the refresh's stages (2 solve_many buckets of {NB}, each stage closed by a "
+          f"synchronize) ms: " + ", ".join(f"{k}={v:.1f}" for k, v in stages.items())
+          + f"; {refresh_s:.2f} s in all, {refresh_s * 1e3 / (2 * NB):.3f} ms a block")
+    record = dict(
+        layers=cfg.n_layers, batch=batch, seq=seq, blocks_a_side=NB, step1_s=times[0], steady_ms=steady_ms,
+        refresh_s=refresh_s, refresh_ms_per_block=refresh_s * 1e3 / (2 * NB), stages_ms=stages,
+        peak_gib=peak / 2**30, root_err=worst, losses=hist, step1_bitwise=same, launches=got)
+    return got, got_dev, record, (params, batch_fn, sched, opts, s1)
+
+
+def phase_training(torch, gen):
+    """Phase 8: Shampoo training of llama3.2-3b on the card (full width,
+    1 layer), through the port's entry points."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), n_layers=TRAIN_LAYERS)
+    got, got_dev, record, (params, batch_fn, sched, opts, s1) = shampoo_training(
+        torch, "phase 8", cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, repeat=True)
+    NB, refresh_s = record["blocks_a_side"], record["refresh_s"]
 
     # The same steps with AdamW.
-    loop_a, _, hist_a, _, _, peak_a = run(adamw(sched), "adamw")
+    loop_a, _, hist_a, _, _, peak_a = _train_run(torch, cfg, adamw(sched), params, batch_fn, TRAIN_STEPS,
+                                                 "phase 8 adamw")
     ta = loop_a.step_times
     require(all(math.isfinite(h) for h in hist_a) and not nonzero(cuda_lib.launch_counts()),
             f"phase 8 adamw losses {hist_a}")
@@ -1212,21 +1312,34 @@ def phase_training(torch, gen):
     print(f"phase 8 the step-1 statistics (2 x {NB} blocks) through batched torch.linalg.eigh + root: "
           f"{lib_s:.2f} s, against the refresh's {refresh_s:.2f} s")
 
-    # The launcher's CLI on the card.
+    cli_s = run_cli("phase 8", ["repro_torch.launch.train", "--arch", "llama3.2-3b", "--smoke", "--steps", "20",
+                                "--optimizer", "shampoo"], lambda lines: "on NVIDIA" in lines[-1])
+    record.update(library_s=lib_s, adamw_steady_ms=sum(ta[1:]) / len(ta[1:]) * 1e3, cli_s=cli_s)
+    return got, got_dev, record
+
+
+def run_cli(phase: str, args, ok) -> float:
+    """``python -m <args>`` on the card from the checkout's ``src``: exit 0
+    and ``ok(stdout lines)``.  Returns its wall time in s."""
+    import os
+
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3.2-3b", "--smoke", "--steps",
-           "20", "--optimizer", "shampoo"]
+    cmd = [sys.executable, "-m", *args]
     t0 = time.perf_counter()
     out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
     cli_s = time.perf_counter() - t0
-    tail = out.stdout.strip().splitlines()[-1:] or [out.stderr[-400:]]
-    print(f"phase 8 `{' '.join(cmd[1:])}`: exit {out.returncode} in {cli_s:.1f} s: {tail[0]}")
-    require(out.returncode == 0 and "on NVIDIA" in out.stdout, "phase 8 the launcher's CLI on the card")
-    return got, got_dev, dict(
-        blocks_a_side=NB, step1_s=times[0], steady_ms=sum(times[1:]) / len(times[1:]) * 1e3,
-        refresh_s=refresh_s, refresh_ms_per_block=refresh_s * 1e3 / (2 * NB), stages_ms=stages,
-        library_s=lib_s, adamw_steady_ms=sum(ta[1:]) / len(ta[1:]) * 1e3, peak_gib=peak / 2**30,
-        root_err=worst, losses=hist, cli_s=cli_s)
+    lines = out.stdout.strip().splitlines()
+    print(f"{phase} `{' '.join(args)}`: exit {out.returncode} in {cli_s:.1f} s: "
+          + (" | ".join(lines[-3:]) or out.stderr[-400:]))
+    require(out.returncode == 0 and len(lines) > 0 and ok(lines), f"{phase} the launcher's CLI on the card: "
+            f"{' '.join(args)}")
+    return cli_s
+
+
+def _window(cfg):
+    """The attention layers' window: recurrentgemma's local one, the
+    sliding one, or None."""
+    return cfg.local_window if cfg.family == "hybrid" else cfg.sliding_window
 
 
 def _chunk(S: int) -> int:
@@ -1320,11 +1433,10 @@ def phase_serving(torch, gen):
     """Phase 9: the serve path on the card, through the port's entry points."""
     import dataclasses
     import gc
-    import os
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import cuda_lib
-    from repro_torch.models import cache_init, forward, model_meta, model_params, param_count
+    from repro_torch.models import cache_init, forward, model_meta, model_params, param_count, pattern_unit
     from repro_torch.train import make_prefill, make_serve_step
     from repro_torch.tree import tree_map
 
@@ -1340,13 +1452,17 @@ def phase_serving(torch, gen):
                               device="cuda")
         prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device="cuda", dtype=torch.int32)
         serve = make_serve_step(cfg)
-        W = min(cfg.sliding_window, T) if cfg.sliding_window else T
+        win = _window(cfg)
+        W = min(win, T) if win else T
         n_params = param_count(model_meta(cfg))
-        print(f"phase 9 {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
-              f"{cfg.n_kv_heads}x{cfg.head_dim}, d_ff {cfg.d_ff}, experts {cfg.n_experts} top-{cfg.top_k} "
-              f"({cfg.moe_impl}), vocab {cfg.vocab}, window {cfg.sliding_window}; "
-              f"{n_params / 1e9:.3f} B params, {cfg.dtype} activations, {cfg.param_dtype} "
-              f"weights; batch {B}, prompt {P}, gen {G}, cache {W} slots a layer")
+        pat, n_units, rem = pattern_unit(cfg)
+        print(f"phase 9 {cfg.name}: {cfg.n_layers} layers ({n_units} x {pat} + {rem}), d_model {cfg.d_model}, "
+              f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim}, d_ff {cfg.d_ff}, experts {cfg.n_experts} "
+              f"top-{cfg.top_k} ({cfg.moe_impl}), vocab {cfg.vocab}, window {win}"
+              + (f", SSD state {cfg.ssm_state} x {cfg.ssm_nheads} heads of {cfg.ssm_headdim}, chunk "
+                 f"{cfg.ssm_chunk}" if cfg.family == "ssm" else "")
+              + f"; {n_params / 1e9:.3f} B params, {cfg.dtype} activations, {cfg.param_dtype} weights; batch {B}, "
+              f"prompt {P}, gen {G}" + (f", attention cache {W} slots a layer" if "attn" in pat + rem else ""))
 
         # The serve loop as the launcher runs it, timed after one step on a
         # throwaway cache (the first step's cuBLAS and allocator set-up).
@@ -1416,19 +1532,28 @@ def phase_serving(torch, gen):
             del moved
             tol = max(TOL_SERVE, SENS_FACTOR * float(sens_pos.max()))
             spans = {"every position": slice(0, T)}
-            if cfg.sliding_window and T > cfg.sliding_window:
-                spans[f"positions {cfg.sliding_window}.. (ring wrapped)"] = slice(cfg.sliding_window, T)
+            if win and T > win:
+                spans[f"positions {win}.. (ring wrapped)"] = slice(win, T)
             gates = {name: (float(err_pos[:, sl].max()), float(err_pos[:, sl].median()),
                             max(TOL_SERVE / 10, SENS_FACTOR * float(sens_pos[:, sl].median())))
                      for name, sl in spans.items()}
             greedy_ok, exact, n_greedy = _greedy_check(torch, ref[:, P - 1 : T - 1], fed[:, P:], tol * scale)
             prefill_ok, _, _ = _greedy_check(torch, ref[:, P - 1 : P], first[:, None], tol * scale)
-            with _moe_routing(torch, replay=routing, n_layers=cfg.n_layers, flips=flips16) if moe \
-                    else contextlib.nullcontext():
-                lg16 = _decode_logits(torch, params, cfg, fed, T)
+            bf16_layers = BF16_GATE_LAYERS.get(arch, cfg.n_layers)
+            if bf16_layers < cfg.n_layers:  # the bf16 gate on the first layers only
+                cut = replace(cfg, n_layers=bf16_layers)
+                cut_params = dict(params, units=tree_map(lambda t: t[:bf16_layers], params["units"]))
+                lg32 = _decode_logits(torch, cut_params, replace(cut, dtype="float32"), fed, T)
+                lg16 = _decode_logits(torch, cut_params, cut, fed, T)
+                scale16 = float(lg32.abs().max())
+            else:
+                with _moe_routing(torch, replay=routing, n_layers=cfg.n_layers, flips=flips16) if moe \
+                        else contextlib.nullcontext():
+                    lg16 = _decode_logits(torch, params, cfg, fed, T)
+                scale16 = scale
             finite = bool(torch.isfinite(lg16).all())
             diff = (lg16 - lg32).abs()
-            mean16, max16 = float(diff.mean()) / scale, float(diff.max()) / scale
+            mean16, max16 = float(diff.mean()) / scale16, float(diff.max()) / scale16
             agree16 = float((lg16.argmax(-1) == lg32.argmax(-1)).float().mean())
         n_route = B * T * cfg.n_layers
         print(f"phase 9 {cfg.name} float32 decode vs forward ({cfg.n_layers} layers, "
@@ -1438,7 +1563,8 @@ def phase_serving(torch, gen):
               + "; ".join(f"{name} max {mx:.3e} (tol {tol:.2e}), median {md:.3e} (tol {md_tol:.2e})"
                           for name, (mx, md, md_tol) in gates.items())
               + f"; greedy tokens the forward's argmax {exact}/{n_greedy} (all within tol: {greedy_ok}), "
-              f"make_prefill's within tol: {prefill_ok}; bf16 decode vs float32: mean {mean16:.3e} "
+              f"make_prefill's within tol: {prefill_ok}; bf16 decode vs float32"
+              + (f" (first {bf16_layers} layers)" if bf16_layers < cfg.n_layers else "") + f": mean {mean16:.3e} "
               f"(tol {TOL_SERVE_BF16:.0e}), max {max16:.3e} of max|logits|, finite {finite}, argmax agrees at "
               f"{agree16:.1%} of positions"
               + (f"; routing the forward would choose otherwise: {flips[0]} of {n_route} (token, layer) pairs, "
@@ -1453,7 +1579,7 @@ def phase_serving(torch, gen):
             params_b=n_params / 1e9, prefill_ms=prefill_ms, decode_ms_per_token=decode_ms, step_device_ms=dev_ms,
             forward_prefill_ms=fwd_ms, peak_gib=peak / 2**30, fp32_tol=tol,
             ulp_sensitivity=float(sens_pos.max()), fp32_gates={k: list(v) for k, v in gates.items()},
-            greedy_exact=f"{exact}/{n_greedy}", bf16_mean_err=mean16, bf16_max_err=max16,
+            greedy_exact=f"{exact}/{n_greedy}", bf16_layers=bf16_layers, bf16_mean_err=mean16, bf16_max_err=max16,
             routing_flips=flips[0] if moe else None)
         del params, prompts, lg32, ref, lg16, diff, fed, routing, err_pos, sens_pos
         gc.collect()
@@ -1462,18 +1588,72 @@ def phase_serving(torch, gen):
     print(f"phase 9 kernel launches over the serve path: {got or 'none'}")
     require(not got, f"phase 9 launched {got}")
 
-    # The launcher's CLI on the card.
-    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "mixtral-8x7b", "--smoke"]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
-    cli_s = time.perf_counter() - t0
-    lines = out.stdout.strip().splitlines()
-    print(f"phase 9 `{' '.join(cmd[1:])}`: exit {out.returncode} in {cli_s:.1f} s: "
-          + (" | ".join(lines[-3:]) or out.stderr[-400:]))
-    require(out.returncode == 0 and len(lines) >= 3 and lines[-3].startswith("[serve] mixtral-8x7b"),
-            "phase 9 the serve launcher's CLI on the card")
+    run_cli("phase 9", ["repro_torch.launch.serve", "--arch", "mixtral-8x7b", "--smoke"],
+            lambda lines: len(lines) >= 3 and lines[-3].startswith("[serve] mixtral-8x7b"))
     return cells
+
+
+def phase_families(torch, gen):
+    """Phase 10: the Mamba2 and RG-LRU families' Shampoo training, the
+    frontends' training on embeds and both launchers on the card, through
+    the port's entry points."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import model_params
+    from repro_torch.optim import adamw, warmup_cosine
+
+    replace = dataclasses.replace
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, device_launches, records = {}, {}, {}
+    # (a) Shampoo training of the two recurrent families at full width.
+    for arch, layers, batch, seq, steps, repeat in FAMILY_TRAIN_CELLS:
+        cfg = replace(get_config(arch), n_layers=layers)
+        got, got_dev, record, state = shampoo_training(torch, "phase 10", cfg, batch, seq, steps, repeat)
+        for total, counts in ((launches, got), (device_launches, got_dev)):
+            for op, n in counts.items():
+                total[op] = total.get(op, 0) + n
+        records[cfg.name] = record
+        del record["launches"], state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) The frontend archs on precomputed embeddings: AdamW steps through
+    # make_train_step, frontend_proj must move.
+    for arch, layers in FRONTEND_CELLS:
+        cfg = replace(get_config(arch), n_layers=layers)
+        params = model_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+        dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=SEED,
+                        frontend_dim=cfg.frontend_dim)
+        batch_fn = lambda s: synthetic_batch(dc, s, device="cuda")  # noqa: E731
+        require(tuple(batch_fn(0)["embeds"].shape) == (TRAIN_BATCH, TRAIN_SEQ, cfg.frontend_dim),
+                f"phase 10 {cfg.name} embeds")
+        opt = adamw(warmup_cosine(3e-4, warmup=1, total=2))
+        loop, final, hist, _, _, peak = _train_run(torch, cfg, opt, params, batch_fn, 2, f"phase 10 {cfg.name} adamw")
+        moved = bool((final["frontend_proj"] != params["frontend_proj"]).any())
+        print(f"phase 10 {cfg.name} cut to {cfg.n_layers} layer, on embeds (batch {TRAIN_BATCH} x {TRAIN_SEQ} x "
+              f"{cfg.frontend_dim}): losses {hist}, step times s {[round(t, 3) for t in loop.step_times]}, "
+              f"frontend_proj moved: {moved}; peak memory {peak / 2**30:.2f} GiB")
+        require(all(math.isfinite(h) for h in hist) and moved and not nonzero(cuda_lib.launch_counts()),
+                f"phase 10 {cfg.name} on embeds: losses {hist}, frontend_proj moved {moved}")
+        records[f"{cfg.name} (embeds, adamw)"] = dict(layers=layers, losses=hist, step_s=loop.step_times,
+                                                       peak_gib=peak / 2**30)
+        del params, final
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (d) Both launchers on the card.
+    records["serve_cli_s"] = run_cli(
+        "phase 10", ["repro_torch.launch.serve", "--arch", "mamba2-370m", "--smoke"],
+        lambda lines: len(lines) >= 3 and lines[-3].startswith("[serve] mamba2-370m"))
+    records["train_cli_s"] = run_cli(
+        "phase 10", ["repro_torch.launch.train", "--arch", "recurrentgemma-2b", "--smoke", "--steps", "20",
+                     "--optimizer", "shampoo"], lambda lines: "recurrentgemma-2b on NVIDIA" in lines[-1])
+    return launches, device_launches, records
 
 
 def main() -> int:
@@ -1519,9 +1699,12 @@ def main() -> int:
     trained, trained_device, training = phase_training(torch, gen)
     t9 = time.perf_counter()
     serving = phase_serving(torch, gen)
+    t10 = time.perf_counter()
+    family, family_device, families = phase_families(torch, gen)
     t_end = time.perf_counter()
     print(f"phase 6 took {t7 - t6:.1f} s, phase 7 {t8 - t7:.1f} s, phase 8 {t9 - t8:.1f} s, phase 9 "
-          f"{t_end - t9:.1f} s; the script {t_end - t_start:.1f} s in all (kernel build included)")
+          f"{t10 - t9:.1f} s, phase 10 {t_end - t10:.1f} s; the script {t_end - t_start:.1f} s in all (kernel "
+          f"build included)")
 
     # Kernel D serves two registry ops (syr2k, trailing_update); its launches
     # are the sum of both counters over the unfused plan(A) run.
@@ -1541,10 +1724,13 @@ def main() -> int:
                        shampoo_bucket_device_launches=batched_device[name])
         if name in trained:
             row.update(training_launches=trained[name], training_device_launches=trained_device[name])
+        if name in family:
+            row.update(families_training_launches=family[name],
+                       families_training_device_launches=family_device[name])
         row.update(rows[name])
         kernels.append(row)
     print(json.dumps({"kernels": kernels, "shampoo_refresh": shampoo, "shampoo_training": training,
-                      "serving": serving}))
+                      "serving": serving, "families": families}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -2,11 +2,12 @@
 
 ``get_config(arch_id)`` returns the full-scale ModelConfig and
 ``get_smoke_config`` the reduced CPU variant.  Ids use underscores, dashes
-or the published spelling interchangeably.  Of the JAX package's ten
-archs, the six whose layers are all attention are ported: the dense
-llama3.2-3b, codeqwen1.5-7b, stablelm-3b and qwen3-14b, and the MoE
-granite-moe-3b-a800m and mixtral-8x7b.  The other four need the Mamba2 or
-RG-LRU block or a frontend, and raise, naming ROADMAP Queue 1 item 13(b).
+or the published spelling interchangeably.  All ten of the JAX package's
+archs are ported (``PORTED == ARCHS``): the dense llama3.2-3b,
+codeqwen1.5-7b, stablelm-3b and qwen3-14b, the MoE granite-moe-3b-a800m
+and mixtral-8x7b, the SSM mamba2-370m, the hybrid recurrentgemma-2b, and
+the audio and vision backbones musicgen-large and llava-next-mistral-7b
+(their frontends are stubs: the model takes precomputed embeddings).
 """
 from __future__ import annotations
 
@@ -26,21 +27,7 @@ ARCHS = [
     "musicgen_large",
     "llava_next_mistral_7b",
 ]
-PORTED = (
-    "codeqwen15_7b",
-    "llama32_3b",
-    "stablelm_3b",
-    "qwen3_14b",
-    "granite_moe_3b_a800m",
-    "mixtral_8x7b",
-)
-# What each unported arch still needs.
-_MISSING = {
-    "mamba2_370m": "the Mamba2 block",
-    "recurrentgemma_2b": "the RG-LRU block",
-    "musicgen_large": "the audio frontend",
-    "llava_next_mistral_7b": "the vision frontend",
-}
+PORTED = tuple(ARCHS)
 
 _ALIASES = {
     "mamba2-370m": "mamba2_370m",
@@ -67,13 +54,7 @@ def canonical(arch: str) -> str:
 
 
 def _module(arch: str):
-    name = canonical(arch)
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: it needs {_MISSING[name]}, ROADMAP Queue 1 "
-            f"item 13(b); ported: {list(PORTED)}"
-        )
-    return importlib.import_module(f"repro_torch.configs.{name}")
+    return importlib.import_module(f"repro_torch.configs.{canonical(arch)}")
 
 
 def get_config(arch: str):

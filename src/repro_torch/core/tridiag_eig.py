@@ -161,6 +161,26 @@ def _tridiag_solve_pivoted(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor, 
     return x.movedim(0, -2)
 
 
+def _qr(X: torch.Tensor):
+    """Thin QR of a stack X (..., n, k).
+
+    A cluster's lanes share their shift offset and start vector, so X has
+    exactly repeated columns.  LAPACK and CUDA's one-matrix QR give an
+    orthogonal Q all the same; CUDA's batched QR does not (a Shampoo
+    statistics block of rank 4 in 128 gets roots far off; measured by
+    scripts/batched_qr_check.py), so on CUDA each matrix whose Q is not
+    orthogonal to 1e-4 is factored again on its own."""
+    Q, R = torch.linalg.qr(X)
+    if not X.is_cuda or X.ndim < 3:
+        return Q, R
+    k = Q.shape[-1]
+    Qf, Rf, Xf = Q.reshape(-1, *Q.shape[-2:]), R.reshape(-1, k, k), X.reshape(-1, *X.shape[-2:])
+    eye = torch.eye(k, dtype=Q.dtype, device=Q.device)
+    for i in ((Qf.mT @ Qf - eye).abs().amax((-2, -1)) > 1e-4).nonzero().flatten().tolist():
+        Qf[i], Rf[i] = torch.linalg.qr(Xf[i])
+    return Qf.reshape(Q.shape), Rf.reshape(R.shape)
+
+
 def eigvecs_inverse_iteration(
     d: torch.Tensor, e: torch.Tensor, lams: torch.Tensor, n_iter: int = 3
 ) -> torch.Tensor:
@@ -205,7 +225,7 @@ def eigvecs_inverse_iteration(
     gaps = lams.diff(dim=-1)
     gap = torch.minimum(torch.cat([inf, gaps], -1), torch.cat([gaps, inf], -1))
     order = torch.argsort(-gap, dim=-1, stable=True)[..., None, :]
-    Q, R = torch.linalg.qr(torch.take_along_dim(V, order, dim=-1))
+    Q, R = _qr(torch.take_along_dim(V, order, dim=-1))
     signs = torch.sign(torch.diagonal(R, dim1=-2, dim2=-1))
     signs = torch.where(signs == 0, 1.0, signs)
     return torch.empty_like(Q).scatter_(-1, order.expand_as(Q), Q * signs[..., None, :])

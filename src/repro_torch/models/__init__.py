@@ -3,11 +3,13 @@
 Ported: the config, the meta-first parameters, norms and rotary, chunked
 flash attention with its recomputing backward, GQA attention with
 sliding windows, the dense MLPs and the MoE feed-forward (``dense`` and
-``dropping``), the "attn" block, the stacked-unit LM (``forward``,
-``LM``), and one-token decode against K/V caches (``cache_meta``,
-``cache_init``, ``decode_step``; ring buffers for windowed layers).  Not
-yet: the Mamba2 and RG-LRU blocks and the frontends (ROADMAP Queue 1 item
-13(b)), ``partition_specs`` (item 12).
+``dropping``), the Mamba2 (SSD) and RG-LRU mixers, the "attn", "mamba2"
+and "rglru" blocks, the stacked-unit LM (``forward``, ``LM``; hybrid
+pattern units, and precomputed frontend embeddings through
+``frontend_proj``), and one-token decode against caches (``cache_meta``,
+``cache_init``, ``decode_step``; ring buffers for windowed layers,
+recurrent states for Mamba2 and RG-LRU layers).  Not yet:
+``partition_specs`` (ROADMAP Queue 1 item 12).
 """
 from .config import ModelConfig
 from .params import ParamMeta, abstract_params, init_params, partition_specs, param_count

@@ -1,11 +1,11 @@
 """Decoder block assembly: meta / forward / cache / decode per kind (port of
 ``repro.models.blocks``).
 
-Kind "attn" (attention + dense MLP or MoE feed-forward) is ported, for the
-full sequence and for one-token decode against a cache.  The "mamba2" and
-"rglru" mixers are not yet (ROADMAP Queue 1 item 13(b)).  The block window
-is the sliding window for SWA archs (mixtral) and the local window for
-hybrid attn layers; None means full attention.
+Kinds: "attn" (attention + dense MLP or MoE feed-forward), "mamba2" (SSD
+only; d_ff == 0), "rglru" (RG-LRU mixer + MLP), each for the full sequence
+and for one-token decode against a cache.  The block window is the sliding
+window for SWA archs (mixtral) and the local window for hybrid
+(recurrentgemma) attn layers; None means full attention.
 """
 from __future__ import annotations
 
@@ -15,7 +15,9 @@ import torch
 
 from .attention import attention_decode, attention_forward, attention_meta, attn_cache_meta
 from .config import ModelConfig
+from .griffin import rglru_cache_meta, rglru_decode, rglru_forward, rglru_meta
 from .layers import apply_norm, rmsnorm_meta
+from .mamba2 import mamba2_cache_meta, mamba2_decode, mamba2_forward, mamba2_meta
 from .mlp import mlp_forward, mlp_meta
 from .moe import moe_forward, moe_meta
 
@@ -31,13 +33,6 @@ __all__ = [
 ZERO_AUX = {"moe_lb": 0.0, "moe_z": 0.0}
 
 
-def _kind_error(kind: str):
-    block = {"mamba2": "the Mamba2 block", "rglru": "the RG-LRU block"}.get(kind)
-    if block is None:
-        return ValueError(kind)
-    return NotImplementedError(f"{block} is not ported yet: ROADMAP Queue 1 item 13(b)")
-
-
 def block_window(cfg: ModelConfig, kind: str) -> Optional[int]:
     if cfg.family == "hybrid" and kind == "attn":
         return cfg.local_window
@@ -45,18 +40,23 @@ def block_window(cfg: ModelConfig, kind: str) -> Optional[int]:
 
 
 def block_meta(cfg: ModelConfig, kind: str, model_axis: int = 16) -> dict:
-    if kind != "attn":
-        raise _kind_error(kind)
     pd = cfg.parameter_dtype
-    meta = {
-        "norm1": rmsnorm_meta(cfg.d_model, cfg.norm, pd),
-        "attn": attention_meta(cfg, pd),
-        "norm2": rmsnorm_meta(cfg.d_model, cfg.norm, pd),
-    }
-    if cfg.n_experts > 0:
-        meta["moe"] = moe_meta(cfg, pd, model_axis)
-    else:
+    meta = {"norm1": rmsnorm_meta(cfg.d_model, cfg.norm, pd)}
+    if kind == "attn":
+        meta["attn"] = attention_meta(cfg, pd)
+        meta["norm2"] = rmsnorm_meta(cfg.d_model, cfg.norm, pd)
+        if cfg.n_experts > 0:
+            meta["moe"] = moe_meta(cfg, pd, model_axis)
+        else:
+            meta["mlp"] = mlp_meta(cfg, pd)
+    elif kind == "mamba2":
+        meta["mamba"] = mamba2_meta(cfg, pd)
+    elif kind == "rglru":
+        meta["rglru"] = rglru_meta(cfg, pd)
+        meta["norm2"] = rmsnorm_meta(cfg.d_model, cfg.norm, pd)
         meta["mlp"] = mlp_meta(cfg, pd)
+    else:
+        raise ValueError(kind)
     return meta
 
 
@@ -70,18 +70,27 @@ def _ffn(p: dict, cfg: ModelConfig, h: torch.Tensor) -> Tuple[torch.Tensor, dict
 def block_forward(
     p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor
 ) -> Tuple[torch.Tensor, dict]:
-    if kind != "attn":
-        raise _kind_error(kind)
     h = apply_norm(p["norm1"], x, cfg.norm)
-    x = x + attention_forward(p["attn"], cfg, h, window=block_window(cfg, kind))
-    y, aux = _ffn(p, cfg, apply_norm(p["norm2"], x, cfg.norm))
-    return x + y, aux
+    if kind == "attn":
+        x = x + attention_forward(p["attn"], cfg, h, window=block_window(cfg, kind))
+        y, aux = _ffn(p, cfg, apply_norm(p["norm2"], x, cfg.norm))
+        return x + y, aux
+    if kind == "mamba2":
+        return x + mamba2_forward(p["mamba"], cfg, h), dict(ZERO_AUX)
+    if kind == "rglru":
+        x = x + rglru_forward(p["rglru"], cfg, h)
+        return x + mlp_forward(p["mlp"], cfg, apply_norm(p["norm2"], x, cfg.norm)), dict(ZERO_AUX)
+    raise ValueError(kind)
 
 
 def block_cache_meta(cfg: ModelConfig, kind: str, batch: int, max_len: int) -> dict:
-    if kind != "attn":
-        raise _kind_error(kind)
-    return attn_cache_meta(cfg, batch, max_len, block_window(cfg, kind))
+    if kind == "attn":
+        return attn_cache_meta(cfg, batch, max_len, block_window(cfg, kind))
+    if kind == "mamba2":
+        return mamba2_cache_meta(cfg, batch)
+    if kind == "rglru":
+        return rglru_cache_meta(cfg, batch)
+    raise ValueError(kind)
 
 
 def block_decode(
@@ -89,10 +98,17 @@ def block_decode(
 ) -> Tuple[torch.Tensor, dict]:
     """One token: x (B, 1, D) against the block's cache, which is updated
     in place and returned."""
-    if kind != "attn":
-        raise _kind_error(kind)
     h = apply_norm(p["norm1"], x, cfg.norm)
-    y, cache = attention_decode(p["attn"], cfg, h, cache, pos, window=block_window(cfg, kind))
-    x = x + y
-    y2, _ = _ffn(p, cfg, apply_norm(p["norm2"], x, cfg.norm))
-    return x + y2, cache
+    if kind == "attn":
+        y, cache = attention_decode(p["attn"], cfg, h, cache, pos, window=block_window(cfg, kind))
+        x = x + y
+        y2, _ = _ffn(p, cfg, apply_norm(p["norm2"], x, cfg.norm))
+        return x + y2, cache
+    if kind == "mamba2":
+        y, cache = mamba2_decode(p["mamba"], cfg, h, cache, pos)
+        return x + y, cache
+    if kind == "rglru":
+        y, cache = rglru_decode(p["rglru"], cfg, h, cache, pos)
+        x = x + y
+        return x + mlp_forward(p["mlp"], cfg, apply_norm(p["norm2"], x, cfg.norm)), cache
+    raise ValueError(kind)

@@ -2,10 +2,9 @@
 
 The JAX package's one dataclass with the same fields and defaults, so a
 config converts field by field; the dtype properties give ``torch.dtype``.
-Family-specific fields are unused by other families (the port runs the
-dense ``attn`` blocks).  Configs are constructed by
-``repro_torch.configs.<arch>`` modules; reduced smoke variants by
-``.scaled()``.
+Family-specific fields are simply unused by other families.  Configs are
+constructed by ``repro_torch.configs.<arch>`` modules; reduced smoke
+variants by ``.scaled()``.
 """
 from __future__ import annotations
 

@@ -2,7 +2,9 @@
 ``repro.models.lm``).
 
 Layers are grouped into the smallest repeating **pattern unit** (one layer
-for homogeneous archs) and their parameters are **stacked** along a leading
+for homogeneous archs; (rglru, rglru, attn) for the hybrid
+recurrentgemma, whose 26 layers are 8 units and a remainder of (rglru,
+rglru)) and their parameters are **stacked** along a leading
 (n_units, ...) dimension, as the JAX package stacks them for ``lax.scan``:
 ``wq`` of llama3.2-3b is one (28, 3072, 24, 128) tensor, not 28 tensors.
 Shampoo's blocking depends on it (a stacked leaf takes its leading
@@ -20,9 +22,12 @@ Entry points:
   * ``model_meta`` / ``cache_meta`` — shapes (``ParamMeta`` / ``meta``
     tensors); ``model_params`` / ``cache_init`` materialize them
 
-The cache is the JAX package's tree: ``units`` (each layer's K/V stacked
-along n_units like the parameters), ``rem`` and a 0-d int32 ``pos``, so a
-JAX-made cache carries across with ``interop.model_params``.
+The cache is the JAX package's tree: ``units`` (each layer's K/V, or its
+Mamba2 / RG-LRU state and conv window, stacked along n_units like the
+parameters), ``rem`` and a 0-d int32 ``pos``, so a JAX-made cache carries
+across with ``interop.model_params``.  Audio and vision archs take
+precomputed frame / patch embeddings (``embeds``) through
+``frontend_proj`` in the forward; decode takes tokens or embeds.
 """
 from __future__ import annotations
 

@@ -39,7 +39,7 @@ class ParamMeta:
     shape: Tuple[int, ...]
     dtype: Any               # torch.dtype
     axes: Tuple[Optional[str], ...]
-    init: str = "normal"     # normal | zeros | ones | embed (and the unported blocks' laws)
+    init: str = "normal"     # normal | zeros | ones | embed | lru_a | ssm_alog | ssm_dtbias
     scale: float = 1.0       # stddev multiplier for "normal"
     fan_in_axis: Optional[int] = None  # axis index whose size sets 1/sqrt(fan_in)
 
@@ -56,16 +56,27 @@ def abstract_params(meta_tree):
     return tree_map(lambda m: torch.empty(m.shape, dtype=m.dtype, device="meta"), meta_tree)
 
 
+# Laws drawn from U[lo, hi] and mapped: the RG-LRU's Lambda, logit(u) so
+# that a = sigmoid(Lambda) spreads in (0.9, 0.999); Mamba2's A_log, with
+# A = -exp(A_log) in [-16, -1]; Mamba2's dt_bias, softplus^-1(u).
+_UNIFORM_LAWS = {
+    "lru_a": (0.9, 0.999, lambda u: torch.log(u / (1 - u))),
+    "ssm_alog": (1.0, 16.0, torch.log),
+    "ssm_dtbias": (1e-3, 1e-1, lambda u: u + torch.log(-torch.expm1(-u))),
+}
+
+
 def _draw(m: ParamMeta, gen: torch.Generator) -> torch.Tensor:
     if m.init == "zeros":
         return torch.zeros(m.shape, dtype=m.dtype, device=gen.device)
     if m.init == "ones":
         return torch.ones(m.shape, dtype=m.dtype, device=gen.device)
+    if m.init in _UNIFORM_LAWS:
+        lo, hi, law = _UNIFORM_LAWS[m.init]
+        u = lo + (hi - lo) * torch.rand(m.shape, dtype=torch.float32, device=gen.device, generator=gen)
+        return law(u).to(m.dtype)
     if m.init not in ("normal", "embed"):
-        raise NotImplementedError(
-            f"init law {m.init!r} belongs to the Mamba2 or RG-LRU block, which is not ported yet: "
-            "ROADMAP Queue 1 item 13(b)"
-        )
+        raise ValueError(f"unknown init law {m.init!r}")
     if m.fan_in_axis is not None:
         fan_in = m.shape[m.fan_in_axis]
     else:

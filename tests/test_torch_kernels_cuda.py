@@ -455,3 +455,30 @@ def test_solve_many_on_card_matches_plan_loop(cuda_device, tridiag):
         assert float((w[i] - wi).abs().max()) < 1e-5 * float(wi.abs().max())
         s = torch.sign((V[i] * Vi).sum(0))
         assert float((V[i] * s[None, :] - Vi).abs().max()) < 1e-4
+
+
+def test_rank_deficient_bucket_roots_on_card(cuda_device):
+    """Shampoo statistics blocks of rank 4 in 128 (a (4, 32) leaf's
+    gradient padded to a block) give inverse iteration exactly repeated
+    lanes; CUDA's batched QR returned a non-orthogonal Q for them, so the
+    bucket's roots were off by up to 1e2 while ``plan(128)`` one matrix at
+    a time was right.  The bucket's roots, beside full-rank blocks, within
+    1e-5 of the float64 formula, and its eigenvectors orthogonal."""
+    from repro_torch.solver import solve_many
+
+    rng = np.random.default_rng(11)
+    g = np.zeros((6, 128, 128), np.float32)
+    g[:3, :4, :32] = rng.normal(size=(3, 4, 32))
+    g[3:] = rng.normal(size=(3, 128, 128))
+    G = torch.as_tensor(g, device=cuda_device) * 1e-4
+    S = 0.01 * G @ G.mT
+    S = 0.5 * (S + S.mT)  # the operand the solver takes (it symmetrizes)
+    pre = solve_many(S, EvdConfig(b=8, nb=64), op="inverse_pth_root", p=4, eps=1e-6)
+    w, V = torch.linalg.eigh(S.double())
+    ridge = 1e-6 * w.amax(-1, keepdim=True)
+    X = (V * (w.clamp(min=0) + ridge).pow(-0.25)[:, None, :]) @ V.mT
+    err = (pre.double() - X).abs().amax((-2, -1)) / X.abs().amax((-2, -1))
+    assert float(err.max()) < 1e-5, err
+    _, Vb = solve_many(S, EvdConfig(b=8, nb=64), op="eigh")
+    orth = (Vb.mT @ Vb - torch.eye(128, device=cuda_device)).abs().amax((-2, -1))
+    assert float(orth.max()) < 1e-4, orth

@@ -1,17 +1,27 @@
 """Port parity: ``repro_torch.models`` / ``repro_torch.configs`` against
 ``repro.models`` / ``repro.configs``, CPU.
 
-The llama3.2-3b smoke config (2 stacked layers, d_model 64, GQA 2/2,
-vocab 512, fp32, ``remat="block"``) from one JAX-made set of weights,
-carried with ``interop.model_params``: logits, the chunked cross-entropy
-loss and every leaf's gradient against ``jax.value_and_grad`` on the same
-numpy batch, at 1e-5 (logits, loss) and 5e-4 (gradients) of the largest
-entry.  Flash attention (causal and windowed, GQA, several query and key
+The smoke configs (d_model 64, fp32, ``remat="block"``) of llama3.2-3b
+(2 stacked layers, GQA 2/2), mamba2-370m (2 Mamba2 layers, SSD chunk 16),
+recurrentgemma-2b (one (rglru, rglru, attn) unit, local window 32) and,
+on precomputed ``embeds`` through ``frontend_proj``, musicgen-large
+(LayerNorm, plain GELU) and llava-next-mistral-7b, each from one JAX-made
+set of weights carried with ``interop.model_params``: logits, the chunked
+cross-entropy loss and every leaf's gradient against
+``jax.value_and_grad`` on the same numpy batch, at 1e-5 (logits, loss) and
+5e-4 (gradients) of the largest entry.  The new archs' random-weight
+forwards are ill-conditioned in float32 (the init law's stacked fan-in,
+ROADMAP Queue 3: mamba2's SSD decays cumsum to thousands, the frontends'
+embeds enter ~20x larger than token embeddings), so their logits gate is
+1e-5 or 4x the JAX forward's own change when its input moves one ulp,
+whichever is larger, as chip_smoke.py's serving gates are; llama3.2-3b
+keeps its flat 1e-5.  Flash attention (causal and windowed, GQA, several query and key
 chunks) and its backward, the norms and rotary at 1e-5.  Initialisation
 uses torch's generator, so it is held to the JAX package's shapes, init
-laws and fan-in rule in distribution.  Plus every ported arch's config
-and parameter shapes against the JAX package's, the ``LM`` module, and
-the device rule (no card and no ``device="cpu"``: raise).
+laws and fan-in rule in distribution.  Plus every arch's config and
+parameter shapes against the JAX package's (all ten are ported), the
+``LM`` module, and the device rule (no card and no ``device="cpu"``:
+raise).
 """
 import dataclasses
 
@@ -36,6 +46,9 @@ from repro_torch.train.step import value_and_grad  # noqa: E402
 from repro_torch.tree import flatten_with_paths  # noqa: E402
 
 ARCH = "llama3.2-3b"
+# The forward / loss / gradient parity cases: the first four archs' tokens,
+# and the two frontend archs' precomputed embeddings.
+PARITY_ARCHS = ["llama3.2-3b", "mamba2-370m", "recurrentgemma-2b", "musicgen-large", "llava-next-mistral-7b"]
 B, S = 2, 64
 
 
@@ -49,18 +62,45 @@ def _rel(got, want):
     return float(np.abs(got - want).max()) / max(float(np.abs(want).max()), 1e-30)
 
 
-@pytest.fixture(scope="module")
-def smoke():
+@pytest.fixture(scope="module", params=PARITY_ARCHS)
+def smoke(request):
     """The smoke config on both sides, JAX-made weights carried to the port,
-    and one numpy batch."""
-    jcfg = jconfigs.get_smoke_config(ARCH)
-    cfg = configs.get_smoke_config(ARCH)
+    and one numpy batch (with ``embeds`` for the frontend archs)."""
+    jcfg = jconfigs.get_smoke_config(request.param)
+    cfg = configs.get_smoke_config(request.param)
     jparams = jmodels.model_params(jcfg, jax.random.PRNGKey(0))
     params = interop.model_params(jax.tree_util.tree_map(np.asarray, jparams))
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab, size=(B, S)).astype(np.int32)
     labels = np.concatenate([tokens[:, 1:], tokens[:, :1]], axis=1)
-    return jcfg, cfg, jparams, params, {"tokens": tokens, "labels": labels}
+    batch = {"tokens": tokens, "labels": labels}
+    if cfg.frontend:
+        batch["embeds"] = rng.normal(size=(B, S, cfg.frontend_dim)).astype(np.float32)
+    return jcfg, cfg, jparams, params, batch
+
+
+def _inputs(batch, convert):
+    key = "embeds" if "embeds" in batch else "tokens"
+    return {key: convert(batch[key])}
+
+
+def _logits_tol(jcfg, jparams, batch, jlogits):
+    """1e-5 for llama3.2-3b; else max(1e-5, 4x the relative change of JAX's
+    logits when its input (the embedding table, or the embeds) moves by
+    one ulp with seeded random signs)."""
+    if jcfg.name == ARCH:
+        return 1e-5
+
+    def bump(a):
+        signs = np.random.default_rng(7).integers(0, 2, size=np.shape(a)) * 2 - 1
+        return jnp.asarray(a * (1 + signs * 2.0 ** -23).astype(np.float32))
+
+    if "embeds" in batch:
+        moved, _ = jmodels.forward(jparams, jcfg, embeds=bump(batch["embeds"]))
+    else:
+        moved, _ = jmodels.forward(dict(jparams, embed=bump(np.asarray(jparams["embed"]))), jcfg,
+                                   tokens=jnp.asarray(batch["tokens"]))
+    return max(1e-5, 4 * _rel(np.asarray(moved), jlogits))
 
 
 @pytest.mark.parametrize("arch", configs.PORTED)
@@ -71,24 +111,23 @@ def test_smoke_config_equals_jax(arch):
     full = configs.get_config(arch)
     assert dataclasses.asdict(full) == dataclasses.asdict(jconfigs.get_config(arch))
     assert full.activation_dtype == torch.bfloat16 and full.parameter_dtype == torch.float32
-    assert cfg.activation_dtype == torch.float32 and full.layer_kinds == ("attn",) * full.n_layers
+    assert cfg.activation_dtype == torch.float32 and full.layer_kinds == jconfigs.get_config(arch).layer_kinds
     assert full.param_counts() == jconfigs.get_config(arch).param_counts()
 
 
 def test_configs_names_and_unported_archs():
-    """Six archs are ported; the four that need the Mamba2 or RG-LRU block or
-    a frontend raise, naming what they need."""
+    """All ten archs are ported (the four that needed the Mamba2 or RG-LRU
+    block or a frontend included); an unknown id raises ``KeyError``."""
     assert configs.ARCHS == jconfigs.ARCHS
+    assert configs.PORTED == tuple(configs.ARCHS)
     for name in ("llama3.2-3b", "llama32-3b", "llama32_3b"):
         assert configs.canonical(name) == jconfigs.canonical(name) == "llama32_3b"
+    for name in ("mamba2-370m", "recurrentgemma-2b", "musicgen-large", "llava-next-mistral-7b"):
+        assert configs.get_config(name).name == name
     with pytest.raises(KeyError):
         configs.canonical("gpt-5")
-    unported = {"mamba2_370m": "Mamba2", "recurrentgemma_2b": "RG-LRU", "musicgen_large": "audio",
-                "llava_next_mistral_7b": "vision"}
-    assert set(configs.PORTED) == set(configs.ARCHS) - set(unported)
-    for arch, needs in unported.items():
-        with pytest.raises(NotImplementedError, match=f"{needs}.*item 13"):
-            configs.get_config(arch)
+    with pytest.raises(KeyError):
+        configs.get_config("gpt-5")
 
 
 @pytest.mark.parametrize("arch", configs.PORTED)
@@ -105,8 +144,14 @@ def test_meta_shapes_and_counts_equal_jax(arch):
         assert models.param_count(meta) == jmodels.param_count(jmeta)
     cfg = configs.get_config(arch)
     full = models.abstract_params(models.model_meta(cfg))
-    assert tuple(full["units"]["L0_attn"]["attn"]["wq"].shape) == (
-        cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim)
+    pat, n_units, rem = models.pattern_unit(cfg)
+    assert n_units * len(pat) + len(rem) == cfg.n_layers
+    first = full["units"][f"L0_{pat[0]}"]
+    if pat[0] == "attn":
+        assert tuple(first["attn"]["wq"].shape) == (n_units, cfg.d_model, cfg.n_heads, cfg.head_dim)
+    else:
+        key = {"mamba2": "mamba", "rglru": "rglru"}[pat[0]]
+        assert first[key]["w_x"].shape[:2] == (n_units, cfg.d_model)
     assert full["embed"].device.type == "meta"
 
 
@@ -145,22 +190,24 @@ def test_init_params_statistics():
 
 def test_forward_logits_and_loss_match_jax(smoke):
     jcfg, cfg, jparams, params, batch = smoke
-    jlogits, _ = jmodels.forward(jparams, jcfg, tokens=jnp.asarray(batch["tokens"]))
-    logits, aux = models.forward(params, cfg, tokens=torch.as_tensor(batch["tokens"]))
+    jlogits, _ = jmodels.forward(jparams, jcfg, **_inputs(batch, jnp.asarray))
+    logits, aux = models.forward(params, cfg, **_inputs(batch, torch.as_tensor))
     assert logits.dtype == torch.float32 and float(aux["moe_lb"]) == 0.0
-    assert _rel(logits, jlogits) < 1e-5
+    assert _rel(logits, jlogits) < _logits_tol(jcfg, jparams, batch, jlogits)
     lm = models.LM(cfg, params)
-    assert torch.equal(lm(torch.as_tensor(batch["tokens"]))[0], logits)
+    assert torch.equal(lm(**_inputs(batch, torch.as_tensor))[0], logits)
     names = dict(lm.named_parameters())
-    assert tuple(names["weights.units.L0_attn.attn.wq"].shape) == (2, 64, 2, 16)
+    if cfg.name == ARCH:
+        assert tuple(names["weights.units.L0_attn.attn.wq"].shape) == (2, 64, 2, 16)
     assert len(names) == len(flatten_with_paths(params)[1])
 
 
 def test_loss_and_grads_match_jax(smoke):
     """``jax.value_and_grad`` of the training loss (chunked CE over the
-    tied embedding, remat per block) against the port's, every leaf at
-    5e-4 of its largest entry (float32 gradients summed over the batch's
-    tokens in other orders)."""
+    tied or untied embedding, remat per block; the frontend archs on
+    ``embeds``, so ``frontend_proj`` has a gradient) against the port's,
+    every leaf at 5e-4 of its largest entry (float32 gradients summed over
+    the batch's tokens in other orders)."""
     jcfg, cfg, jparams, params, batch = smoke
     (jl, _), jg = jax.value_and_grad(jax_make_loss_fn(jcfg), has_aux=True)(
         jparams, jax.tree_util.tree_map(jnp.asarray, batch))

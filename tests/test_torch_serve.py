@@ -3,21 +3,27 @@
 ``make_prefill``, ``repro_torch.launch.serve``) against the JAX package's,
 CPU.
 
-Each of the six attention archs' smoke configs (2 layers, d_model 64,
-fp32; granite-moe and mixtral with 4 experts, top-2, the smoke's dense
-MoE, and mixtral once more with the full config's dropping MoE), from
-one JAX-made set of weights carried with ``interop.model_params``:
+Each of the ten archs' smoke configs (d_model 64, fp32; 2 layers, or
+one (rglru, rglru, attn) unit for recurrentgemma; granite-moe and
+mixtral with 4 experts, top-2, the smoke's dense MoE, and mixtral once
+more with the full config's dropping MoE; musicgen and llava on tokens,
+as the serve path takes them), from one JAX-made set of weights carried
+with ``interop.model_params``:
 ``cache_init``'s tree, shapes and dtypes equal JAX's, then 44
 ``decode_step``s on the same numpy tokens, the logits of every step at
 1e-4 of the largest logit (``TOL``) and the whole cache at the end
 (``pos`` exactly, K/V at 1e-4 of their largest entry), then one more
 step from JAX's cache carried across with ``interop.model_params``.  Mixtral's smoke
-window is 32, so its ring buffer wraps 12 times.  Then the greedy tokens
-of ``make_serve_step`` and ``make_prefill`` equal JAX's, decode equals
-the full forward at every position (mixtral past its window, the forward
-with ``moe_impl="dense"``), a write past ``max_len`` raises, the launcher
-runs on the CPU, and the device rule (no card and no ``device="cpu"``:
-raise).
+window is 32, so its ring buffer wraps 12 times, as recurrentgemma's local
+attention does; mamba2's and the RG-LRU's caches are their recurrent
+states and conv windows.  recurrentgemma at 5 layers (one unit and a
+remainder of (rglru, rglru), the layout of its 26 published layers) the
+same way, and its forward.  Then the greedy tokens of ``make_serve_step``
+and ``make_prefill`` equal JAX's, decode equals the full forward at every
+position (mixtral and recurrentgemma past their windows, mamba2 over
+three SSD chunks, the forward with ``moe_impl="dense"``), a write past
+``max_len`` raises, the launcher runs on the CPU, and the device rule (no
+card and no ``device="cpu"``: raise).
 """
 import dataclasses
 
@@ -40,7 +46,7 @@ from repro_torch.models import attention  # noqa: E402
 from repro_torch.tree import flatten_with_paths  # noqa: E402
 
 ARCHS = ["llama3.2-3b", "codeqwen1.5-7b", "stablelm-3b", "qwen3-14b", "granite-moe-3b-a800m",
-         "mixtral-8x7b"]
+         "mixtral-8x7b", "mamba2-370m", "recurrentgemma-2b", "musicgen-large", "llava-next-mistral-7b"]
 CASES = [(a, None) for a in ARCHS] + [("mixtral-8x7b", "dropping")]
 B, STEPS, MAX_LEN = 2, 44, 48
 # Float32 over 2 layers: on these weights and tokens each package's decode
@@ -59,9 +65,10 @@ def _rel(got, want):
     return float(np.abs(got - want).max()) / max(float(np.abs(want).max()), 1e-30)
 
 
-def _pair(arch, moe_impl=None, seed=0):
+def _pair(arch, moe_impl=None, seed=0, **over):
     """The smoke config on both sides and JAX-made weights carried across."""
-    over = {} if moe_impl is None else {"moe_impl": moe_impl}
+    if moe_impl is not None:
+        over["moe_impl"] = moe_impl
     jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch), **over)
     cfg = dataclasses.replace(configs.get_smoke_config(arch), **over)
     jparams = jmodels.model_params(jcfg, jax.random.PRNGKey(seed))
@@ -72,9 +79,33 @@ def _tokens(cfg, n, seed=1):
     return np.random.default_rng(seed).integers(0, cfg.vocab, size=(n, B, 1)).astype(np.int32)
 
 
+def _window(cfg):
+    """The attention layers' window (recurrentgemma: the local one), or None."""
+    return cfg.local_window if cfg.family == "hybrid" else cfg.sliding_window
+
+
 @pytest.mark.parametrize("arch,moe_impl", CASES)
 def test_decode_steps_match_jax(arch, moe_impl):
-    jcfg, cfg, jparams, params = _pair(arch, moe_impl)
+    _decode_steps_match_jax(*_pair(arch, moe_impl))
+
+
+def test_hybrid_remainder_layout_matches_jax():
+    """recurrentgemma-2b at 5 layers: one (rglru, rglru, attn) unit and a
+    remainder (rglru, rglru) under ``rem``, as its 26 layers are 8 units and
+    that remainder.  The forward at 1e-5 of JAX's, then the decode steps
+    and caches as in ``test_decode_steps_match_jax``."""
+    jcfg, cfg, jparams, params = _pair("recurrentgemma-2b", n_layers=5)
+    assert models.pattern_unit(cfg) == (("rglru", "rglru", "attn"), 1, ("rglru", "rglru"))
+    assert sorted(params["rem"]) == ["R0_rglru", "R1_rglru"]
+    toks = _tokens(cfg, 40, seed=6)[:, :, 0].T
+    ref_cfg, jref_cfg = (dataclasses.replace(c, attn_chunk=8, attn_kv_chunk=8) for c in (cfg, jcfg))
+    jlogits, _ = jmodels.forward(jparams, jref_cfg, tokens=jnp.asarray(toks))
+    logits, _ = models.forward(params, ref_cfg, tokens=torch.as_tensor(toks))
+    assert _rel(logits, jlogits) < 1e-5
+    _decode_steps_match_jax(jcfg, cfg, jparams, params)
+
+
+def _decode_steps_match_jax(jcfg, cfg, jparams, params):
     jcache = jmodels.cache_init(jcfg, B, MAX_LEN)
     cache = models.cache_init(cfg, B, MAX_LEN, device="cpu")
     meta = models.cache_meta(cfg, B, MAX_LEN)
@@ -84,11 +115,13 @@ def test_decode_steps_match_jax(arch, moe_impl):
     for c, m, (_, j) in zip(got, flatten_with_paths(meta)[1], jflat):
         assert tuple(c.shape) == tuple(m.shape) == j.shape and m.device.type == "meta"
         assert c.dtype == m.dtype and str(c.dtype).split(".")[1] == str(j.dtype)
-    W = cache["units"]["L0_attn"]["k"].shape[2]
-    assert W == (32 if cfg.sliding_window else MAX_LEN)
-    layer = attention.attn_cache_init(cfg, B, MAX_LEN, cfg.sliding_window, device="cpu")
-    jlayer = jattention.attn_cache_init(jcfg, B, MAX_LEN, jcfg.sliding_window)
-    assert {k: tuple(v.shape) for k, v in layer.items()} == {k: v.shape for k, v in jlayer.items()}
+    pat = models.pattern_unit(cfg)[0]
+    if "attn" in pat:
+        W = cache["units"][f"L{pat.index('attn')}_attn"]["k"].shape[2]
+        assert W == (32 if _window(cfg) else MAX_LEN)
+        layer = attention.attn_cache_init(cfg, B, MAX_LEN, _window(cfg), device="cpu")
+        jlayer = jattention.attn_cache_init(jcfg, B, MAX_LEN, _window(jcfg))
+        assert {k: tuple(v.shape) for k, v in layer.items()} == {k: v.shape for k, v in jlayer.items()}
 
     jstep = jax.jit(lambda p, c, t: jmodels.decode_step(p, jcfg, c, tokens=t))
     got, want = [], []
@@ -138,13 +171,16 @@ def test_serve_step_and_prefill_match_jax(arch):
     np.testing.assert_array_equal(first.numpy(), out[len(prompt) - 1].numpy())
 
 
-@pytest.mark.parametrize("arch,moe_impl", [("llama3.2-3b", None), ("mixtral-8x7b", "dropping")])
+@pytest.mark.parametrize("arch,moe_impl", [("llama3.2-3b", None), ("mixtral-8x7b", "dropping"),
+                                          ("mamba2-370m", None), ("recurrentgemma-2b", None)])
 def test_decode_equals_forward_at_every_position(arch, moe_impl):
     """The port alone: decode's logits at each of 48 positions against
-    ``forward`` over the same tokens at ``TOL`` (mixtral's window is 32, so 16
-    positions read a wrapped ring; its forward runs the dense MoE, which
-    drops no token, on the same weights).  ``LM.decode_step`` is the
-    function on the module's weights."""
+    ``forward`` over the same tokens at ``TOL`` (mixtral's window and
+    recurrentgemma's local window are 32, so 16 positions read a wrapped
+    ring; mixtral's forward runs the dense MoE, which drops no token, on
+    the same weights; mamba2's forward runs three SSD chunks of 16 where
+    decode steps the recurrence).  ``LM.decode_step`` is the function on
+    the module's weights."""
     _, cfg, _, params = _pair(arch, moe_impl, seed=4)
     S = 48
     toks = _tokens(cfg, S, seed=5)
@@ -156,7 +192,7 @@ def test_decode_equals_forward_at_every_position(arch, moe_impl):
         ref, _ = models.forward(params, ref_cfg, tokens=torch.as_tensor(toks[:, :, 0].T))
     dec = torch.cat(dec, dim=1)
     assert _rel(dec, ref) < TOL
-    if cfg.sliding_window:
+    if _window(cfg):
         assert _rel(dec[:, 32:], ref[:, 32:]) < TOL
 
 

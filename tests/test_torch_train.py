@@ -4,8 +4,10 @@
 One ``make_train_step`` on the llama3.2-3b smoke config from one JAX-made
 state (weights carried with ``interop``, the same numpy batch) against the
 JAX package's: with AdamW, with AdamW over 2 microbatches, and with
-Shampoo; loss, grad norm and new weights at 1e-4, the momentum at 1e-3
-of its largest entry (the Shampoo step's statistics at 1e-6 relative).
+Shampoo, and with Shampoo on the mamba2-370m smoke config (its SSD
+chunks, conv and per-head leaves through the preconditioner); loss, grad
+norm and new weights at 1e-4, the momentum at 1e-3 of its largest entry
+(the Shampoo step's statistics at 1e-6 relative).
 Microbatches = 2 against 1 on the port at 1e-5; the error-feedback
 compressed step against its pieces.  Then the
 port's own behaviour: the training loop's loss drops through the launcher
@@ -58,8 +60,12 @@ def _close(got, want, tol, label=""):
 
 @pytest.fixture(scope="module")
 def start():
-    jcfg = jconfigs.get_smoke_config(ARCH)
-    cfg = configs.get_smoke_config(ARCH)
+    return _start(ARCH)
+
+
+def _start(arch):
+    jcfg = jconfigs.get_smoke_config(arch)
+    cfg = configs.get_smoke_config(arch)
     jparams = jmodels.model_params(jcfg, jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab, size=(B, S)).astype(np.int32)
@@ -84,17 +90,18 @@ def _start_state(case, jo, jparams):
     it, it floors its shift offset at 1; ROADMAP Queue 3)."""
     st = jo.init(jparams)
     st = st._replace(nu=jax.tree_util.tree_map(jnp.ones_like, st.nu))
-    if case == "shampoo":
+    if case.startswith("shampoo"):
         eye = 1.5 * jnp.broadcast_to(jnp.eye(st.stats_l.shape[-1]), st.stats_l.shape)
         st = st._replace(stats_l=eye, stats_r=eye)
     return st
 
 
-CASES = {"adamw": 1, "adamw-microbatches-2": 2, "shampoo": 1}
+CASES = {"adamw": 1, "adamw-microbatches-2": 2, "shampoo": 1, "shampoo-mamba2": 1}
+CASE_ARCH = {"shampoo-mamba2": "mamba2-370m"}
 
 
 def _optimizers(case):
-    if case == "shampoo":
+    if case.startswith("shampoo"):
         sh = dict(block_size=64, update_interval=10)
         return (jopt.shampoo(1e-2, opts=jopt.ShampooOptions(**sh, evd=JaxConfig(b=4, nb=16, backend="jnp"))),
                 optim.shampoo(1e-2, opts=optim.ShampooOptions(**sh, evd=EvdConfig(b=4, nb=16))))
@@ -110,11 +117,12 @@ def test_train_step_matches_jax(start, case):
     gradients summed over the batch's tokens: the JAX package's own float32
     gradients are a few 1e-4 of the largest entry from its float64 ones on
     such a batch), Shampoo's statistics at 1e-6."""
-    jcfg, cfg, jparams, batch = start
+    jcfg, cfg, jparams, batch = _start(CASE_ARCH[case]) if case in CASE_ARCH else start
     jo, po = _optimizers(case)
     jstate = _start_state(case, jo, jparams)
     host = jax.tree_util.tree_map(np.asarray, jstate)
-    pstate = interop.shampoo_state(host) if case == "shampoo" else interop.adamw_state(host)
+    shampoo = case.startswith("shampoo")
+    pstate = interop.shampoo_state(host) if shampoo else interop.adamw_state(host)
     jb, pb, pparams = _both(jparams, batch)
     jstep = jtrain.make_train_step(jcfg, jo, microbatches=CASES[case])
     pstep = train.make_train_step(cfg, po, microbatches=CASES[case])
@@ -124,7 +132,7 @@ def test_train_step_matches_jax(start, case):
         assert abs(float(pm[key]) - float(jm[key])) < 1e-4 * abs(float(jm[key])), key
     _close(pp2, jp2, 1e-4, f"{case} weights")
     _close(ps2.mu, js2.mu, 1e-3, f"{case} momentum")
-    if case == "shampoo":
+    if shampoo:
         _close(ps2.stats_l, js2.stats_l, 1e-6, "stats_l")
         _close(ps2.stats_r, js2.stats_r, 1e-6, "stats_r")
 
@@ -179,6 +187,28 @@ def test_launcher_runs_shampoo_on_cpu(monkeypatch):
                  "--optimizer", "shampoo", "--lr", "5e-3", "--device", "cpu"])
     assert len(hist) == 3 and all(np.isfinite(hist))
     assert calls == ["inverse_pth_root"] * 2  # step 1 only (update_interval 10)
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "llava-next-mistral-7b"])
+def test_frontend_archs_train_on_embeds(arch):
+    """The audio and vision backbones train on the synthetic stream's
+    precomputed embeddings (bf16, ``frontend_dim`` wide): two AdamW steps
+    through ``make_train_step`` move ``frontend_proj`` and give finite
+    losses, and the launcher does the same from its flags."""
+    cfg = configs.get_smoke_config(arch)
+    dc = data.DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2, seed=1, frontend_dim=cfg.frontend_dim)
+    params = interop.model_params(jax.tree_util.tree_map(
+        np.asarray, jmodels.model_params(jconfigs.get_smoke_config(arch), jax.random.PRNGKey(3))))
+    opt = optim.adamw(1e-3)
+    step, state, p = train.make_train_step(cfg, opt), opt.init(params), params
+    for i in range(2):
+        batch = data.synthetic_batch(dc, i, device="cpu")
+        assert tuple(batch["embeds"].shape) == (2, 16, cfg.frontend_dim)
+        p, state, m = step(p, state, batch, i)
+        assert np.isfinite(float(m["loss"]))
+    assert not torch.equal(p["frontend_proj"], params["frontend_proj"])
+    hist = main(["--arch", arch, "--smoke", "--steps", "2", "--batch", "2", "--seq", "16", "--device", "cpu"])
+    assert len(hist) == 2 and all(np.isfinite(hist))
 
 
 def _loop_parts(cfg):
