@@ -88,10 +88,10 @@ Phases, each printing its own lines:
    batch 8, prompt 64, gen 32; (b) codeqwen1.5-7b, stablelm-3b and
    qwen3-14b at full width cut to 2 layers, and granite-moe-3b-a800m at
    full width and depth, each at the launcher's batch 4, prompt 32, gen 16;
-   (c) mixtral-8x7b at full width with its window of 4096, cut to 2 layers,
+   (c) mixtral-8x7b at full width with its window of 4096, cut to 1 layer,
    batch 2, 4224 teacher-forced positions and 16 generated (its ring buffer
    wraps past position 4096); (d) mamba2-370m at all 48 layers, batch 4,
-   prompt 512, gen 16 (the forward's SSD in 6 chunks of 88), and
+   prompt 240, gen 16 (the float32 forward's SSD in 2 chunks of 128), and
    recurrentgemma-2b at all 26 layers, batch 2, prompt 528, gen 16 (2
    RG-LRU chunks of 272, a local-attention cache of 544 slots), each
    decoding on its recurrent states; musicgen-large and
@@ -127,6 +127,31 @@ Phases, each printing its own lines:
    moved.  (d) ``python -m repro_torch.launch.serve --arch mamba2-370m
    --smoke`` and ``python -m repro_torch.launch.train --arch
    recurrentgemma-2b --smoke --steps 20 --optimizer shampoo`` on the card.
+11. The multi-device paths, multi-controller, through
+   ``repro_torch.parallel.run_ranks``: four ranks share the card over gloo
+   (NCCL refuses two ranks on one device), each with its own launch
+   counters.  (a) ``dist_band_reduce(mesh, "x", A, 8, 256,
+   panel_qr_fn=<kernel E>)`` at n = 4096: the band within 1e-4 of max|B|
+   of the one-process ``band_reduce(panel_method="kernel")`` with its
+   trailing updates in the same row blocks (and beside the kernel-D one),
+   its eigenvalues and the kernel-D band's within 1e-6 of max|w| of
+   float64 ``eigvalsh(A)``, kernel E launched once a panel on every rank,
+   every trailing block gathered by ``all_gather``.  (b)
+   ``solve_many(..., op="inverse_pth_root", devices=make_local_mesh())``
+   on phase 6a's synthetic statistics at 1538 blocks (385 a rank, two
+   identity lanes): roots on 64 seeded blocks within 1e-3 of float64,
+   kernels A, B and C launched exactly 385 x one ``plan(128)`` solve's on
+   each rank, an eigh run's eigenvalues within 3e-4 of the one-process
+   bucket's, beside phase 6a's time.  (c) Shampoo with ``precond_mesh=
+   (make_local_mesh(), ("data", "model"))`` on phase 10's mamba2-370m cell
+   (4 layers, 8 x 256, 2 steps) with phase 8's gates per rank (A, B and C
+   launched 2 x ceil(1749 / 4) x one solve's), step-1 and steady times and
+   each rank's peak memory.  (d) ``compressed_psum`` of a replicated (16,
+   64) input and of one input a rank: every entry within 1e-6 (relative)
+   of the int8 algorithm's value computed in plain PyTorch from every
+   rank's input, and the replicated input back within 0.02 of itself.
+   Every rank's results bitwise equal.  (e) A world
+   of one rank on NCCL runs (b) at 64 blocks and (d).
 
 Then one JSON line with the kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -171,17 +196,19 @@ ROOT_BLOCKS = 64
 # computations of the 32-layer model agree and its gates run on its
 # first 4 layers.
 # mamba2-370m and recurrentgemma-2b run all their layers, over prompts
-# that cross their scans' chunks (528 positions: 6 SSD chunks of 88; 544:
+# that cross their scans' chunks (256 positions: 2 SSD chunks of 128; 544:
 # 2 RG-LRU chunks of 272); the frontend archs' backbones on tokens, cut as
-# the other dense cells are.
+# the other dense cells are.  mixtral-8x7b keeps one layer: its 4240
+# positions, which wrap the 4096-slot ring, make three decode loops the
+# longest of the phase.
 SERVE_CELLS = (
     ("llama3.2-3b", None, 8, 64, 32, None),
     ("codeqwen1.5-7b", 2, 4, 32, 16, None),
     ("stablelm-3b", 2, 4, 32, 16, None),
     ("qwen3-14b", 2, 4, 32, 16, None),
     ("granite-moe-3b-a800m", None, 4, 32, 16, 4),
-    ("mixtral-8x7b", 2, 2, 4224, 16, None),
-    ("mamba2-370m", None, 4, 512, 16, None),
+    ("mixtral-8x7b", 1, 2, 4224, 16, None),
+    ("mamba2-370m", None, 4, 240, 16, None),
     ("recurrentgemma-2b", None, 2, 528, 16, None),
     ("musicgen-large", 2, 4, 32, 16, None),
     ("llava-next-mistral-7b", 2, 4, 32, 16, None),
@@ -208,6 +235,18 @@ FAMILY_TRAIN_CELLS = (
 )
 # Phase 10 frontend cells: (arch, layers), 2 AdamW steps on embeds.
 FRONTEND_CELLS = (("musicgen-large", 1), ("llava-next-mistral-7b", 1))
+# Phase 11: the multi-device paths on the one card.  Four ranks share it
+# over gloo (NCCL refuses two ranks on one device); a world of one rank on
+# NCCL runs the code path of a machine with one card a rank.  (a) the
+# distributed band reduction at n = 4096, b = 8, nb = 256 with kernel E;
+# (b) phase 6a's synthetic refresh at 1538 blocks of 128 (1538 is not a
+# multiple of 4: 1540 / 4 = 385 a rank, two identity lanes); (c) phase
+# 10's mamba2-370m cell (4 layers, 8 x 256), 2 steps; the world of one runs
+# (b) at 64 blocks.
+DIST_RANKS = 4
+DIST_N, DIST_B, DIST_NB = 4096, 8, 256
+DIST_BLOCKS, DIST_NCCL_BLOCKS = 1538, 64
+DIST_TRAIN = ("mamba2-370m", 4, 8, 256, 2)
 HETERO = ((512, 128), (512, 96), (64, 127))
 PAD_BUCKET = 128
 N_MEDIUM, B_MEDIUM = 1024, 8
@@ -265,6 +304,18 @@ TOL_ROOT = 1e-3
 TOL_SERVE = 1e-4
 SENS_FACTOR = 4.0
 TOL_SERVE_BF16 = 0.1
+# Phase 11: the distributed band against the one-process band_reduce with
+# the same arithmetic, of max|B| (tests/test_sharding_multidevice.py's
+# tolerance); its eigenvalues, and those of the one-process band on kernel
+# D, against float64 eigvalsh(A), of max|w| (both read ~1e-7 on an H100:
+# 4.3e-8 and 1.0e-7 at n = 4096); compressed_psum against the int8
+# algorithm's value from every rank's input, entry by entry (float32
+# rounding of the scales' sum and the rescale), and of a replicated input
+# against itself (the JAX test's gate).
+TOL_BAND = 1e-4
+TOL_BAND_EIG = 1e-6
+TOL_PSUM_EXACT = 1e-6
+TOL_PSUM = 0.02
 # A bucket against plan(n) one matrix at a time (tests/test_torch_plan.py's
 # tolerances): eigenvalues at 1e-5 max|w|; sign-aligned vectors at 1e-4.
 TOL_LOOP_W = 1e-5
@@ -1177,19 +1228,21 @@ def _train_run(torch, cfg, opt, params, batch_fn, steps: int, label: str):
     return loop, final, hist, first["out"], state, torch.cuda.max_memory_allocated()
 
 
-def shampoo_training(torch, phase: str, cfg, batch: int, seq: int, steps: int, repeat: bool):
+def shampoo_training(torch, phase: str, cfg, batch: int, seq: int, steps: int, repeat: bool,
+                     precond_mesh=None):
     """Shampoo training of ``cfg`` on the card through the port's entry
     points (random weights from the seed, ``shampoo(warmup_cosine(3e-4,
-    ...), ShampooOptions())``, ``make_train_step``, ``TrainLoop``,
-    ``synthetic_batch``), with phase 8's gates: finite losses, every weight
-    moved, kernels A, B and C launched exactly 2 x blocks x one
-    ``plan(128)`` solve's, the step-1 roots on ``ROOT_BLOCKS`` seeded blocks
-    within ``TOL_ROOT`` of the float64 formula (beside float32
-    ``torch.linalg.eigh``'s error), and with ``repeat`` step 1 run again
-    from the same state and bit for bit the first run's.  The refresh's
-    stages are timed in the repeat, or else in the run itself.  Returns
-    (launches, CUDA launches, record, (params, batch_fn, sched, opts, step-1
-    state))."""
+    ...), ShampooOptions(precond_mesh=precond_mesh))``, ``make_train_step``,
+    ``TrainLoop``, ``synthetic_batch``), with phase 8's gates: finite
+    losses, every weight moved, kernels A, B and C launched exactly 2 x
+    blocks x one ``plan(128)`` solve's (with ``precond_mesh``, 2 x this
+    rank's share, ceil(blocks / ranks)), the step-1 roots on
+    ``ROOT_BLOCKS`` seeded blocks within ``TOL_ROOT`` of the float64
+    formula (beside float32 ``torch.linalg.eigh``'s error), and with
+    ``repeat`` step 1 run again from the same state and bit for bit the
+    first run's.  The refresh's stages are timed in the repeat, or else in
+    the run itself.  Returns (launches, CUDA launches, record, (params,
+    batch_fn, sched, opts, step-1 outputs: params, state, metrics))."""
     from repro_torch.data import DataConfig, synthetic_batch
     from repro_torch.kernels import cuda_lib
     from repro_torch.models import model_meta, model_params, param_count, pattern_unit
@@ -1199,9 +1252,10 @@ def shampoo_training(torch, phase: str, cfg, batch: int, seq: int, steps: int, r
     from repro_torch.train import make_train_step
     from repro_torch.tree import leaves
 
-    opts = ShampooOptions()
+    opts = ShampooOptions(precond_mesh=precond_mesh)
     params = model_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
     _, NB = leaf_plans(params, opts)
+    share = NB if precond_mesh is None else -(-NB // precond_ranks(precond_mesh))
     dc = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=SEED)
     batch_fn = lambda s: synthetic_batch(dc, s, device="cuda")  # noqa: E731
     sched = warmup_cosine(3e-4, warmup=max(steps // 20, 1), total=steps)
@@ -1230,9 +1284,9 @@ def shampoo_training(torch, phase: str, cfg, batch: int, seq: int, steps: int, r
           f"(refresh{'' if repeat else ', its stages timed'}) {times[0]:.2f} s, steady {steady_ms:.1f} ms a step; "
           f"peak memory {peak / 2**30:.2f} GiB")
     print(f"{phase} {cfg.name} launches over the {steps} steps: {got} (CUDA {got_dev}); one plan({N_BLOCK}) "
-          f"solve {one} (CUDA {one_dev}), x 2 sides x {NB} blocks")
-    require(got == {op: 2 * NB * c for op, c in one.items()}, f"{phase} {cfg.name} launches {got}")
-    require(got_dev == {op: 2 * NB * c for op, c in one_dev.items()}, f"{phase} {cfg.name} CUDA launches {got_dev}")
+          f"solve {one} (CUDA {one_dev}), x 2 sides x {share} blocks" + (f" (this rank's of {NB})" if share != NB else ""))
+    require(got == {op: 2 * share * c for op, c in one.items()}, f"{phase} {cfg.name} launches {got}")
+    require(got_dev == {op: 2 * share * c for op, c in one_dev.items()}, f"{phase} {cfg.name} CUDA launches {got_dev}")
     require(len(hist) == steps and all(math.isfinite(h) for h in hist), f"{phase} {cfg.name} losses {hist}")
     moved = [bool((a != b).any()) for a, b in zip(leaves(final), leaves(params))]
     require(all(moved), f"{phase} {cfg.name} weights moved: {moved}")
@@ -1267,14 +1321,15 @@ def shampoo_training(torch, phase: str, cfg, batch: int, seq: int, steps: int, r
         print(f"{phase} {cfg.name} step 1 repeated from the same state: {repeat_s:.2f} s, bitwise identical: {same}")
         require(same, f"{phase} {cfg.name} step 1 is not bitwise repeatable")
     refresh_s = sum(stages.values()) / 1e3
-    print(f"{phase} {cfg.name} the refresh's stages (2 solve_many buckets of {NB}, each stage closed by a "
+    print(f"{phase} {cfg.name} the refresh's stages (2 solve_many buckets of {share}, each stage closed by a "
           f"synchronize) ms: " + ", ".join(f"{k}={v:.1f}" for k, v in stages.items())
-          + f"; {refresh_s:.2f} s in all, {refresh_s * 1e3 / (2 * NB):.3f} ms a block")
+          + f"; {refresh_s:.2f} s in all, {refresh_s * 1e3 / (2 * share):.3f} ms a block")
     record = dict(
         layers=cfg.n_layers, batch=batch, seq=seq, blocks_a_side=NB, step1_s=times[0], steady_ms=steady_ms,
-        refresh_s=refresh_s, refresh_ms_per_block=refresh_s * 1e3 / (2 * NB), stages_ms=stages,
+        blocks_this_rank=share, refresh_s=refresh_s, refresh_ms_per_block=refresh_s * 1e3 / (2 * share),
+        stages_ms=stages,
         peak_gib=peak / 2**30, root_err=worst, losses=hist, step1_bitwise=same, launches=got)
-    return got, got_dev, record, (params, batch_fn, sched, opts, s1)
+    return got, got_dev, record, (params, batch_fn, sched, opts, first)
 
 
 def phase_training(torch, gen):
@@ -1287,7 +1342,7 @@ def phase_training(torch, gen):
     from repro_torch.optim import adamw
 
     cfg = dataclasses.replace(get_config("llama3.2-3b"), n_layers=TRAIN_LAYERS)
-    got, got_dev, record, (params, batch_fn, sched, opts, s1) = shampoo_training(
+    got, got_dev, record, (params, batch_fn, sched, opts, (_, s1, _)) = shampoo_training(
         torch, "phase 8", cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, repeat=True)
     NB, refresh_s = record["blocks_a_side"], record["refresh_s"]
 
@@ -1656,6 +1711,313 @@ def phase_families(torch, gen):
     return launches, device_launches, records
 
 
+def precond_ranks(devices) -> int:
+    """The ranks a ``solve_many(devices=)`` mesh, or ``(mesh, axes)`` pair,
+    shards a bucket over."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import axes_group
+
+    mesh, axes = devices if isinstance(devices, tuple) else (devices, devices.mesh_dim_names)
+    return dist.get_world_size(axes_group(mesh, axes)[0])
+
+
+def _digest(torch, *tensors) -> str:
+    """A SHA-256 of the tensors' bytes: equal digests, equal bits."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _band_input(torch):
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    A = torch.randn((DIST_N, DIST_N), generator=g, device="cuda")
+    return A + A.T
+
+
+def _refresh_stack(torch, blocks: int):
+    """Phase 6a's synthetic statistics, G G^T / 256 + 1e-3 I, seeded."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    G = torch.randn((blocks, N_BLOCK, 2 * N_BLOCK), generator=g, device="cuda")
+    return G @ G.mT / (2 * N_BLOCK) + 1e-3 * torch.eye(N_BLOCK, device="cuda")
+
+
+def _psum_input(torch):
+    return torch.randn((16, 64), generator=torch.Generator(device="cuda").manual_seed(SEED + 13), device="cuda")
+
+
+def _dist_refresh(torch, tag: str, devices, blocks: int):
+    """``solve_many(op="inverse_pth_root", devices=devices)`` on the synthetic
+    statistics: this rank's kernels A, B and C launched exactly its share
+    x one ``plan(128)`` solve's, its roots on ``ROOT_BLOCKS`` seeded blocks
+    within ``TOL_ROOT`` of float64; then an eigh run.  Returns the record,
+    the eigh run's eigenvalues and digests of both results."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.solver import EvdConfig, plan, solve_many
+
+    p, eps, cfg = 4, 1e-6, EvdConfig(b=8, nb=64)
+    S = _refresh_stack(torch, blocks)
+    pl = plan(N_BLOCK, torch.float32, cfg)
+    cuda_lib.reset_launch_counts()
+    pl.inverse_pth_root(S[0], p, eps=eps)
+    torch.cuda.synchronize()
+    one, one_dev = nonzero(cuda_lib.launch_counts()), nonzero(cuda_lib.device_launch_counts())
+    share = -(-blocks // precond_ranks(devices))
+    cuda_lib.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    X = solve_many(S, cfg, op="inverse_pth_root", p=p, eps=eps, devices=devices)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got, got_dev = nonzero(cuda_lib.launch_counts()), nonzero(cuda_lib.device_launch_counts())
+    print(f"{tag} (b) solve_many(inverse_pth_root, devices=) of {blocks} blocks: {secs:.2f} s; this rank "
+          f"launched {got} (CUDA {got_dev}) = {share} x one plan({N_BLOCK}) solve's {one} (CUDA {one_dev})")
+    require(got == {op: share * c for op, c in one.items()}, f"{tag} (b) launches {got}")
+    require(got_dev == {op: share * c for op, c in one_dev.items()}, f"{tag} (b) CUDA launches {got_dev}")
+    require(tuple(X.shape) == (blocks, N_BLOCK, N_BLOCK) and bool(torch.isfinite(X).all()), f"{tag} (b) roots")
+    idx = torch.randperm(blocks, generator=torch.Generator().manual_seed(SEED))[:ROOT_BLOCKS].cuda()
+    err, _, lib_err = root_errors(torch, S, X, idx, eps)
+    print(f"{tag} (b) roots on {len(idx)} seeded blocks vs float64: max rel err {float(err.max()):.3e} (tol "
+          f"{TOL_ROOT:.0e}; float32 torch.linalg.eigh {float(lib_err.max()):.3e})")
+    require(bool((err < TOL_ROOT).all()), f"{tag} (b) roots vs float64")
+    t0 = time.perf_counter()
+    w, _ = solve_many(S, cfg, devices=devices)
+    torch.cuda.synchronize()
+    eigh_s = time.perf_counter() - t0
+    record = dict(blocks=blocks, share=share, s=secs, eigh_s=eigh_s, launches=got, device_launches=got_dev,
+                  root_err=float(err.max()), backend=dist.get_backend())
+    return record, w.cpu(), _digest(torch, X), _digest(torch, w)
+
+
+def _dist_psum(torch, mesh):
+    """``compressed_psum`` of a replicated input, then of one input a rank
+    (the input times 1 + rank / 4)."""
+    import torch.distributed as dist
+
+    from repro_torch.optim import compressed_psum
+
+    x = _psum_input(torch)
+    own = x * (1.0 + 0.25 * dist.get_rank())
+    return dict(x=x.cpu(), y=compressed_psum(mesh, "x", x).cpu(), x_own=own.cpu(),
+                y_own=compressed_psum(mesh, "x", own).cpu())
+
+
+def _dist_rank():
+    """Phase 11 (a)-(d) in one rank of the gloo world (every rank runs it)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.backend.compat import make_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.core.distributed import dist_band_reduce
+    from repro_torch.kernels import cuda_lib, ops
+    from repro_torch.launch import make_local_mesh
+    from repro_torch.tree import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    tag = f"phase 11 rank {rank}"
+    mesh = make_mesh((dist.get_world_size(),), ("x",))
+    out = dict(backend=dist.get_backend(), device=torch.cuda.current_device())
+
+    # (a) The distributed band reduction with kernel E's panel QR.
+    A = _band_input(torch)
+    cuda_lib.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    B = dist_band_reduce(mesh, "x", A, DIST_B, DIST_NB, panel_qr_fn=ops.panel_qr)
+    torch.cuda.synchronize()
+    out["a"] = dict(s=time.perf_counter() - t0, launches=nonzero(cuda_lib.launch_counts()),
+                    device_launches=nonzero(cuda_lib.device_launch_counts()),
+                    digest=_digest(torch, B), input_digest=_digest(torch, A), B=B.cpu() if rank == 0 else None)
+    print(f"{tag} (a) dist_band_reduce n={DIST_N} b={DIST_B} nb={DIST_NB}: {out['a']['s']:.2f} s; launches "
+          f"{out['a']['launches']} (CUDA {out['a']['device_launches']})")
+    del A, B
+
+    # (b) The synthetic refresh, sharded over the local mesh.
+    out["b"], w, out["b_X_digest"], out["b_w_digest"] = _dist_refresh(torch, tag, make_local_mesh(), DIST_BLOCKS)
+    out["b_w"] = w if rank == 0 else None
+
+    # (c) Shampoo with precond_mesh over both axes of the local mesh.
+    arch, layers, batch, seq, steps = DIST_TRAIN
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    _, _, record, (_, _, _, _, first) = shampoo_training(
+        torch, f"{tag} (c)", cfg, batch, seq, steps, repeat=False, precond_mesh=(make_local_mesh(), ("data", "model")))
+    del record["launches"]
+    out["c"] = dict(record, step1_params_digest=_digest(torch, *leaves(first[0])))
+
+    # (d) compressed_psum.
+    out["d"] = _dist_psum(torch, mesh)
+    return out
+
+
+def _nccl_rank():
+    """Phase 11 (e): a world of one rank on NCCL, (b) at 64 blocks and (d)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.backend.compat import make_mesh
+    from repro_torch.launch import make_local_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    require(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "phase 11 (e) a world of one on NCCL")
+    record, _, _, _ = _dist_refresh(torch, "phase 11 (e) nccl", make_local_mesh(), DIST_NCCL_BLOCKS)
+    psum = _dist_psum(torch, make_mesh((1,), ("x",)))
+    return dict(b=record, d=psum)
+
+
+def _psum_reference(torch, xs):
+    """``compressed_psum``'s value from every rank's input, in plain
+    PyTorch: each input's per-row int8 payload and float32 scale (max|row| /
+    127), the payloads summed exactly, times the mean scale, over n; float64."""
+    qs, ss = [], []
+    for x in xs:
+        s = x.abs().amax(-1, keepdim=True).clamp(min=1e-30) / 127.0
+        qs.append(torch.clamp(torch.round(x / s), -127, 127).double())
+        ss.append(s.double())
+    n = len(xs)
+    return sum(qs) * (sum(ss) / n) / n
+
+
+def _psum_gates(torch, label: str, results) -> float:
+    """Each rank's result equal, within ``TOL_PSUM_EXACT`` of each entry,
+    to the algorithm's value from every rank's input (``_psum_reference``),
+    for the replicated input and for one input a rank; every rank the same
+    bits; the replicated input back within ``TOL_PSUM`` of itself.  Prints,
+    beside them, how far one input a rank lands from the float mean within
+    the int8 bound (half a step of the largest scale a row, plus the
+    scales' spread over 127 steps)."""
+    errs = {}
+    for key in ("", "_own"):
+        ref = _psum_reference(torch, [r["d"]["x" + key].cuda() for r in results]).cpu()
+        got = results[0]["d"]["y" + key].double()
+        errs[key] = float(((got - ref).abs() / ref.abs().clamp(min=1e-300)).max())
+    x = results[0]["d"]["x"].double()
+    err = float((results[0]["d"]["y"].double() - x).abs().max() / x.abs().max())
+    xs = [r["d"]["x_own"].double() for r in results]
+    mean = sum(xs) / len(xs)
+    scales = torch.stack([t.abs().amax(-1, keepdim=True) / 127 for t in xs])
+    bound = 0.5 * scales.max(0).values + (scales.max(0).values - scales.min(0).values) * 127
+    own_err = float(((results[0]["d"]["y_own"].double() - mean).abs() / bound).max())
+    print(f"{label} (d) compressed_psum over {len(results)} ranks: vs the int8 algorithm's value from every "
+          f"rank's input, max rel err {errs['']:.3e} (replicated input), {errs['_own']:.3e} (one input a rank) "
+          f"(tol {TOL_PSUM_EXACT:.0e}); replicated input back within {err:.3e} of max|x| (tol {TOL_PSUM}); "
+          f"one input a rank {own_err:.3f} of the int8 bound from their float mean")
+    require(errs[""] < TOL_PSUM_EXACT and errs["_own"] < TOL_PSUM_EXACT and err < TOL_PSUM,
+            f"{label} (d) compressed_psum")
+    require(all(torch.equal(r["d"]["y"], results[0]["d"]["y"]) and torch.equal(r["d"]["y_own"], results[0]["d"]["y_own"])
+                for r in results), f"{label} (d) compressed_psum differs across ranks")
+    return err
+
+
+def phase_distributed(torch, phase6a_ms: float):
+    """Phase 11: the multi-device EVD and the sharded Shampoo refresh on the
+    card, four gloo ranks sharing it, then a world of one on NCCL."""
+    import gc
+
+    from repro_torch.core.band_reduction import band_reduce, build_stage_schedule
+    from repro_torch.backend import registry
+    from repro_torch.parallel import run_ranks
+    from repro_torch.solver import EvdConfig, solve_many
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    R = DIST_RANKS
+    t0 = time.perf_counter()
+    res = run_ranks(_dist_rank, R, backend="gloo", device_type="cuda", timeout_s=600)
+    ranks_s = time.perf_counter() - t0
+    require([r["backend"] for r in res] == ["gloo"] * R, "phase 11 gloo ranks")
+
+    # (a) against the one-process band reduction with the same panel QR
+    # (kernel E): with the same trailing-update arithmetic (the row blocks
+    # of dist_band_reduce's float32 products, or the torch op where the
+    # side does not split), and with kernel D's (3xTF32), which rounds
+    # otherwise.  The band's entries carry rounding far more than its
+    # eigenvalues do: kernel D's band and one with float32 torch.matmul
+    # trailing updates sit 2.9e-4 of max|B| apart at n = 4096, both with
+    # eigenvalues within 1.1e-7 of float64 (PERF.md).
+    def row_blocked_update(C, Y, Z):
+        m = C.shape[0]
+        if m % R or m < R:
+            return registry.resolve("trailing_update", "torch")(C, Y, Z)
+        r = m // R
+        return torch.cat([C[i * r:(i + 1) * r] - Z[i * r:(i + 1) * r] @ Y.T - Y[i * r:(i + 1) * r] @ Z.T
+                          for i in range(R)])
+
+    A = _band_input(torch)
+    require(all(r["a"]["input_digest"] == _digest(torch, A) for r in res), "phase 11 (a) one input on every rank")
+    B = res[0]["a"]["B"].cuda()
+    B_same = band_reduce(A, DIST_B, DIST_NB, panel_method="kernel", syr2k_update=row_blocked_update)
+    B_kernel = band_reduce(A, DIST_B, DIST_NB, panel_method="kernel")
+    err, err_d, err_dd = rel_err(B, B_same), rel_err(B, B_kernel), rel_err(B_same, B_kernel)
+    w_ref = torch.linalg.eigvalsh(A.double())
+    e_eig, e_eig_d = (float((torch.linalg.eigvalsh(X.double()) - w_ref).abs().max() / w_ref.abs().max())
+                      for X in (B, B_kernel))
+    sched = build_stage_schedule(DIST_N, DIST_B, DIST_NB)
+    same_a = len({r["a"]["digest"] for r in res}) == 1
+    print(f"phase 11 (a) dist_band_reduce on {R} gloo ranks: band vs one-process band_reduce(panel_method="
+          f"'kernel', its trailing updates in the same row blocks) {err:.3e} of max|B| (tol {TOL_BAND:.0e}); vs "
+          f"band_reduce(panel_method='kernel') (kernel D) {err_d:.3e}, the two one-process bands {err_dd:.3e} "
+          f"apart; band eigenvalues vs float64 eigvalsh(A) {e_eig:.3e} of max|w| (kernel D's band {e_eig_d:.3e}; "
+          f"tol {TOL_BAND_EIG:.0e}); every rank bitwise equal: {same_a}; kernel E launches per rank "
+          f"{[r['a']['launches'].get('panel_qr') for r in res]} ({sched.num_panels} panels); wall s per rank "
+          f"{[round(r['a']['s'], 2) for r in res]}")
+    require(err < TOL_BAND and e_eig < TOL_BAND_EIG and e_eig_d < TOL_BAND_EIG and same_a,
+            "phase 11 (a) distributed band")
+    for r in res:
+        require(r["a"]["launches"] == {"panel_qr": sched.num_panels}
+                and r["a"]["device_launches"] == {"panel_qr": sched.num_panels}, f"phase 11 (a) launches {r['a']}")
+    del A, B, B_same, B_kernel
+
+    # (b) against the one-process bucket.
+    S = _refresh_stack(torch, DIST_BLOCKS)
+    w_one, _ = solve_many(S, EvdConfig(b=8, nb=64))
+    w = res[0]["b_w"].cuda()
+    e_w = float(((w - w_one).abs().amax(-1) / w_one.abs().amax(-1)).max())
+    same_b = len({(r["b_X_digest"], r["b_w_digest"]) for r in res}) == 1
+    print(f"phase 11 (b) {DIST_BLOCKS} blocks on {R} gloo ranks ({res[0]['b']['share']} a rank): roots "
+          f"{[round(r['b']['s'], 2) for r in res]} s per rank against phase 6a's {phase6a_ms / 1e3:.2f} s for "
+          f"1536 in one process; eigh run {[round(r['b']['eigh_s'], 2) for r in res]} s; eigenvalues vs the "
+          f"one-process bucket {e_w:.3e} of max|w| (tol {TOL_EIG:.0e}); every rank bitwise equal: {same_b}")
+    require(e_w < TOL_EIG and same_b, "phase 11 (b) sharded refresh")
+    del S, w_one
+
+    # (c) Shampoo with precond_mesh.
+    same_c = len({r["c"]["step1_params_digest"] for r in res}) == 1
+    print(f"phase 11 (c) {DIST_TRAIN[0]} Shampoo with precond_mesh on {R} gloo ranks: step 1 s "
+          f"{[round(r['c']['step1_s'], 2) for r in res]}, steady ms {[round(r['c']['steady_ms'], 1) for r in res]}, "
+          f"peak GiB {[round(r['c']['peak_gib'], 2) for r in res]}; step-1 parameters bitwise equal: {same_c}")
+    require(same_c, "phase 11 (c) step-1 parameters differ across ranks")
+
+    # (d) compressed_psum.
+    psum_err = _psum_gates(torch, "phase 11", res)
+
+    # (e) A world of one rank on NCCL.
+    t1 = time.perf_counter()
+    (nccl,) = run_ranks(_nccl_rank, 1, backend="nccl", device_type="cuda", timeout_s=300)
+    nccl_s = time.perf_counter() - t1
+    require(nccl["b"]["backend"] == "nccl", "phase 11 (e) NCCL world")
+    _psum_gates(torch, "phase 11 (e) nccl", [nccl])
+    print(f"phase 11 (e) a world of one rank on NCCL: {DIST_NCCL_BLOCKS} blocks in {nccl['b']['s']:.2f} s, roots "
+          f"{nccl['b']['root_err']:.3e} from float64; the world {nccl_s:.1f} s with its start-up")
+    print(f"phase 11 the {R} gloo ranks took {ranks_s:.1f} s with their start-up")
+    return dict(
+        ranks=R, ranks_s=ranks_s, nccl_s=nccl_s,
+        band=dict(err=err, err_vs_kernel_d=err_d, eig_err=e_eig, s=[r["a"]["s"] for r in res]),
+        refresh=dict(blocks=DIST_BLOCKS, share=res[0]["b"]["share"], s=[r["b"]["s"] for r in res],
+                     eigh_s=[r["b"]["eigh_s"] for r in res], eig_err=e_w, root_err=[r["b"]["root_err"] for r in res]),
+        shampoo=[r["c"] for r in res], psum_err=psum_err, nccl=nccl["b"],
+        launches_per_rank={"a": res[0]["a"]["launches"], "b": res[0]["b"]["launches"]})
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1701,10 +2063,12 @@ def main() -> int:
     serving = phase_serving(torch, gen)
     t10 = time.perf_counter()
     family, family_device, families = phase_families(torch, gen)
+    t11 = time.perf_counter()
+    distributed = phase_distributed(torch, shampoo["ms"])
     t_end = time.perf_counter()
     print(f"phase 6 took {t7 - t6:.1f} s, phase 7 {t8 - t7:.1f} s, phase 8 {t9 - t8:.1f} s, phase 9 "
-          f"{t10 - t9:.1f} s, phase 10 {t_end - t10:.1f} s; the script {t_end - t_start:.1f} s in all (kernel "
-          f"build included)")
+          f"{t10 - t9:.1f} s, phase 10 {t11 - t10:.1f} s, phase 11 {t_end - t11:.1f} s; the script "
+          f"{t_end - t_start:.1f} s in all (kernel build included)")
 
     # Kernel D serves two registry ops (syr2k, trailing_update); its launches
     # are the sum of both counters over the unfused plan(A) run.
@@ -1727,10 +2091,13 @@ def main() -> int:
         if name in family:
             row.update(families_training_launches=family[name],
                        families_training_device_launches=family_device[name])
+        for sub in ("a", "b"):
+            if name in distributed["launches_per_rank"][sub]:
+                row[f"distributed_{sub}_launches_per_rank"] = distributed["launches_per_rank"][sub][name]
         row.update(rows[name])
         kernels.append(row)
     print(json.dumps({"kernels": kernels, "shampoo_refresh": shampoo, "shampoo_training": training,
-                      "serving": serving, "families": families}))
+                      "serving": serving, "families": families, "distributed": distributed}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -20,5 +20,5 @@ caches), ``configs``, ``data``, ``train``, ``ckpt`` and ``launch``; plus
 """
 __all__ = [
     "backend", "core", "kernels", "solver", "optim", "models", "configs", "data", "train",
-    "ckpt", "launch", "tree", "interop",
+    "ckpt", "launch", "parallel", "tree", "interop",
 ]

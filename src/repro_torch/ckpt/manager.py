@@ -97,7 +97,7 @@ class CheckpointManager:
         if shardings is not None:
             raise NotImplementedError(
                 "restore(shardings=...) reshards onto a device mesh, which is not ported yet: "
-                "ROADMAP Queue 1 item 12 (multi-device)"
+                "ROADMAP Queue 1 item 12(b) (model sharding)"
             )
         d = os.path.join(self.dir, f"step_{step:010d}")
         with open(os.path.join(d, "manifest.json")) as f:

@@ -46,7 +46,7 @@ def main(argv=None):
     if args.model_axis > 1:
         raise NotImplementedError(
             "--model-axis > 1 shards the model over a device mesh, which is not ported yet: "
-            "ROADMAP Queue 1 item 12 (multi-device)"
+            "ROADMAP Queue 1 item 12(b) (model sharding)"
         )
     dev = probe.resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)

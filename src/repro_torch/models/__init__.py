@@ -9,7 +9,7 @@ pattern units, and precomputed frontend embeddings through
 ``frontend_proj``), and one-token decode against caches (``cache_meta``,
 ``cache_init``, ``decode_step``; ring buffers for windowed layers,
 recurrent states for Mamba2 and RG-LRU layers).  Not yet:
-``partition_specs`` (ROADMAP Queue 1 item 12).
+``partition_specs`` (ROADMAP Queue 1 item 12(b), model sharding).
 """
 from .config import ModelConfig
 from .params import ParamMeta, abstract_params, init_params, partition_specs, param_count

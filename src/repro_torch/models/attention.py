@@ -87,7 +87,7 @@ def attention_forward(
     if cfg.attn_shard_mode != "none":
         raise NotImplementedError(
             f"attn_shard_mode={cfg.attn_shard_mode!r} splits attention over a device mesh, "
-            "which is not ported yet: ROADMAP Queue 1 item 12 (multi-device)"
+            "which is not ported yet: ROADMAP Queue 1 item 12(b) (model sharding)"
         )
     B, S, D = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim

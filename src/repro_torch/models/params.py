@@ -100,7 +100,7 @@ def init_params(meta_tree, generator: torch.Generator,
 def partition_specs(meta_tree, rules: Dict[Optional[str], Any]):
     raise NotImplementedError(
         "partition_specs maps logical axes to a device mesh, which is not ported yet: "
-        "ROADMAP Queue 1 item 12 (multi-device)"
+        "ROADMAP Queue 1 item 12(b) (model sharding)"
     )
 
 

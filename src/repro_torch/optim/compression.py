@@ -4,15 +4,17 @@
   float32 scale per row.
 * ``ef_compress_transform`` — error-feedback gradient transform for the
   trainer: g_q = Q(g + e); e' = (g + e) - g_q.
-* ``compressed_psum`` — the int8 all-reduce across devices; not ported yet
-  (it raises, naming ROADMAP Queue 1 item 12).
+* ``compressed_psum`` — the int8 all-reduce-mean over a mesh axis: 1 byte
+  an element on the wire (summed as int32) plus a float32 scale a row.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.parallel.comm import all_reduce_sum, axes_group
 from repro_torch.tree import flatten_with_paths, leaves, tree_map
 
 __all__ = ["quantize_int8", "dequantize_int8", "compressed_psum", "ef_compress_transform"]
@@ -31,10 +33,21 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def compressed_psum(mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError(
-        "compressed_psum is an all-reduce across devices, which is not ported yet: "
-        "ROADMAP Queue 1 item 12 (multi-device)"
-    )
+    """All-reduce-mean of ``x`` over the ranks of ``mesh``'s ``axis`` with an
+    int8 payload; ``x`` is >= 1-D, its rows the leading dimensions.
+
+    Each rank quantizes its ``x`` (per-row int8), the payloads are summed as
+    int32 and the scales as float32, and the mean is rebuilt with the mean
+    scale: ``total * (s_tot / n) / n``.  The JAX package takes one
+    replicated ``x`` (``P()``); here each rank may pass its own, and every
+    rank gets the same result.
+    """
+    group, _ = axes_group(mesh, axis)
+    q, s = quantize_int8(x)
+    total = all_reduce_sum(q.to(torch.int32), group)
+    s_tot = all_reduce_sum(s, group)  # scales are close; use the mean scale
+    n = float(dist.get_world_size(group))
+    return (total.to(torch.float32) * (s_tot / n)) / n
 
 
 class EFState(NamedTuple):

@@ -6,7 +6,11 @@ R = EMA[G^T G].  The inverse fourth roots are symmetric EVD problems,
 computed by ONE call per side to
 ``repro_torch.solver.solve_many(stats, evd, op="inverse_pth_root")``: on the
 card that is kernels A, B and C once per block.  ``ShampooOptions.evd`` (a
-:class:`repro_torch.solver.EvdConfig`) carries all solver tuning.
+:class:`repro_torch.solver.EvdConfig`) carries all solver tuning, and
+``ShampooOptions.precond_mesh`` (a mesh or a ``(mesh, axes)`` pair) is that
+call's ``devices=``: each rank refreshes its slice of the blocks and every
+rank gets them all, so ranks with equal parameters and gradients end each
+step with bitwise-equal preconditioners and parameters.
 
 Layout: every eligible parameter is cut into (block, block) tiles; all tiles
 across the whole model are stacked into ONE (NB, bs, bs) batch, in the
@@ -49,7 +53,7 @@ class ShampooOptions:
     max_dim_for_shampoo: int = 65536
     vocab_threshold: int = 16384    # leaves with a dim this big use Adam
     evd: EvdConfig = EvdConfig(b=8, nb=64)  # the solver plan config
-    precond_mesh: Any = None        # sharding the EVD batch: not ported (raises)
+    precond_mesh: Any = None        # optional (mesh, axes) to shard the EVD batch
 
 
 class ShampooState(NamedTuple):
@@ -136,11 +140,6 @@ def shampoo(
     weight_decay: float = 0.0,
     grad_clip: Optional[float] = 1.0,
 ) -> Optimizer:
-    if opts.precond_mesh is not None:
-        raise NotImplementedError(
-            "ShampooOptions.precond_mesh shards the EVD batch over several devices, which is "
-            "not ported yet: ROADMAP Queue 1 item 12 (multi-device)"
-        )
     schedule = constant_schedule(lr)
     bs = opts.block_size
 
@@ -161,7 +160,8 @@ def shampoo(
         )
 
     def _roots(stats):
-        return solve_many(stats, opts.evd, op="inverse_pth_root", p=4, eps=opts.eps)
+        return solve_many(stats, opts.evd, op="inverse_pth_root", p=4, eps=opts.eps,
+                          devices=opts.precond_mesh)
 
     def update(grads, state, params):
         _, gleaves, rebuild = flatten_with_paths(grads)

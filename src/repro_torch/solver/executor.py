@@ -18,6 +18,11 @@ input structure.
 Device: tensor leaves run on the device they lie on (all on one device;
 mixed devices raise).  Numpy leaves go to ``device``, default ``"cuda"``,
 which raises without a card: pass ``device="cpu"`` for the plain versions.
+
+``devices=`` shards every bucket's batch over the ranks of a mesh
+(``torch.distributed``; every rank calls ``solve_many`` with the same
+arguments): each rank solves its slice and the slices are gathered, so
+every rank gets the whole result, bit for bit the same.
 """
 from __future__ import annotations
 
@@ -26,8 +31,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.backend import probe
+from repro_torch.backend.compat import make_mesh
+from repro_torch.parallel.comm import all_gather_rows, axes_group
 
 from .batch import PadPolicy, batch_plan
 from .config import EvdConfig, Spectrum
@@ -70,6 +78,34 @@ def _common_device(leaves, device) -> torch.device:
     return next(iter(on)) if on else probe.resolve_device(None)
 
 
+def _normalize_devices(devices):
+    """``(mesh, axes)`` from a ``DeviceMesh`` (all its dimensions), a
+    ``(mesh, axes)`` pair, or a flat sequence of devices, one per rank of
+    the initialized world (this rank's entry its own device), which becomes
+    a 1-D mesh named ``"solve_many"``."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if devices is None:
+        return None
+    if isinstance(devices, DeviceMesh):
+        return devices, tuple(devices.mesh_dim_names or ())
+    if isinstance(devices, (tuple, list)) and len(devices) == 2 and isinstance(devices[0], DeviceMesh):
+        mesh, axes = devices
+        return mesh, ((axes,) if isinstance(axes, str) else tuple(axes))
+    devs = tuple(torch.device(d) for d in devices)
+    if not devs:
+        raise ValueError("devices= was an empty sequence")
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "solve_many(devices=<a device sequence>) shards over the ranks of an initialized "
+            "torch.distributed process group, one device a rank; none is initialized"
+        )
+    if len(devs) != dist.get_world_size():
+        raise ValueError(f"devices= names {len(devs)} devices for a world of {dist.get_world_size()} ranks")
+    own = probe.resolve_device(devs[dist.get_rank()])
+    return make_mesh((len(devs),), ("solve_many",), device_type=own.type), ("solve_many",)
+
+
 def _embed(X: torch.Tensor, N: int, ridge: float) -> torch.Tensor:
     """Embed a (m, n, n) stack into (m, N, N) as blockdiag(A, fill * I).
 
@@ -99,18 +135,32 @@ def _pad_batch(stack: torch.Tensor, target: int) -> torch.Tensor:
     return torch.cat([stack, eye])
 
 
-def _run_bucket(stack: torch.Tensor, cfg: EvdConfig, op: str, p: int, eps: float, pad: PadPolicy):
-    """One shape bucket through one cached BatchPlan."""
+def _run_bucket(stack: torch.Tensor, cfg: EvdConfig, op: str, p: int, eps: float, pad: PadPolicy, meshspec):
+    """One shape bucket through one cached BatchPlan; with ``meshspec``
+    each rank runs its slice of the batch (padded with identity lanes to a
+    multiple of the ranks) and the slices are gathered."""
     B, N = stack.shape[0], stack.shape[-1]
     multiple = pad.batch_multiple
+    if meshspec is not None:
+        group, idx = axes_group(*meshspec)
+        ndev = dist.get_world_size(group)
+        multiple = math.lcm(multiple, ndev)
     stack = _pad_batch(stack, -(-B // multiple) * multiple)
+    if meshspec is not None:
+        per = stack.shape[0] // ndev
+        stack = stack[idx * per : (idx + 1) * per]
     bpl = batch_plan(N, stack.shape[0], stack.dtype, cfg, device=stack.device)
     if op == "eigh":
-        w, V = bpl(stack, donate=pad.donate)
-        return w[:B], V[:B]
-    if op == "eigvals":
-        return bpl.eigvals(stack, donate=pad.donate)[:B]
-    return bpl.inverse_pth_root(stack, p, eps=eps, donate=pad.donate)[:B]
+        out = bpl(stack, donate=pad.donate)
+    elif op == "eigvals":
+        out = bpl.eigvals(stack, donate=pad.donate)
+    else:
+        out = bpl.inverse_pth_root(stack, p, eps=eps, donate=pad.donate)
+    parts = out if op == "eigh" else (out,)
+    if meshspec is not None:
+        parts = tuple(all_gather_rows(t, group) for t in parts)
+    parts = tuple(t[:B] for t in parts)
+    return parts if op == "eigh" else parts[0]
 
 
 def _empty_result(op: str, bshape, n: int, k: int, dtype, device):
@@ -138,14 +188,15 @@ def solve_many(
     (``op="inverse_pth_root"``), with the leaf's batch dimensions kept.
     ``pad`` sets bucket sizes, the ridge-identity fill and batch padding
     (see :class:`PadPolicy`).  ``device`` places numpy leaves (default
-    ``"cuda"``).  ``devices=`` (sharding buckets over several cards) is not
-    ported yet and raises.
+    ``"cuda"``).
+
+    ``devices=`` (a ``DeviceMesh``, a ``(mesh, axes)`` pair, or a sequence
+    of devices, one per rank) shards every bucket's batch over the mesh's
+    ranks: the batch is padded with identity lanes to a multiple of the
+    rank count, each rank solves its slice, and the slices are gathered, so
+    every rank returns the whole result.  Every rank must call with the
+    same arguments.
     """
-    if devices is not None:
-        raise NotImplementedError(
-            "solve_many(devices=...) shards buckets over several devices, which is not "
-            "ported yet: ROADMAP Queue 1 item 12 (multi-device)"
-        )
     if op not in _OPS:
         raise ValueError(f"unknown op {op!r}; expected one of {_OPS}")
     if op == "eigh" and not eigenvectors:
@@ -154,6 +205,7 @@ def solve_many(
         raise ValueError(
             f"inverse_pth_root needs the full spectrum; config selects {config.spectrum}"
         )
+    meshspec = _normalize_devices(devices)
     leaves: List[Any] = []
     rebuild = _flatten(mats, leaves)
     if not leaves:
@@ -194,7 +246,7 @@ def solve_many(
         raw = [infos[i]["leaf"].reshape((-1,) + infos[i]["leaf"].shape[-2:]) for i in leaf_ids]
         segs = [_embed(s, N, pad.ridge) for s in raw] if padded else raw
         stack = segs[0] if len(segs) == 1 else torch.cat(segs)
-        out = _run_bucket(stack, cfg, exec_op, p, eps, pad)
+        out = _run_bucket(stack, cfg, exec_op, p, eps, pad, meshspec)
 
         off = 0
         for i, A_i in zip(leaf_ids, raw):

@@ -186,10 +186,20 @@ def test_ef_compress_matches_jax_and_carries_the_error():
 
 
 def test_multi_device_pieces_raise():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        optim.compressed_psum(None, "data", torch.zeros(4))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        optim.shampoo(1e-3, optim.ShampooOptions(precond_mesh=("mesh", "axis")))
+    """Without a process group the multi-device pieces raise, naming
+    torch.distributed; ``precond_mesh`` is accepted (its parity on gloo
+    ranks is tests/test_torch_distributed.py's)."""
+    from repro_torch.launch import make_local_mesh
+
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="torch.distributed"):
+        optim.compressed_psum(make_local_mesh(device_type="cpu"), "data", torch.zeros(4))
+    # precond_mesh is accepted; its first refresh (step 1) needs the group.
+    opt = optim.shampoo(1e-3, optim.ShampooOptions(block_size=8, evd=EvdConfig(b=4, nb=8), precond_mesh=["cpu"]))
+    params = {"w": torch.ones(8, 8)}
+    state = opt.init(params)
+    with pytest.raises(RuntimeError, match="torch.distributed"):
+        opt.update({"w": torch.ones(8, 8)}, state, params)
 
 
 # -------------------------------------------------------------- shampoo
