@@ -96,8 +96,9 @@ Phases, each printing its own lines:
    RG-LRU chunks of 272, a local-attention cache of 544 slots), each
    decoding on its recurrent states; musicgen-large and
    llava-next-mistral-7b at full width cut to 2 layers, batch 4, prompt
-   32, gen 16, on tokens.  Each cell times the serve loop (the prompt
-   by teacher-forced decode steps, then greedy decode), the full-sequence
+   32, gen 16, on tokens.  Each cell times the serve loop (the prompt,
+   its first 128 tokens where longer, by teacher-forced decode steps, then
+   greedy decode), the full-sequence
    ``make_prefill``, the peak memory, and a step's device time (the step
    captured as one CUDA graph).  Gates: a float32 copy of the config on the
    same weights (granite-moe's first 4 layers: see ``SERVE_CELLS``),
@@ -109,8 +110,9 @@ Phases, each printing its own lines:
    with ``moe_impl="dense"`` and the decode's expert choices replayed;
    mixtral's positions past 4096 also on their own); its greedy tokens, and
    ``make_prefill``'s, are the forward's argmax (or within that tolerance
-   of its max, a tie); the bf16 decode logits over the same tokens are
-   finite and within 0.1 (mean) of max|logits| of the float32 ones; kernels
+   of its max, a tie); the bf16 decode logits over the same tokens (the
+   first 128 + 16 positions where longer) are finite and within 0.1
+   (mean) of max|logits| of the float32 ones; kernels
    A-E launch no time.  Then ``python -m repro_torch.launch.serve --arch
    mixtral-8x7b --smoke`` on the card.
 10. The Mamba2 and RG-LRU families and the frontends on the card, through
@@ -152,6 +154,31 @@ Phases, each printing its own lines:
    rank's input, and the replicated input back within 0.02 of itself.
    Every rank's results bitwise equal.  (e) A world
    of one rank on NCCL runs (b) at 64 blocks and (d).
+12. Model sharding: the sharded train step (``make_policy``,
+   ``shard_params``, ``make_train_step(..., policy=)``) on four gloo ranks
+   sharing the card, a (2, 2) ``("data", "model")`` mesh, at published
+   widths cut in depth, float32 weights.  (a) llama3.2-3b, 1 layer, 8 x 128,
+   ``fsdp=True`` (heads mode): 2 AdamW steps in bf16 activations, 1 with
+   ``sequence_parallel=True``, 1 in float32; (b) the same in float32 in
+   ``q_heads`` and ``cp`` through explicit policies; (c) granite-moe-3b-
+   a800m, 1 layer, 4 x 128, float32: ``ep`` (as resolved), ``capacity``
+   and ``tp``; (d) (c)'s float32 ``ep`` step with Shampoo and
+   ``precond_mesh`` over both axes.  Gates: every rank's loss bit for bit
+   equal; float32 losses within 1e-5 (relative) of one process's step on
+   the whole weights and, leaf by leaf, the gathered weights within 1e-4
+   of the step's largest change, or within 2x that leaf's distance between
+   the one-process step and the same step in float64 where that is larger
+   (AdamW from a second moment of 1, learning rate 1), and in (a)'s
+   float32 step and (c)'s ``ep`` each leaf of the momentum within 1e-4 of
+   its largest entry from the float64 step's, or within 4x the one-process
+   momentum's distance from it where larger; bf16 losses within 4x the
+   one-process loss's change under a one-ulp
+   move of the embedding;
+   kernels A-E launched no time in the AdamW steps; in (d) each rank's
+   A, B and C launches exactly 2 x ceil(blocks / 4) x one ``plan(128)``
+   solve's and its roots within 1e-3 of float64.  Prints each rank's step
+   ms and peak memory, the bytes a step moved (parameter gathers, gradient
+   sums, activations) and whether gloo sums bfloat16 CUDA tensors.
 
 Then one JSON line with the kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -224,6 +251,11 @@ SERVE_CELLS = (
 # of the forward's 1-ulp change at every depth (scripts/serve_sensitivity.py
 # on an H100).
 BF16_GATE_LAYERS = {"mamba2-370m": 8}
+# The timed serve loop prefills at most this many prompt tokens (its
+# figure is ms a step), and the bf16 gate decodes at most this many plus
+# the generated ones; the float32 gate decodes every position of the
+# longer prompts (mixtral's ring wrap, the RG-LRU's chunks).
+SERVE_SHORT_PROMPT = 128
 # Phase 10 Shampoo training cuts: (arch, layers, batch, seq, steps, step 1
 # repeated bit for bit).  mamba2-370m's 4 of 48 layers over 256 positions
 # (two SSD chunks of 128); one (rglru, rglru, attn) unit of
@@ -251,6 +283,55 @@ HETERO = ((512, 128), (512, 96), (64, 127))
 PAD_BUCKET = 128
 N_MEDIUM, B_MEDIUM = 1024, 8
 N_DIRECT, N_JACOBI, N_SEQUENTIAL = 1021, 512, 256
+
+# Phase 12: model sharding on a (2, 2) ("data", "model") mesh of four gloo
+# ranks sharing the card, at published widths cut in depth, float32
+# weights.  (a) llama3.2-3b, 1 layer, 8 x 128, make_policy(fsdp=True)
+# (heads mode: 24 / 8 heads on model = 2); (b) the same arch in q_heads and
+# cp through explicit policies; (c) granite-moe-3b-a800m, 1 layer, 4 x 128
+# (dropping MoE: ep, as resolved, then capacity and tp); (d) (c)'s ep
+# step with Shampoo and precond_mesh over both axes.  AdamW starts from a
+# second moment of 1 (as the CPU tests do), so an update is linear in the
+# gradient and the gathered weights can be held against one process.
+SHARD_RANKS = 4
+SHARD_DENSE = ("llama3.2-3b", 1, 8, 128)
+SHARD_MOE = ("granite-moe-3b-a800m", 1, 4, 128)
+# A learning rate of 1, so that float32's rounding of w + dw stays far
+# below the gate (one ulp of |w| ~ 4 is 4.8e-7; at a learning rate of 1e-2
+# the largest change is ~5e-4, of which one rounding is 1e-3).
+SHARD_LR = 1.0
+# float32 activations: the sharded loss against the one-process step's,
+# relative, and each leaf of the gathered weights against the one-process
+# step's, of the step's largest weight change: within 1e-4, or within 2x
+# that leaf's own distance between the one-process step and the same step
+# in float64 where that is larger (measured in each case,
+# :func:`shard_leaf_gate`).  The random-weight models' float32 gradients
+# can carry more than 1e-4: llama3.2-3b's tied embedding moves 1.40e-4 of
+# the largest change from float64 in one process (this phase on an NVIDIA
+# H100 80GB HBM3), so two float32 orders of summation differ by as much
+# there.  bf16 activations: the loss within
+# SENS_FACTOR x the one-process bf16 loss's change when the embedding moves
+# by one bf16 ulp (2^-8 relative, random signs; measured in each case):
+# the sharded step rounds each row-split product once more (its partial
+# sums, before the float32 reduction), about one ulp of the activations.
+TOL_SHARD_LOSS = 1e-5
+TOL_SHARD_PARAMS = 1e-4
+# The momentum (0.1 x the clipped gradient), leaf by leaf, of the leaf's
+# largest entry: the sharded step's distance from the same step in float64
+# within 1e-4, or within SHARD_MU_FACTOR x the one-process float32
+# momentum's own distance from it where that is larger.  Against one
+# process instead, two float32 momenta sit up to the sum of their
+# distances from float64 apart, which tests nothing.  The random-weight
+# models' float32 momenta sit up to 1.7e-3 from float64 in one process,
+# and the sharded ones up to 2.07x as far (cp's w_gate; this phase on an
+# NVIDIA H100 80GB HBM3); a dropped gradient sum reads >= 280x (norm
+# scales, scripts/shard_gate_fault.py).  A leaf whose change is at
+# float32's rounding of the weight (a norm scale's, ~4 ulps of 1 at this
+# width) shows a dropped sum only here.  Gated in (a)'s float32 step and
+# (c)'s resolved mode: the momentum's gather and float64 step cost ~10 s a
+# llama case.
+TOL_SHARD_MU = 1e-4
+SHARD_MU_FACTOR = 4.0
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, the
 # float32 rate outside the tensor cores, and the bf16 and TF32 tensor-core
@@ -1526,9 +1607,10 @@ def phase_serving(torch, gen):
         cache = cache_init(cfg, B, T)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        Pt = min(P, SERVE_SHORT_PROMPT)
         with torch.inference_mode():
             t0 = time.perf_counter()
-            for t in range(P):
+            for t in range(Pt):
                 nxt, cache = serve(params, cache, prompts[:, t : t + 1])
             torch.cuda.synchronize()
             t1 = time.perf_counter()
@@ -1548,8 +1630,9 @@ def phase_serving(torch, gen):
             fwd_ms = wall_ms(torch, lambda: prefill(params, {"tokens": prompts}))
         del cache
         prefill_ms, decode_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3 / G
-        print(f"phase 9 {cfg.name} serve loop: prefill by {P} decode steps {prefill_ms:.1f} ms "
-              f"({prefill_ms / P:.2f} ms a step), decode {decode_ms:.2f} ms/token/batch; a step's device time "
+        print(f"phase 9 {cfg.name} serve loop: prefill by {Pt} decode steps"
+              + (f" (the first of {P})" if Pt < P else "") + f" {prefill_ms:.1f} ms "
+              f"({prefill_ms / Pt:.2f} ms a step), decode {decode_ms:.2f} ms/token/batch; a step's device time "
               f"{dev_ms:.2f} ms (as one CUDA graph; device idle {1 - dev_ms / decode_ms:.1%} of an eager decode "
               f"step); make_prefill (forward over the prompt) {fwd_ms:.1f} ms; peak memory {peak / 2**30:.2f} GiB")
 
@@ -1595,16 +1678,19 @@ def phase_serving(torch, gen):
             greedy_ok, exact, n_greedy = _greedy_check(torch, ref[:, P - 1 : T - 1], fed[:, P:], tol * scale)
             prefill_ok, _, _ = _greedy_check(torch, ref[:, P - 1 : P], first[:, None], tol * scale)
             bf16_layers = BF16_GATE_LAYERS.get(arch, cfg.n_layers)
+            T16 = min(T, SERVE_SHORT_PROMPT + G)  # the bf16 gate's positions (the first ones)
+            fed16 = fed[:, :T16].clone()
             if bf16_layers < cfg.n_layers:  # the bf16 gate on the first layers only
                 cut = replace(cfg, n_layers=bf16_layers)
                 cut_params = dict(params, units=tree_map(lambda t: t[:bf16_layers], params["units"]))
-                lg32 = _decode_logits(torch, cut_params, replace(cut, dtype="float32"), fed, T)
-                lg16 = _decode_logits(torch, cut_params, cut, fed, T)
+                lg32 = _decode_logits(torch, cut_params, replace(cut, dtype="float32"), fed16, T16)
+                lg16 = _decode_logits(torch, cut_params, cut, fed16, T16)
                 scale16 = float(lg32.abs().max())
             else:
+                lg32 = lg32[:, :T16]
                 with _moe_routing(torch, replay=routing, n_layers=cfg.n_layers, flips=flips16) if moe \
                         else contextlib.nullcontext():
-                    lg16 = _decode_logits(torch, params, cfg, fed, T)
+                    lg16 = _decode_logits(torch, params, cfg, fed16, T16)
                 scale16 = scale
             finite = bool(torch.isfinite(lg16).all())
             diff = (lg16 - lg32).abs()
@@ -1619,7 +1705,8 @@ def phase_serving(torch, gen):
                           for name, (mx, md, md_tol) in gates.items())
               + f"; greedy tokens the forward's argmax {exact}/{n_greedy} (all within tol: {greedy_ok}), "
               f"make_prefill's within tol: {prefill_ok}; bf16 decode vs float32"
-              + (f" (first {bf16_layers} layers)" if bf16_layers < cfg.n_layers else "") + f": mean {mean16:.3e} "
+              + (f" (first {bf16_layers} layers)" if bf16_layers < cfg.n_layers else "")
+              + (f" (first {T16} positions)" if T16 < T else "") + f": mean {mean16:.3e} "
               f"(tol {TOL_SERVE_BF16:.0e}), max {max16:.3e} of max|logits|, finite {finite}, argmax agrees at "
               f"{agree16:.1%} of positions"
               + (f"; routing the forward would choose otherwise: {flips[0]} of {n_route} (token, layer) pairs, "
@@ -1631,10 +1718,12 @@ def phase_serving(torch, gen):
         require(finite and mean16 < TOL_SERVE_BF16, f"phase 9 {cfg.name} bf16 logits vs float32 {mean16:.3e}")
         cells[cfg.name] = dict(
             layers=layers or get_config(arch).n_layers, gate_layers=cfg.n_layers, batch=B, prompt=P, gen=G,
+            timed_prompt=Pt,
             params_b=n_params / 1e9, prefill_ms=prefill_ms, decode_ms_per_token=decode_ms, step_device_ms=dev_ms,
             forward_prefill_ms=fwd_ms, peak_gib=peak / 2**30, fp32_tol=tol,
             ulp_sensitivity=float(sens_pos.max()), fp32_gates={k: list(v) for k, v in gates.items()},
-            greedy_exact=f"{exact}/{n_greedy}", bf16_layers=bf16_layers, bf16_mean_err=mean16, bf16_max_err=max16,
+            greedy_exact=f"{exact}/{n_greedy}", bf16_layers=bf16_layers, bf16_positions=T16, bf16_mean_err=mean16,
+            bf16_max_err=max16,
             routing_flips=flips[0] if moe else None)
         del params, prompts, lg32, ref, lg16, diff, fed, routing, err_pos, sens_pos
         gc.collect()
@@ -2018,6 +2107,333 @@ def phase_distributed(torch, phase6a_ms: float):
         launches_per_rank={"a": res[0]["a"]["launches"], "b": res[0]["b"]["launches"]})
 
 
+def _shard_cfg(arch: str, layers: int, dtype: str, **over):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=layers, dtype=dtype, **over)
+
+
+def _explicit_policy(mesh, cfg, param: dict, act: dict):
+    """``make_policy(mesh, cfg)`` with some rules replaced (a shard mode that
+    ``resolve_*`` does not pick at this mesh)."""
+    from repro_torch.parallel import ShardingPolicy, make_policy
+
+    base = make_policy(mesh, cfg, fsdp=True)
+    return ShardingPolicy(mesh, {**base.param_rules, **param}, {**base.activation_rules, **act})
+
+
+def _gloo_bf16(torch):
+    """Whether gloo sums bfloat16 CUDA tensors right (c10d all_reduce)."""
+    import torch.distributed as dist
+
+    x = torch.full((1024,), 1.0 + dist.get_rank(), dtype=torch.bfloat16, device="cuda")
+    dist.all_reduce(x)
+    n = dist.get_world_size()
+    return bool((x.float() == n * (n + 1) / 2).all())
+
+
+def shard_leaf_gate(paths, got, ref, ref64, scales, floor: float, against: str = "ref", factor: float = 2.0):
+    """Per leaf: ``err``, the sharded step's tensor ``got`` against the
+    one-process step's ``ref`` (``against="ref"``) or against the same step
+    in float64, ``ref64`` (``against="float64"``); ``noise``, ``ref``'s own
+    distance from ``ref64``; and the limit ``tol``, ``floor`` or ``factor``
+    x ``noise`` where that is larger.  All of the leaf's entry of ``scales``.
+    The rows sorted by err / tol, the tightest first."""
+    rows = []
+    for path, a, b, d, scale in zip(paths, got, ref, ref64, scales):
+        a, b, d = a.double(), b.double(), d.double()
+        err = float((a - (b if against == "ref" else d)).abs().max()) / scale
+        noise = float((b - d).abs().max()) / scale
+        rows.append(dict(path=path, err=err, noise=noise, tol=max(floor, factor * noise)))
+    return sorted(rows, key=lambda r: r["err"] / r["tol"], reverse=True)
+
+
+def _shard_case(torch, tag: str, cfg, policy, batch: int, seq: int, steps: int, *, opt=None, sens=False,
+                ref=True, momentum=False):
+    """``steps`` sharded steps of ``cfg`` under ``policy`` from seeded whole
+    weights (the same on every rank) and one seeded batch, this rank's rows
+    of it; then the same steps in this process alone on the whole weights.
+    Returns the losses (and their bits), per-step ms, the bytes a step
+    moved by tag, the peak memory of the sharded steps, the kernels'
+    launches, and the gathered weights' distance from the one-process
+    step's (in float32 with AdamW, the weights leaf by leaf under
+    :func:`shard_leaf_gate`, and with ``momentum`` the momentum too)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import model_meta, model_params
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import comm, gather_params, shard_params
+    from repro_torch.train import make_loss_fn, make_train_step
+    from repro_torch.train.step import init_opt_state
+    from repro_torch.tree import flatten_with_paths, leaves, tree_map
+
+    t_case = time.perf_counter()
+    opt = adamw(SHARD_LR) if opt is None else opt
+    whole = model_params(cfg, torch.Generator(device="cuda").manual_seed(SEED + 21), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=g, device="cuda", dtype=torch.int32)
+    full = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    res = policy.resolver()
+    n, i = res.size("act_batch"), res.index("act_batch")
+    rows = {k: v[i * batch // n:(i + 1) * batch // n] for k, v in full.items()}
+
+    def start(state):
+        if hasattr(state, "stats_l"):
+            return state
+        return state._replace(nu=tree_map(torch.ones_like, state.nu))
+
+    params = shard_params(whole, policy.param_shardings(model_meta(cfg)))
+    state = start(init_opt_state(opt, params))
+    whole = tree_map(lambda t: t.cpu(), whole) if ref else None  # off the card during the sharded steps
+    step = make_train_step(cfg, opt, policy=policy)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    losses, bits, ms, traffic, first_state = [], [], [], [], None
+    for k in range(steps):
+        comm.reset_traffic()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, rows, k)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        bits.append(m["loss"].cpu().numpy().tobytes().hex())
+        traffic.append(dict(comm.traffic))
+        first_state = state if first_state is None else first_state
+    launches = nonzero(cuda_lib.launch_counts())
+    device_launches = nonzero(cuda_lib.device_launch_counts())
+    peak = torch.cuda.max_memory_allocated()
+    rec = dict(losses=losses, loss_bits=bits, ms=ms, traffic=traffic, peak_gib=peak / 2**30, launches=launches,
+               device_launches=device_launches)
+    if opt.whole_leaves:
+        rec["state"] = first_state
+    print(f"{tag} rank {dist.get_rank()}: losses {losses}, step ms {[round(t, 1) for t in ms]}, peak "
+          f"{peak / 2**30:.2f} GiB, bytes a step {traffic[-1]}, launches {launches}")
+    rec["case_s"] = time.perf_counter() - t_case
+    if not ref:
+        return rec
+    t_ref = time.perf_counter()
+    gated = cfg.dtype == "float32" and steps == 1 and not opt.whole_leaves
+    new = gather_params(params)
+    mu = gather_params(state.mu) if gated and momentum else None
+    del params, state
+    rec["gather_s"] = time.perf_counter() - t_ref
+    if dist.get_rank() != 0:  # one rank holds the one-process step (four would not fit the card)
+        del new, mu, whole
+        torch.cuda.empty_cache()
+        dist.barrier()
+        return rec
+    whole = tree_map(lambda t: t.cuda(), whole)
+    ref_p, ref_s = whole, start(opt.init(whole))
+    ref_step = make_train_step(cfg, opt)
+    ref_losses = []
+    for k in range(steps):
+        ref_p, ref_s, m = ref_step(ref_p, ref_s, full, k)
+        ref_losses.append(float(m["loss"]))
+    moved = max(float((a - b).abs().max()) for a, b in zip(leaves(ref_p), leaves(whole)))
+    rec["ref_losses"] = ref_losses
+    paths = flatten_with_paths(whole)[0]
+    rec["param_err"] = max(float((a - b).abs().max()) for a, b in zip(leaves(new), leaves(ref_p))) / moved
+    rec["max_delta"] = moved
+    if gated:  # the one-process float32 step against the same step in float64
+        c64 = dataclasses.replace(cfg, dtype="float64", param_dtype="float64")
+        p64 = tree_map(lambda t: t.double(), whole)
+        n64, s64, _ = make_train_step(c64, opt)(p64, start(opt.init(p64)), full, 0)
+        del p64
+        n = len(paths)
+        rec["leaf_gate"] = shard_leaf_gate(paths, leaves(new), leaves(ref_p), leaves(n64), [moved] * n,
+                                           TOL_SHARD_PARAMS)
+        if momentum:
+            rec["mu_gate"] = shard_leaf_gate(paths, leaves(mu), leaves(ref_s.mu), leaves(s64.mu),
+                                             [max(float(m.abs().max()), 1e-30) for m in leaves(s64.mu)],
+                                             TOL_SHARD_MU, against="float64", factor=SHARD_MU_FACTOR)
+        del n64, s64, mu
+    if sens:  # the bf16 loss's change when the embedding moves by one bf16 ulp
+        loss_fn = make_loss_fn(cfg)
+        sign = torch.randint(0, 2, whole["embed"].shape, generator=g, device="cuda") * 2.0 - 1
+        bumped = dict(whole, embed=whole["embed"] * (1 + sign * 2.0 ** -8))
+        with torch.no_grad():
+            rec["ulp_sensitivity"] = abs(float(loss_fn(bumped, full)[0]) - float(loss_fn(whole, full)[0]))
+        del sign, bumped
+    del new, ref_p, ref_s, whole
+    torch.cuda.empty_cache()
+    rec["ref_s"] = time.perf_counter() - t_ref
+    dist.barrier()
+    return rec
+
+
+def _shard_rank():
+    """Phase 12 (a)-(d) in one rank of the gloo world (every rank runs it)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_local_mesh
+    from repro_torch.optim import ShampooOptions, shampoo
+    from repro_torch.parallel import make_policy, resolve_attn_mode, resolve_moe_mode
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_local_mesh(2)
+    out = dict(backend=dist.get_backend(), gloo_bf16=_gloo_bf16(torch), started=time.time())
+    tag = f"phase 12 rank {dist.get_rank()}"
+
+    # (a) llama3.2-3b, heads mode, FSDP: bf16 AdamW steps, a sequence-parallel step, a float32 step.
+    arch, layers, batch, seq = SHARD_DENSE
+    mode = resolve_attn_mode(_shard_cfg(arch, layers, "bfloat16"), 2)
+    for key, dtype, steps, sp in (("a", "bfloat16", 2, False), ("a_sp", "bfloat16", 1, True),
+                                  ("a_f32", "float32", 1, False)):
+        cfg = _shard_cfg(arch, layers, dtype, attn_shard_mode=mode)
+        out[key] = _shard_case(torch, f"{tag} ({key})", cfg, make_policy(mesh, cfg, fsdp=True, sequence_parallel=sp),
+                               batch, seq, steps, sens=dtype == "bfloat16", momentum=dtype == "float32")
+    out["a_mode"] = mode
+
+    # (b) the other attention modes, float32, through explicit policies.
+    for key, mode, param, act in (
+            ("b_q_heads", "q_heads", {"q_heads": "model", "kv_heads": None},
+             {"act_heads": "model", "act_kv_heads": None, "act_q_chunks": None}),
+            ("b_cp", "cp", {"q_heads": None, "kv_heads": None},
+             {"act_heads": None, "act_kv_heads": None, "act_q_chunks": "model"})):
+        # cp owns query chunks: 64-token chunks give each model rank one of the 2.
+        chunk = dict(attn_chunk=seq // 2) if mode == "cp" else {}
+        cfg = _shard_cfg(arch, layers, "float32", attn_shard_mode=mode, **chunk)
+        out[key] = _shard_case(torch, f"{tag} ({key})", cfg, _explicit_policy(mesh, cfg, param, act), batch, seq, 1)
+
+    # (c) granite-moe: ep (resolved), capacity and tp, float32.
+    arch_m, layers_m, batch_m, seq_m = SHARD_MOE
+    base = _shard_cfg(arch_m, layers_m, "float32")
+    moe_mode = resolve_moe_mode(base, 2)
+    for key, mode, param, act in (
+            ("c_" + moe_mode, moe_mode, {}, {}),
+            ("c_capacity", "capacity", {"experts": None, "expert_mlp": None},
+             {"act_experts": None, "act_capacity": "model", "act_expert_mlp": None}),
+            ("c_tp", "tp", {"experts": None, "expert_mlp": "model"},
+             {"act_experts": None, "act_capacity": None, "act_expert_mlp": "model"})):
+        cfg = _shard_cfg(arch_m, layers_m, "float32", attn_shard_mode=resolve_attn_mode(base, 2),
+                         moe_shard_mode=mode)
+        out[key] = _shard_case(torch, f"{tag} ({key})", cfg, _explicit_policy(mesh, cfg, param, act),
+                               batch_m, seq_m, 1, momentum=mode == moe_mode)
+    out["c_mode"] = moe_mode
+
+    # (d) Shampoo under (c)'s resolved policy, its refresh split over both
+    # axes (granite's whole leaves and Shampoo state fit four ranks on the
+    # card; llama's 1.5 GiB embedding, with its Adam moments and gathered
+    # gradient, does not).
+    cfg = _shard_cfg(arch_m, layers_m, "float32", attn_shard_mode=resolve_attn_mode(base, 2), moe_shard_mode=moe_mode)
+    opts = ShampooOptions(precond_mesh=(mesh, ("data", "model")))
+    opt = shampoo(SHARD_LR, opts)
+    out["d"] = _shard_case(torch, f"{tag} (d)", cfg, make_policy(mesh, cfg, fsdp=True), batch_m, seq_m, 1, opt=opt,
+                           ref=False)
+    st = out["d"].pop("state")
+    idx = torch.randperm(st.stats_l.shape[0], generator=torch.Generator().manual_seed(SEED))[:ROOT_BLOCKS].cuda()
+    out["d"]["blocks"] = st.stats_l.shape[0]
+    out["d"]["root_err"] = {side: float(root_errors(torch, getattr(st, "stats_" + side), getattr(st, "pre_" + side),
+                                                    idx, opts.eps)[0].max()) for side in ("l", "r")}
+    return out
+
+
+def phase_sharding(torch):
+    """Phase 12: the sharded train step (model sharding) on four gloo ranks
+    sharing the card, on a (2, 2) ("data", "model") mesh."""
+    import gc
+
+    from repro_torch.parallel import run_ranks
+    from repro_torch.solver import EvdConfig, plan
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0, t_wall = time.perf_counter(), time.time()
+    res = run_ranks(_shard_rank, SHARD_RANKS, backend="gloo", device_type="cuda", timeout_s=600)
+    ranks_s = time.perf_counter() - t0
+    start_s = max(r["started"] for r in res) - t_wall
+    require([r["backend"] for r in res] == ["gloo"] * SHARD_RANKS, "phase 12 gloo ranks")
+    gloo_bf16 = all(r["gloo_bf16"] for r in res)
+    print(f"phase 12 gloo all_reduce of bfloat16 CUDA tensors right on every rank: {gloo_bf16} (the step reduces "
+          f"in float32 whatever it finds)")
+    keys = [k for k in res[0] if isinstance(res[0][k], dict)]  # the cases, in run order
+    summary, failed = {}, []
+    for key in keys:
+        recs = [r[key] for r in res]
+        first = recs[0]
+        same = all(r["loss_bits"] == first["loss_bits"] for r in recs)
+        require(same, f"phase 12 ({key}) losses differ across ranks: {[r['losses'] for r in recs]}")
+        traffic = first["traffic"][-1]
+        line = (f"phase 12 ({key}) losses {first['losses']} on every rank bit for bit; step ms per rank "
+                f"{[[round(t, 1) for t in r['ms']] for r in recs]}; peak GiB per rank "
+                f"{[round(r['peak_gib'], 2) for r in recs]}; bytes a step on rank 0: parameter gathers "
+                f"{traffic.get('param', 0)}, gradient sums {traffic.get('grad', 0)}, activations {traffic.get('act', 0)}")
+        entry = dict(losses=first["losses"], ms=[r["ms"] for r in recs], peak_gib=[r["peak_gib"] for r in recs],
+                     traffic=traffic)
+        if "ref_losses" in first:
+            rel = max(abs(a - b) / abs(b) for a, b in zip(first["losses"], first["ref_losses"]))
+            entry.update(ref_losses=first["ref_losses"], loss_rel=rel, param_err=first["param_err"])
+            if "ulp_sensitivity" in first:
+                bound = SENS_FACTOR * first["ulp_sensitivity"]
+                diff = max(abs(a - b) for a, b in zip(first["losses"], first["ref_losses"]))
+                line += (f"; bf16 vs one process {first['ref_losses']}: |diff| {diff:.3e} (bound {bound:.3e} = "
+                         f"{SENS_FACTOR:g} x the loss's change {first['ulp_sensitivity']:.3e} when the embedding "
+                         f"moves one bf16 ulp)")
+                entry.update(diff=diff, bound=bound)
+                ok = diff <= bound
+            else:
+                rows, mus = first["leaf_gate"], first.get("mu_gate", [])
+                ok = rel < TOL_SHARD_LOSS and all(r["err"] < r["tol"] for r in rows + mus)
+
+                def tight(rs):
+                    return [(r["path"], f"{r['err']:.3e}", f"{r['noise']:.3e}", f"{r['tol']:.3e}") for r in rs[:3]]
+
+                line += (f"; float32 vs one process: loss rel {rel:.3e} (tol {TOL_SHARD_LOSS:.0e}), gathered weights "
+                         f"{first['param_err']:.3e} of the largest change {first['max_delta']:.3e}; tightest leaves "
+                         f"(path, err, one process vs float64, tol): weights (against one process) {tight(rows)}"
+                         + (f", momentum (against float64) {tight(mus)}" if mus else ""))
+                entry.update(leaf_gate=rows[:3], mu_gate=mus[:3])
+            line += (f"; rank 0's case {first['case_s']:.1f} s, the weights' gather {first['gather_s']:.1f} s, the "
+                     f"one-process check {first['ref_s']:.1f} s")
+        print(line)
+        if "ref_losses" in first and not ok:
+            failed.append(f"({key}) vs one process")
+        if key != "d" and any(r["launches"] for r in recs):
+            failed.append(f"({key}) AdamW steps launched kernels")
+        summary[key] = entry
+    require(not failed, f"phase 12 {failed}")  # after every case's line
+
+    # (d) Shampoo: each rank's share of the refresh, the roots against float64.
+    d = [r["d"] for r in res]
+    pl = plan(N_BLOCK, torch.float32, EvdConfig(b=8, nb=64))
+    one = solve_launches(pl)
+    from repro_torch.kernels import cuda_lib
+
+    cuda_lib.reset_launch_counts()
+    pl(torch.eye(N_BLOCK, device="cuda"))
+    one_dev = nonzero(cuda_lib.device_launch_counts())
+    share = -(-d[0]["blocks"] // SHARD_RANKS)
+    ref = summary["c_" + res[0]["c_mode"]]["ref_losses"][0]
+    d_rel = abs(d[0]["losses"][0] - ref) / abs(ref)
+    print(f"phase 12 (d) Shampoo with precond_mesh over both axes: {d[0]['blocks']} blocks a side, {share} a rank; "
+          f"launches per rank {[r['launches'] for r in d]} (CUDA {[r['device_launches'] for r in d]}) against 2 x "
+          f"{share} x one plan({N_BLOCK}) solve's {one} (CUDA {one_dev}); roots vs float64 on {ROOT_BLOCKS} seeded "
+          f"blocks {[r['root_err'] for r in d]} (tol {TOL_ROOT:.0e}); step-1 loss vs (c)'s float32 one-process loss "
+          f"(the same weights and batch) rel {d_rel:.3e} (tol {TOL_SHARD_LOSS:.0e}); rank 0's case {d[0]['case_s']:.1f} s")
+    for r in d:
+        require(r["launches"] == {op: 2 * share * c for op, c in one.items()}, f"phase 12 (d) launches {r['launches']}")
+        require(r["device_launches"] == {op: 2 * share * c for op, c in one_dev.items()},
+                f"phase 12 (d) CUDA launches {r['device_launches']}")
+        require(all(e < TOL_ROOT for e in r["root_err"].values()), f"phase 12 (d) roots {r['root_err']}")
+    require(d_rel < TOL_SHARD_LOSS, "phase 12 (d) loss vs one process")
+    summary["d"].update(blocks=d[0]["blocks"], share=share, root_err=[r["root_err"] for r in d],
+                        launches_per_rank=[r["launches"] for r in d])
+    print(f"phase 12 the {SHARD_RANKS} gloo ranks took {ranks_s:.1f} s, {start_s:.1f} s of it their start-up")
+    return dict(ranks=SHARD_RANKS, ranks_s=ranks_s, start_s=start_s, gloo_bf16=gloo_bf16, attn_mode=res[0]["a_mode"],
+                moe_mode=res[0]["c_mode"], cases=summary)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2065,10 +2481,12 @@ def main() -> int:
     family, family_device, families = phase_families(torch, gen)
     t11 = time.perf_counter()
     distributed = phase_distributed(torch, shampoo["ms"])
+    t12 = time.perf_counter()
+    sharded = phase_sharding(torch)
     t_end = time.perf_counter()
     print(f"phase 6 took {t7 - t6:.1f} s, phase 7 {t8 - t7:.1f} s, phase 8 {t9 - t8:.1f} s, phase 9 "
-          f"{t10 - t9:.1f} s, phase 10 {t11 - t10:.1f} s, phase 11 {t_end - t11:.1f} s; the script "
-          f"{t_end - t_start:.1f} s in all (kernel build included)")
+          f"{t10 - t9:.1f} s, phase 10 {t11 - t10:.1f} s, phase 11 {t12 - t11:.1f} s, phase 12 {t_end - t12:.1f} s; "
+          f"the script {t_end - t_start:.1f} s in all (kernel build included)")
 
     # Kernel D serves two registry ops (syr2k, trailing_update); its launches
     # are the sum of both counters over the unfused plan(A) run.
@@ -2094,10 +2512,12 @@ def main() -> int:
         for sub in ("a", "b"):
             if name in distributed["launches_per_rank"][sub]:
                 row[f"distributed_{sub}_launches_per_rank"] = distributed["launches_per_rank"][sub][name]
+        row["sharding_launches_per_rank"] = [r.get(name, 0) for r in sharded["cases"]["d"]["launches_per_rank"]]
         row.update(rows[name])
         kernels.append(row)
     print(json.dumps({"kernels": kernels, "shampoo_refresh": shampoo, "shampoo_training": training,
-                      "serving": serving, "families": families, "distributed": distributed}))
+                      "serving": serving, "families": families, "distributed": distributed,
+                      "sharding": sharded}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

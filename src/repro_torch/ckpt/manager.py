@@ -9,8 +9,14 @@
 * **Portable**: arrays are saved as numpy (``arrays.npz``) with a manifest
   of leaf paths (``repro_torch.tree``); ``restore`` puts each leaf on the
   device and in the dtype of the caller's target tree.  bfloat16 leaves are
-  stored as float32.  Resharding onto a mesh (``shardings=``) is not ported
-  yet.
+  stored as float32.
+* **Sharded**: a ``DTensor`` leaf (a rank's block, ``parallel.shard_params``)
+  is gathered whole (``comm.full_tensor``) by every rank, and rank 0 alone
+  writes.  ``restore`` loads each whole array and returns this rank's block
+  as a ``DTensor``, per ``shardings=`` (``policy.param_shardings(meta)``,
+  a tree like the target's or like its ``"params"`` subtree) or per the
+  target leaf's own placements; so a run saved on one mesh restores on
+  another, or in one process.
 """
 from __future__ import annotations
 
@@ -29,7 +35,36 @@ from repro_torch.tree import flatten_with_paths
 __all__ = ["CheckpointManager"]
 
 
+def _spec(v):
+    """A DTensor's placements as a spec: per tensor dim, the mesh axes that
+    split it, in mesh order."""
+    from torch.distributed.tensor import Shard
+
+    names = v.device_mesh.mesh_dim_names
+    entries = [()] * v.ndim
+    for i, pl in enumerate(v.placements):
+        if isinstance(pl, Shard):
+            entries[pl.dim] = entries[pl.dim] + (names[i],)
+    return tuple(e[0] if len(e) == 1 else (e or None) for e in entries)
+
+
+def _is_dtensor(v) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(v, DTensor)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
 def _to_host(v) -> np.ndarray:
+    if _is_dtensor(v):
+        from repro_torch.parallel.comm import full_tensor
+
+        v = full_tensor(v)
     t = torch.as_tensor(v).detach()
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
@@ -47,8 +82,10 @@ class CheckpointManager:
     # ------------------------------------------------------------ save
     def save(self, step: int, tree: Any, *, blocking: bool = False):
         paths, vals, _ = flatten_with_paths(tree)
-        host_vals = [_to_host(v) for v in vals]  # device -> host now
+        host_vals = [_to_host(v) for v in vals]  # device -> host now (sharded leaves gathered)
         self.wait()  # one in-flight save at a time
+        if _rank() != 0:  # every rank gathers, rank 0 writes
+            return
 
         def _write():
             tmp = os.path.join(self.dir, f"tmp.{step}")
@@ -93,12 +130,11 @@ class CheckpointManager:
 
     def restore(self, step: int, target: Any, shardings: Any = None) -> Any:
         """Restore into the structure of ``target``: each leaf on the device
-        and in the dtype of ``target``'s leaf."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) reshards onto a device mesh, which is not ported yet: "
-                "ROADMAP Queue 1 item 12(b) (model sharding)"
-            )
+        and in the dtype of ``target``'s leaf.  With ``shardings`` (a tree
+        of ``parallel.NamedSharding`` like ``target``, or like its
+        ``"params"`` subtree) a leaf becomes this rank's block of the whole
+        saved array, in a ``DTensor``; a ``DTensor`` leaf of ``target`` is
+        cut by its own placements."""
         d = os.path.join(self.dir, f"step_{step:010d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -106,15 +142,33 @@ class CheckpointManager:
         saved = {p: data[f"a{i}"] for i, p in enumerate(manifest["paths"])}
 
         paths, vals, rebuild = flatten_with_paths(target)
+        shard_of = {}
+        if shardings is not None:
+            sub = isinstance(target, dict) and "params" in target and not (
+                isinstance(shardings, dict) and "params" in shardings)
+            sp, shs, _ = flatten_with_paths({"params": shardings} if sub else shardings)
+            shard_of = dict(zip(sp, shs))
         out = []
         for p, v in zip(paths, vals):
             if p not in saved:
                 raise KeyError(f"checkpoint missing leaf {p!r}")
             arr = saved[p]
-            v = torch.as_tensor(v)
             if tuple(arr.shape) != tuple(v.shape):
                 raise ValueError(f"shape mismatch for {p}: {arr.shape} vs {tuple(v.shape)}")
-            out.append(torch.as_tensor(arr).to(device=v.device, dtype=v.dtype))
+            sh = shard_of.get(p)
+            if sh is None and _is_dtensor(v):
+                from repro_torch.parallel.sharding import NamedSharding
+
+                sh = NamedSharding(v.device_mesh, _spec(v))
+            local = v.to_local() if _is_dtensor(v) else torch.as_tensor(v)
+            whole = torch.as_tensor(arr).to(device=local.device, dtype=local.dtype)
+            if sh is None:
+                out.append(whole)
+                continue
+            from torch.distributed.tensor import DTensor
+
+            out.append(DTensor.from_local(sh.shard(whole, p), sh.mesh, sh.placements, run_check=False,
+                                          shape=whole.shape, stride=whole.stride()))
         return rebuild(out)
 
     def restore_latest(self, target: Any, shardings: Any = None):

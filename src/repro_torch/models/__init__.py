@@ -8,11 +8,18 @@ and "rglru" blocks, the stacked-unit LM (``forward``, ``LM``; hybrid
 pattern units, and precomputed frontend embeddings through
 ``frontend_proj``), and one-token decode against caches (``cache_meta``,
 ``cache_init``, ``decode_step``; ring buffers for windowed layers,
-recurrent states for Mamba2 and RG-LRU layers).  Not yet:
-``partition_specs`` (ROADMAP Queue 1 item 12(b), model sharding).
+recurrent states for Mamba2 and RG-LRU layers), and model sharding:
+``partition_specs`` (a ``PartitionSpec`` per leaf from the rule tables of
+``repro_torch.parallel.sharding``), attention's ``heads`` / ``q_heads`` /
+``cp`` modes, the MoE's ``ep`` / ``capacity`` / ``tp`` modes, the
+vocab-parallel embedding and head, FSDP gathers per unit and sequence
+parallelism, all through ``repro_torch.parallel.hints``; and ``remat``
+``"none"``, ``"block"`` and ``"dots"``.  Tensor parallelism of the Mamba2
+and RG-LRU mixers is not ported (ROADMAP Queue 1 item 12(c)); under pure
+data parallelism they shard like the rest.
 """
 from .config import ModelConfig
-from .params import ParamMeta, abstract_params, init_params, partition_specs, param_count
+from .params import ParamMeta, PartitionSpec, abstract_params, init_params, partition_specs, param_count
 from .lm import (
     LM,
     cache_init,
@@ -30,6 +37,7 @@ __all__ = [
     "abstract_params",
     "init_params",
     "partition_specs",
+    "PartitionSpec",
     "param_count",
     "model_meta",
     "model_params",

@@ -1,11 +1,22 @@
 """Attention: GQA/MQA/MHA with rotary, qk-norm and sliding windows (port
-of ``repro.models.attention``, ``attn_shard_mode="none"``).
+of ``repro.models.attention``).
 
 Training and prefill send the full sequence through chunked flash
 attention (``repro_torch.models.flash``) in the grouped-GQA layout:
 queries (B, nq, cq, Hkv, G, hd) against keys and values (B, S, Hkv, hd),
-never materializing S x S logits.  The other shard modes split heads or
-query chunks over a device mesh and are not ported yet.
+never materializing S x S logits.  Under a sharding resolver
+(``repro_torch.parallel.hints``) the shard modes of ``cfg.attn_shard_mode``
+split the work over the model axis, each rank holding its block of the
+weights:
+
+* ``heads`` (and ``none``): ``wq`` / ``wk`` / ``wv`` column-split, each rank
+  with ``n_kv_heads / m`` KV heads and their query groups; ``wo`` row-split,
+  its partial sums reduced.
+* ``q_heads``: K/V repeated to the query heads first (JAX's layout), ``wk``
+  / ``wv`` replicated; each rank takes ``n_heads / m`` heads.
+* ``cp``: the weights replicated; each rank computes the query chunks it
+  owns against all of K/V, and the output chunks are gathered along the
+  sequence.
 
 Decode attends one query against a cache.  Full-attention layers keep a
 ``max_len`` cache; sliding-window layers (mixtral) keep a ring buffer of
@@ -23,6 +34,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.backend import probe
+from repro_torch.parallel import comm, hints
 
 from .config import ModelConfig
 from .flash import flash_attention
@@ -73,6 +85,24 @@ def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
     return q, k, v
 
 
+RES = ("act_batch", "act_res_seq", None)  # the residual stream's layout
+
+
+def _attn_split(cfg: ModelConfig, res) -> Tuple[str, Optional[str]]:
+    """(mode, the logical name of the axes that split the work)."""
+    mode = cfg.attn_shard_mode
+    if mode == "cp":
+        return mode, "act_q_chunks"
+    if mode not in ("none", "heads", "q_heads"):
+        raise ValueError(f"attn_shard_mode={mode!r}: one of none, heads, q_heads, cp")
+    if res is not None and res.axes("act_q_chunks"):
+        raise ValueError(f"the policy splits query chunks (cp) but attn_shard_mode={mode!r}")
+    if res is not None and mode != "q_heads" and res.axes("act_heads") != res.axes("act_kv_heads"):
+        raise ValueError(f"the policy splits q heads over {res.axes('act_heads')} and KV heads over "
+                         f"{res.axes('act_kv_heads')}: that is attn_shard_mode='q_heads', not {mode!r}")
+    return mode, "act_heads"
+
+
 def attention_forward(
     p: dict,
     cfg: ModelConfig,
@@ -82,30 +112,64 @@ def attention_forward(
 ) -> torch.Tensor:
     """Causal self-attention over a full sequence (train / prefill).
 
-    x: (B, S, D).  ``window``: sliding/local attention width (None = full).
+    x: (B, S, D) in the residual stream's layout (sequence split on the
+    model axis under sequence parallelism).  ``window``: sliding/local
+    attention width (None = full).  Each rank holds its block of ``p``.
     """
-    if cfg.attn_shard_mode != "none":
-        raise NotImplementedError(
-            f"attn_shard_mode={cfg.attn_shard_mode!r} splits attention over a device mesh, "
-            "which is not ported yet: ROADMAP Queue 1 item 12(b) (model sharding)"
-        )
+    res = hints.active_resolver()
+    mode, work = _attn_split(cfg, res)
+    x = hints.tp_input(x, RES, work)
+    if mode == "cp":
+        p = hints.shared_param(p, work)
+    elif mode == "q_heads":
+        p = {k: (hints.shared_param(v, work) if k in ("wk", "wv", "bk", "bv", "k_norm") else v)
+             for k, v in p.items()}
     B, S, D = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(p, cfg, x)
+    hq_loc = q.shape[2]  # this rank's query heads
 
     cos, sin = rotary_cos_sin(torch.arange(S, device=x.device), hd, cfg.rope_theta)
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
     q = q * (hd ** -0.5)
 
+    if mode == "q_heads":
+        k = torch.repeat_interleave(k, hq // hkv, dim=2)
+        v = torch.repeat_interleave(v, hq // hkv, dim=2)
+        if hq_loc != hq:  # this rank's heads of the repeated K/V
+            h0 = hints.active_resolver().index(work) * hq_loc
+            k, v = k[:, :, h0:h0 + hq_loc], v[:, :, h0:h0 + hq_loc]
+        hkv_eff, G = hq_loc, 1
+        kv_hint, head_hint = ("act_batch", None, "act_heads", None), "act_heads"
+    elif mode == "cp":
+        hkv_eff, G = hkv, hq // hkv
+        kv_hint, head_hint = ("act_batch", None, None, None), None
+    else:
+        hkv_eff, G = k.shape[2], hq // hkv
+        kv_hint, head_hint = ("act_batch", None, "act_kv_heads", None), "act_kv_heads"
+    k = hints.shard_hint(k, kv_hint)
+    v = hints.shard_hint(v, kv_hint)
+
     cq = min(cfg.attn_chunk, S)
     assert S % cq == 0, (S, cq)
     nq = S // cq
     ck = min(cfg.attn_kv_chunk, S)
-    q6 = q.reshape(B, nq, cq, hkv, hq // hkv, hd)
-    o6 = flash_attention(q6, k, v, ck, window, cfg.attn_logit_softcap)
-    attn = o6.reshape(B, S, hq, hd)
-    return torch.einsum("bshk,hkd->bsd", attn, p["wo"].to(x.dtype))
+    q6 = q.reshape(B, nq, cq, hkv_eff, G, hd)
+    c0 = 0
+    if mode == "cp" and res is not None and res.axes(work):
+        c0, c1 = comm.chunk_bounds(nq, res.size(work), res.index(work))
+        q6 = q6[:, c0:c1]  # the query chunks this rank owns
+    q6 = hints.shard_hint(q6, ("act_batch", "act_q_chunks" if mode == "cp" else None, None, head_hint, None, None))
+    o6 = flash_attention(q6, k, v, ck, window, cfg.attn_logit_softcap, c0 * cq)
+    attn = o6.reshape(B, -1, hq_loc, hd)
+    out = torch.einsum("bshk,hkd->bsd", attn, p["wo"].to(x.dtype))
+    if mode != "cp":
+        return hints.shard_hint(out, RES, partial=work)
+    if res is not None and res.axes(work):
+        out = comm.all_gather(out.reshape(B, -1, cq, D), res.mesh, res.axes(work), 1, length=nq, grad="slice")
+        out = out.reshape(B, S, D)
+    return hints.shard_hint(out, RES, src=("act_batch", None, None))
 
 
 # ----------------------------------------------------------------------

@@ -13,6 +13,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.parallel import hints
+
 from .attention import attention_decode, attention_forward, attention_meta, attn_cache_meta
 from .config import ModelConfig
 from .griffin import rglru_cache_meta, rglru_decode, rglru_forward, rglru_meta
@@ -67,19 +69,27 @@ def _ffn(p: dict, cfg: ModelConfig, h: torch.Tensor) -> Tuple[torch.Tensor, dict
     return mlp_forward(p["mlp"], cfg, h), dict(ZERO_AUX)
 
 
+def _norm(p: dict, key: str, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    # Under sequence parallelism each rank normalizes its own rows: the
+    # scale's gradient is summed over the ranks that split the sequence.
+    return apply_norm(hints.shared_param(p[key], "act_res_seq"), x, cfg.norm)
+
+
 def block_forward(
     p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor
 ) -> Tuple[torch.Tensor, dict]:
-    h = apply_norm(p["norm1"], x, cfg.norm)
+    """x (B, S, D) in the residual stream's layout (the sequence split on
+    the model axis under sequence parallelism) -> the same, and aux losses."""
+    h = _norm(p, "norm1", cfg, x)
     if kind == "attn":
         x = x + attention_forward(p["attn"], cfg, h, window=block_window(cfg, kind))
-        y, aux = _ffn(p, cfg, apply_norm(p["norm2"], x, cfg.norm))
+        y, aux = _ffn(p, cfg, _norm(p, "norm2", cfg, x))
         return x + y, aux
     if kind == "mamba2":
         return x + mamba2_forward(p["mamba"], cfg, h), dict(ZERO_AUX)
     if kind == "rglru":
         x = x + rglru_forward(p["rglru"], cfg, h)
-        return x + mlp_forward(p["mlp"], cfg, apply_norm(p["norm2"], x, cfg.norm)), dict(ZERO_AUX)
+        return x + mlp_forward(p["mlp"], cfg, _norm(p, "norm2", cfg, x)), dict(ZERO_AUX)
     raise ValueError(kind)
 
 

@@ -46,13 +46,13 @@ def _scores(qf, k_j, q_pos, k_pos, window, softcap):
     return s + _mask(q_pos, k_pos, window)[None, :, None, None]
 
 
-def _fwd_scan(q, k, v, ck: int, window: Optional[int], softcap: Optional[float]):
+def _fwd_scan(q, k, v, ck: int, window: Optional[int], softcap: Optional[float], q0: int = 0):
     """Returns (out fp32 (B,nq,hkv,G,cq,hd), lse fp32 (B,nq,hkv,G,cq))."""
     B, nq, cq, hkv, G, hd = q.shape
     nk = k.shape[1] // ck
     qf = q.to(torch.float32)
     dev = q.device
-    q_pos = torch.arange(nq * cq, device=dev).reshape(nq, cq)
+    q_pos = q0 + torch.arange(nq * cq, device=dev).reshape(nq, cq)
     m = torch.full((B, nq, hkv, G, cq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, nq, hkv, G, cq), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, nq, hkv, G, cq, hd), dtype=torch.float32, device=dev)
@@ -73,10 +73,10 @@ def _fwd_scan(q, k, v, ck: int, window: Optional[int], softcap: Optional[float])
 
 class _Flash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, ck, window, softcap):
-        out, lse = _fwd_scan(q, k, v, ck, window, softcap)
+    def forward(ctx, q, k, v, ck, window, softcap, q0):
+        out, lse = _fwd_scan(q, k, v, ck, window, softcap, q0)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.ck, ctx.window = ck, window
+        ctx.ck, ctx.window, ctx.q0 = ck, window, q0
         return out.permute(0, 1, 4, 2, 3, 5).to(q.dtype)  # (B, nq, cq, hkv, G, hd)
 
     @staticmethod
@@ -91,7 +91,7 @@ class _Flash(torch.autograd.Function):
         go = g.to(torch.float32).permute(0, 1, 3, 4, 2, 5)  # (B, nq, hkv, G, cq, hd)
         go_v = _rounded(go, v.dtype)
         D = torch.sum(go * out, dim=-1)  # rowsum(dO * O)
-        q_pos = torch.arange(nq * cq, device=dev).reshape(nq, cq)
+        q_pos = ctx.q0 + torch.arange(nq * cq, device=dev).reshape(nq, cq)
         dq = torch.zeros((B, nq, cq, hkv, G, hd), dtype=torch.float32, device=dev)
         dks, dvs = [], []
         for ik in range(nk):
@@ -107,11 +107,13 @@ class _Flash(torch.autograd.Function):
             dvs.append(torch.einsum("bnhgqc,bnhgqk->bchk", _rounded(p, v.dtype), go_v))
         dk = torch.cat(dks, dim=1)
         dv = torch.cat(dvs, dim=1)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
 
 
-def flash_attention(q, k, v, ck: int, window: Optional[int], softcap: Optional[float]):
+def flash_attention(q, k, v, ck: int, window: Optional[int], softcap: Optional[float], q0: int = 0):
     """q: (B, nq, cq, Hkv, G, hd) pre-scaled; k/v: (B, Skv, Hkv, hd).
+    ``q0``: the position of q's first row (context parallelism hands a rank
+    the query chunks it owns, against all of K/V).
 
     Returns (B, nq, cq, Hkv, G, hd) in q.dtype."""
-    return _Flash.apply(q, k, v, ck, window, softcap)
+    return _Flash.apply(q, k, v, ck, window, softcap, q0)

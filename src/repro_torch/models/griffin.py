@@ -27,7 +27,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.parallel import hints
+
 from .config import ModelConfig
+from .layers import refuse_mixer_tp
 from .params import ParamMeta
 
 __all__ = ["rglru_meta", "rglru_forward", "rglru_decode", "rglru_cache_meta"]
@@ -116,10 +119,12 @@ def _chunk_body(h_in: torch.Tensor, ac: torch.Tensor, gc: torch.Tensor) -> torch
 
 def rglru_forward(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D)."""
+    refuse_mixer_tp("RG-LRU")
     dt = x.dtype
     gate = F.gelu(x @ p["w_gate"].to(dt), approximate="tanh")  # jax.nn.gelu's default
     xb = x @ p["w_x"].to(dt)
     xb = _causal_conv(xb, p["conv_w"].to(dt), p["conv_b"].to(dt))
+    xb = hints.shard_hint(xb, ("act_batch", None, "act_mlp"))
 
     a, gx = _gates(p, xb)  # (B, S, W) float32
 
@@ -139,7 +144,7 @@ def rglru_forward(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         _, h = _scan(a, gx)
     h = h.to(dt) * gate
-    return h @ p["w_out"].to(dt)
+    return hints.shard_hint(h @ p["w_out"].to(dt), ("act_batch", "act_res_seq", None))
 
 
 def rglru_cache_meta(cfg: ModelConfig, batch: int) -> dict:

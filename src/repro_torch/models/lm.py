@@ -11,7 +11,18 @@ Shampoo's blocking depends on it (a stacked leaf takes its leading
 dimension as the batch).  :func:`forward` loops over the leading dimension;
 with ``cfg.remat == "block"`` each unit runs under
 ``torch.utils.checkpoint`` (its activations are recomputed in the
-backward).  Remainder layers run one by one.
+backward), and with ``"dots"`` under selective checkpointing that keeps
+the outputs of matmuls without batch dims (``aten.mm`` / ``aten.addmm``)
+and recomputes the rest, the counterpart of JAX's
+``dots_with_no_batch_dims_saveable``.  Remainder layers run one by one.
+
+Under a sharding resolver (``repro_torch.parallel.hints``, installed by the
+sharded train step) the parameters are this rank's blocks: each unit
+all-gathers its FSDP shards inside its checkpoint (so the backward's
+recomputation gathers them again, and the gradients are reduce-scattered),
+the embedding and the head are vocab-parallel (tokens outside the rank's
+vocabulary rows masked, the partial sums reduced), and the residual stream
+is split on the sequence between blocks under sequence parallelism.
 
 Parameters are nested dicts of tensors (``model_params``), as in the JAX
 package; :class:`LM` holds the same tree as ``nn.Parameter``s.
@@ -36,9 +47,11 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+import torch.nn.functional as F
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.backend import probe
+from repro_torch.parallel import hints
 from repro_torch.tree import tree_map
 
 from .blocks import ZERO_AUX, block_cache_meta, block_decode, block_forward, block_meta
@@ -54,6 +67,7 @@ __all__ = [
     "cache_init",
     "forward",
     "decode_step",
+    "gathered",
     "LM",
 ]
 
@@ -111,19 +125,60 @@ def model_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return init_params(model_meta(cfg, model_axis), generator, device)
 
 
+RES = ("act_batch", "act_res_seq", None)  # the residual stream's layout
+WHOLE = ("act_batch", None, None)
+
+
 def _embed_input(params, cfg: ModelConfig, tokens, embeds) -> torch.Tensor:
     dt = cfg.activation_dtype
+    res = hints.active_resolver()
     if embeds is not None:
-        return embeds.to(dt) @ params["frontend_proj"].to(dt)
-    return embed_lookup(params["embed"], tokens, dt)
+        x = embeds.to(dt) @ params["frontend_proj"].to(dt)
+        return hints.shard_hint(x, RES, src=WHOLE)
+    if res is not None and res.axes("act_vocab"):
+        # Vocab-parallel: this rank's rows of the table, other tokens masked;
+        # the partial sums (one rank holds each token) reduced in float32.
+        table = params["embed"]
+        rows = table.shape[0]
+        t = tokens.long() - res.index("act_vocab") * rows
+        mine = (t >= 0) & (t < rows)
+        x = F.embedding(t.clamp(0, rows - 1), table) * mine[..., None].to(table.dtype)
+        return hints.shard_hint(x, RES, partial="act_vocab").to(dt)
+    return hints.shard_hint(embed_lookup(params["embed"], tokens, dt), RES, src=WHOLE)
 
 
-def _unit_forward(cfg: ModelConfig, pat, unit_params, x):
+def _unit_forward(cfg: ModelConfig, pat, unit_params, x, specs=None):
+    res = hints.active_resolver()
+    if res is not None:
+        unit_params = res.gather_params(unit_params, specs)
     aux = dict(ZERO_AUX)
     for i, kind in enumerate(pat):
         x, a = block_forward(unit_params[f"L{i}_{kind}"], cfg, kind, x)
         aux = {k: aux[k] + a[k] for k in aux}
     return x, aux
+
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Keep the outputs of matmuls without batch dims; recompute the rest."""
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def gathered(params: dict, key: str, specs=None):
+    """``params[key]`` with its FSDP shards gathered under a resolver that
+    knows the parameter specs (``specs``: the tree's, default the
+    resolver's)."""
+    res = hints.active_resolver()
+    if res is None:
+        return params[key]
+    specs = res.param_specs if specs is None else specs
+    return res.gather_params(params[key], None if specs is None else specs[key])
 
 
 def forward(
@@ -135,29 +190,48 @@ def forward(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence forward.  Returns (logits fp32, aux losses); with
     ``return_hidden`` the final-norm hidden states instead of logits
-    (training streams the vocabulary in chunked cross-entropy)."""
-    if cfg.remat not in ("none", "block", "full"):
-        raise NotImplementedError(f"remat={cfg.remat!r}: the port checkpoints whole blocks only")
+    (training streams the vocabulary in chunked cross-entropy).  Under a
+    sharding resolver the hidden states are in the residual stream's layout
+    and the logits are this rank's vocabulary columns."""
+    if cfg.remat not in ("none", "block", "full", "dots"):
+        raise ValueError(f"remat={cfg.remat!r}: one of none, block, full, dots")
+    res = hints.active_resolver()
+    specs = res.param_specs if res is not None else None
     pat, n_units, rem = pattern_unit(cfg)
-    x = _embed_input(params, cfg, tokens, embeds)
-    unit_fn = functools.partial(_unit_forward, cfg, pat)
+    used = ["final_norm", "frontend_proj" if embeds is not None else "embed"]
+    if cfg.tie_embeddings and not return_hidden:
+        used.append("embed")
+    top = {k: gathered(params, k, specs) for k in dict.fromkeys(used)}  # one order on every rank
+    x = _embed_input(top, cfg, tokens, embeds)
+    unit_specs = None
+    if specs is not None:
+        from repro_torch.models.params import PartitionSpec
+
+        unit_specs = tree_map(lambda sp: PartitionSpec(*tuple(sp)[1:]), specs["units"])
+    # Bound to the resolver: a checkpoint recomputes on the backward's thread.
+    unit_fn = hints.bind(functools.partial(_unit_forward, cfg, pat, specs=unit_specs))
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in ZERO_AUX}
     for u in range(n_units):
         unit_params = tree_map(lambda t: t[u], params["units"])
         if cfg.remat == "block":
             x, a = checkpoint(unit_fn, unit_params, x, use_reentrant=False)
+        elif cfg.remat == "dots":
+            x, a = checkpoint(unit_fn, unit_params, x, use_reentrant=False, context_fn=_dots_context)
         else:
             x, a = unit_fn(unit_params, x)
         aux = {k: aux[k] + a[k] for k in aux}
     for i, kind in enumerate(rem):
-        x, a = block_forward(params["rem"][f"R{i}_{kind}"], cfg, kind, x)
+        key = f"R{i}_{kind}"
+        x, a = block_forward(gathered(params["rem"], key, None if specs is None else specs["rem"]), cfg, kind, x)
         aux = {k: aux[k] + a[k] for k in aux}
 
-    x = apply_norm(params["final_norm"], x, cfg.norm)
+    x = apply_norm(hints.shared_param(top["final_norm"], "act_res_seq"), x, cfg.norm)
     if return_hidden:
         return x, aux
-    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return unembed(x, table, cfg.logit_softcap), aux
+    table = top["embed"] if cfg.tie_embeddings else gathered(params, "unembed", specs)
+    x = hints.tp_input(x, RES, "act_vocab")
+    logits = unembed(x, table, cfg.logit_softcap)
+    return hints.shard_hint(logits, ("act_batch", None, "act_vocab")), aux
 
 
 # ----------------------------------------------------------------------

@@ -24,8 +24,10 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import hints
+
 from .config import ModelConfig
-from .layers import apply_norm
+from .layers import apply_norm, refuse_mixer_tp
 from .params import ParamMeta
 
 __all__ = [
@@ -182,6 +184,7 @@ def _pre_ssm(p, cfg: ModelConfig, x: torch.Tensor):
     Bm = x @ p["w_B"].to(dt_)
     Cm = x @ p["w_C"].to(dt_)
     dt_raw = x @ p["w_dt"].to(dt_)
+    xs = hints.shard_hint(xs, ("act_batch", None, "act_mlp"))
     xs = _silu_conv(xs, p["conv_x_w"].to(dt_), p["conv_x_b"].to(dt_))
     Bm = _silu_conv(Bm, p["conv_B_w"].to(dt_), p["conv_B_b"].to(dt_))
     Cm = _silu_conv(Cm, p["conv_C_w"].to(dt_), p["conv_C_b"].to(dt_))
@@ -201,6 +204,7 @@ def _dt_and_A(p, dt_raw: torch.Tensor):
 
 def mamba2_forward(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D)."""
+    refuse_mixer_tp("Mamba2")
     B, S, D = x.shape
     di, g, n, h = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads
     P = cfg.ssm_headdim
@@ -211,7 +215,8 @@ def mamba2_forward(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     dt, A = _dt_and_A(p, dt_raw)
     y = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xs
-    return _post_ssm(p, cfg, y.reshape(B, S, di), z)
+    out = _post_ssm(p, cfg, y.reshape(B, S, di), z)
+    return hints.shard_hint(out, ("act_batch", "act_res_seq", None))
 
 
 # ----------------------------------------------------------------------

@@ -6,6 +6,8 @@ axes, init law).  From it:
 * ``abstract_params`` — the shapes, as tensors on torch's ``meta`` device
   (no allocation);
 * ``init_params``     — materialized weights, from a ``torch.Generator``;
+* ``partition_specs`` — a ``PartitionSpec`` per leaf from logical -> mesh
+  axis rules (``repro_torch.parallel.sharding``);
 * ``param_count``.
 
 The init laws and the fan-in rule are the JAX package's.  The stream is
@@ -29,6 +31,7 @@ __all__ = [
     "abstract_params",
     "init_params",
     "partition_specs",
+    "PartitionSpec",
     "param_count",
     "is_meta",
 ]
@@ -97,11 +100,58 @@ def init_params(meta_tree, generator: torch.Generator,
     return rebuild([_draw(m, generator).to(dev) for m in metas])
 
 
+class PartitionSpec:
+    """Mesh axes per dim: ``None``, a mesh-axis name, or a tuple of names
+    (``jax.sharding.PartitionSpec``'s entries).  Iterates and compares like
+    the tuple of its entries; not a tuple itself, so a tree of specs keeps
+    each spec as one leaf."""
+
+    __slots__ = ("entries",)
+
+    def __init__(self, *entries):
+        self.entries = tuple(entries)
+
+    def __iter__(self):
+        return iter(self.entries)
+
+    def __len__(self):
+        return len(self.entries)
+
+    def __getitem__(self, i):
+        return self.entries[i]
+
+    def __eq__(self, other):
+        return tuple(self) == tuple(other) if isinstance(other, (PartitionSpec, tuple)) else NotImplemented
+
+    def __hash__(self):
+        return hash(self.entries)
+
+    def __repr__(self):
+        return f"PartitionSpec{self.entries!r}"
+
+
 def partition_specs(meta_tree, rules: Dict[Optional[str], Any]):
-    raise NotImplementedError(
-        "partition_specs maps logical axes to a device mesh, which is not ported yet: "
-        "ROADMAP Queue 1 item 12(b) (model sharding)"
-    )
+    """Map logical axes -> mesh axes.  ``rules`` values are mesh axis names
+    (str), tuples of names, or None (replicated).  A mesh axis may split
+    one dim of a leaf: a later dim that repeats it loses it."""
+
+    def spec(m: ParamMeta):
+        seen = set()
+        clean = []
+        for ax in m.axes:
+            r = rules.get(ax, None)
+            names = r if isinstance(r, tuple) else ((r,) if r else ())
+            keep = tuple(x for x in names if x not in seen)
+            seen.update(keep)
+            if len(keep) == 0:
+                clean.append(None)
+            elif len(keep) == 1:
+                clean.append(keep[0])
+            else:
+                clean.append(keep)
+        return PartitionSpec(*clean)
+
+    return tree_map(spec, meta_tree)
 
 
 def param_count(meta_tree) -> int:

@@ -20,6 +20,12 @@ the JAX package's.  A 3-D or 4-D leaf takes its leading (stacked-layer)
 dimension as the batch and splits the rest into its most square (m, n).
 1-D leaves and embeddings fall back to Adam.
 
+Under a sharded train step Shampoo sees whole leaves
+(``Optimizer.whole_leaves``): the step gathers each leaf's gradient, runs
+this update on the whole tree (its refresh split across ranks by
+``precond_mesh``) and keeps its own block of the update, so the state is
+the one-process state, replicated on every rank.
+
 Grafting: AdaGrad-norm grafting (the update rescaled to the diagonal-Adam
 update's norm per parameter).  The refresh runs at step 1 and at every
 multiple of ``update_interval``: a Python branch on the step, where the JAX
@@ -225,4 +231,4 @@ def shampoo(
             pre_r=pre_r,
         )
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update=update, whole_leaves=True)

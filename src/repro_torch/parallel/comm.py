@@ -9,8 +9,19 @@ holds what those functions need from the process group:
   ``DeviceMesh`` and this rank's linear index over them (row-major in the
   order the axes are given, as ``jax.lax.axis_index`` over a tuple of axes
   counts).
-* :func:`all_gather_rows` / :func:`all_reduce_sum` — the two collectives,
-  and :func:`full_tensor`, a row-sharded DTensor made whole.
+* :func:`all_gather_rows` / :func:`all_reduce_sum` — the two plain
+  collectives, and :func:`full_tensor`, a sharded DTensor made whole.
+* The collectives of a sharded train step, each a ``torch.autograd.Function``
+  over the group of some mesh axes (:func:`axes_group`), in Megatron's
+  pairs: :func:`all_reduce` (sum forward, identity backward: *g*) and
+  :func:`copy_to` (identity forward, sum backward: *f*); :func:`all_gather`
+  along any dim (its backward a reduce-scatter, or the rank's own slice)
+  and its reverse :func:`reduce_scatter`; :func:`split` (the own slice,
+  gathered back in the backward); and :func:`all_reduce_max`, without a
+  gradient.  Sums run in float32 whatever the tensor's dtype, then cast
+  back.  A dim that the group does not divide is split as GSPMD pads it:
+  ``ceil(n / k)`` rows a rank, the last ranks short (:func:`chunk_bounds`).
+  :data:`traffic` counts the bytes each call moved, by tag.
 * :func:`run_ranks` — run a function on ``world_size`` fresh processes, the
   counterpart of JAX's ``--xla_force_host_platform_device_count`` (the
   tests and ``chip_smoke.py`` use it).
@@ -18,14 +29,18 @@ holds what those functions need from the process group:
 **Gloo and CUDA tensors.**  Several ranks that share one card cannot use
 NCCL (it refuses two ranks on one device), so they use the gloo backend.
 Gloo's c10d collectives take CUDA tensors and copy them through host
-memory themselves (``all_gather`` and ``all_reduce``, float32 and int32,
-checked on an H100 with torch 2.11 by ``scripts/gloo_cuda_check.py``).
+memory themselves (``all_gather``, ``all_reduce`` and
+``reduce_scatter_tensor``, checked on an H100 with torch 2.11 by
+``scripts/gloo_cuda_check.py``).
 DTensor's own collectives do not: ``DTensor.full_tensor()`` goes through
 the functional collectives, and on a gloo group with CUDA tensors its
 ``wait_tensor`` crashed the process (segmentation fault, torch 2.11 + CUDA
-12.8 on an H100).  So :func:`full_tensor` gathers a row-sharded DTensor by
-:func:`all_gather_rows` on every backend: one path, the same bytes as
-``DTensor.full_tensor()``.
+12.8 on an H100).  So :func:`full_tensor` gathers a sharded DTensor by c10d
+``all_gather`` on every backend: one path, the same bytes as
+``DTensor.full_tensor()``.  DTensor is a container only: a rank's shard and
+its placements, never the path data moves by.  :func:`reduce_scatter` is
+``reduce_scatter_tensor`` on every backend, an uneven split padded with
+zero rows.
 """
 from __future__ import annotations
 
@@ -48,6 +63,16 @@ __all__ = [
     "all_gather_rows",
     "all_reduce_sum",
     "full_tensor",
+    "all_reduce",
+    "copy_to",
+    "all_gather",
+    "reduce_scatter",
+    "split",
+    "all_reduce_max",
+    "chunk_bounds",
+    "traffic",
+    "reset_traffic",
+    "init_world",
     "run_ranks",
     "INIT_TIMEOUT_S",
 ]
@@ -119,16 +144,231 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def full_tensor(dt) -> torch.Tensor:
-    """The whole value of a DTensor sharded by rows (``Shard(0)``, equal
-    shards) over a 1-D mesh, on every rank, gathered by
-    :func:`all_gather_rows` (see the module docstring)."""
-    from torch.distributed.tensor import Shard
+    """The whole value of a DTensor with ``Shard`` / ``Replicate``
+    placements on a mesh of any rank, on every rank, gathered by c10d
+    ``all_gather`` over each sharded mesh dimension (see the module
+    docstring).  Shards must be equal."""
+    from torch.distributed.tensor import Replicate, Shard
 
     mesh = dt.device_mesh
-    if mesh.ndim != 1 or tuple(dt.placements) != (Shard(0),) or dt.shape[0] % mesh.size():
-        raise ValueError(f"full_tensor takes a Shard(0) DTensor of equal shards on a 1-D mesh, got "
-                         f"{dt.placements} of {tuple(dt.shape)} on {mesh}")
-    return all_gather_rows(dt.to_local(), mesh.get_group())
+    x = dt.to_local()
+    names = mesh.mesh_dim_names or tuple(str(i) for i in range(mesh.ndim))
+    for i in reversed(range(mesh.ndim)):  # the last mesh dim holds the innermost blocks
+        pl = dt.placements[i]
+        if isinstance(pl, Replicate):
+            continue
+        if not isinstance(pl, Shard) or x.shape[pl.dim] * mesh.size(i) > dt.shape[pl.dim]:
+            raise ValueError(f"full_tensor takes Shard / Replicate placements of equal shards, got "
+                             f"{dt.placements} of {tuple(dt.shape)} on {mesh}")
+        x = _gather(x, pl.dim, mesh.get_group(i), mesh.size(i), None, "param")
+    if tuple(x.shape) != tuple(dt.shape):
+        raise ValueError(f"full_tensor: shards of {tuple(dt.shape)} over {names} are not equal")
+    return x
+
+
+# ----------------------------------------------------------- step collectives
+# Bytes each collective moved, by tag ("act": activations of tensor
+# parallelism, "param": parameter gathers, "grad": gradient sums): the
+# payload one rank hands the collective.
+traffic: Dict[str, int] = {}
+
+
+def reset_traffic() -> None:
+    traffic.clear()
+
+
+def _count(tag: str, t: torch.Tensor) -> None:
+    traffic[tag] = traffic.get(tag, 0) + t.numel() * t.element_size()
+
+
+def chunk_bounds(n: int, parts: int, index: int) -> Tuple[int, int]:
+    """Rows ``[lo, hi)`` of ``n`` that part ``index`` of ``parts`` holds:
+    ``ceil(n / parts)`` a part, the last parts short or empty."""
+    c = -(-n // parts)
+    return min(index * c, n), min((index + 1) * c, n)
+
+
+def _sum(x: torch.Tensor, group, tag: str) -> torch.Tensor:
+    """All-reduce sum in float32, cast back to ``x``'s dtype."""
+    out = x.detach().to(torch.float32, memory_format=torch.contiguous_format, copy=True)
+    _count(tag, out)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out.to(x.dtype)
+
+
+def _gather(x: torch.Tensor, dim: int, group, k: int, length, tag: str) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in group order; shards
+    of ``ceil(length / k)`` rows, the last ones short, trimmed to ``length``."""
+    x = x.detach()
+    n_loc = x.shape[dim]
+    c = n_loc if length is None else -(-length // k)
+    if n_loc < c:
+        pad = list(x.shape)
+        pad[dim] = c - n_loc
+        x = torch.cat([x, x.new_zeros(pad)], dim)
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(k)]
+    _count(tag, x)
+    dist.all_gather(parts, x, group=group)
+    out = torch.cat(parts, dim)
+    return out if length is None else out.narrow(dim, 0, length)
+
+
+def _own(x: torch.Tensor, dim: int, k: int, index: int) -> torch.Tensor:
+    lo, hi = chunk_bounds(x.shape[dim], k, index)
+    return x.narrow(dim, lo, hi - lo)
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group, k: int, index: int, tag: str) -> torch.Tensor:
+    """The sum over the group, and of it this rank's rows along ``dim``
+    (:func:`chunk_bounds`); float32 inside, ``dim`` padded with zeros to
+    ``k`` parts of ``ceil(n / k)`` rows."""
+    n = x.shape[dim]
+    c = -(-n // k)
+    src = x.detach().to(torch.float32).movedim(dim, 0)
+    if n < k * c:
+        src = torch.cat([src, src.new_zeros((k * c - n,) + tuple(src.shape[1:]))])
+    src = src.contiguous()
+    out = src.new_empty((c,) + tuple(src.shape[1:]))
+    _count(tag, src)
+    dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group)
+    lo, hi = chunk_bounds(n, k, index)
+    return out[:hi - lo].movedim(0, dim).to(x.dtype).contiguous()
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, tag):
+        return _sum(x, group, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, tag):
+        ctx.group, ctx.tag = group, tag
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group, ctx.tag), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, k, index, length, grad, tags):
+        ctx.dim, ctx.group, ctx.k, ctx.index, ctx.grad, ctx.tag = dim, group, k, index, grad, tags[1]
+        return _gather(x, dim, group, k, length, tags[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad == "sum":
+            g = _reduce_scatter(g, ctx.dim, ctx.group, ctx.k, ctx.index, ctx.tag)
+        else:
+            g = _own(g, ctx.dim, ctx.k, ctx.index).contiguous()
+        return g, None, None, None, None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, k, index, tag):
+        ctx.dim, ctx.group, ctx.k, ctx.n, ctx.tag = dim, group, k, x.shape[dim], tag
+        return _reduce_scatter(x, dim, group, k, index, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.group, ctx.k, ctx.n, ctx.tag), None, None, None, None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, k, index, tag):
+        ctx.dim, ctx.group, ctx.k, ctx.n, ctx.tag = dim, group, k, x.shape[dim], tag
+        return _own(x, dim, k, index).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.group, ctx.k, ctx.n, ctx.tag), None, None, None, None, None
+
+
+def _grp(mesh, axes):
+    group, index = axes_group(mesh, axes)
+    return group, dist.get_world_size(group), index
+
+
+def all_reduce(x: torch.Tensor, mesh, axes: Axes, *, tag: str = "act") -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes`` (float32 inside); the
+    backward passes the gradient through (Megatron's *g*)."""
+    return _AllReduce.apply(x, _grp(mesh, axes)[0], tag)
+
+
+def copy_to(x: torch.Tensor, mesh, axes: Axes, *, tag: str = "act") -> torch.Tensor:
+    """``x`` itself; the backward sums the gradient over the ranks of
+    ``axes`` (Megatron's *f*): ``x`` feeds work split over them."""
+    return _CopyTo.apply(x, _grp(mesh, axes)[0], tag)
+
+
+def all_gather(x: torch.Tensor, mesh, axes: Axes, dim: int, *, length: int = None, grad: str = "sum",
+               tags: Tuple[str, str] = ("act", "act")) -> torch.Tensor:
+    """Every rank's ``x`` over ``axes`` concatenated along ``dim`` (``length``
+    rows in all when the split is uneven).  The backward reduce-scatters
+    (``grad="sum"``: each rank holds a partial gradient of the whole) or
+    keeps the rank's own rows (``grad="slice"``: each holds all of it).
+    ``tags`` tag the forward's and the backward's bytes."""
+    if grad not in ("sum", "slice"):
+        raise ValueError(f"grad must be 'sum' or 'slice', got {grad!r}")
+    group, k, index = _grp(mesh, axes)
+    return _AllGather.apply(x, dim % x.ndim, group, k, index, length, grad, tags)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axes: Axes, dim: int, *, tag: str = "act") -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes``, and of it this rank's
+    rows along ``dim`` (:func:`chunk_bounds`); the backward all-gathers."""
+    group, k, index = _grp(mesh, axes)
+    return _ReduceScatter.apply(x, dim % x.ndim, group, k, index, tag)
+
+
+def split(x: torch.Tensor, mesh, axes: Axes, dim: int, *, tag: str = "act") -> torch.Tensor:
+    """This rank's rows of ``x`` along ``dim`` over ``axes``
+    (:func:`chunk_bounds`); the backward all-gathers."""
+    group, k, index = _grp(mesh, axes)
+    return _Split.apply(x, dim % x.ndim, group, k, index, tag)
+
+
+def all_reduce_max(x: torch.Tensor, mesh, axes: Axes, *, tag: str = "act") -> torch.Tensor:
+    """The elementwise max of ``x`` over the ranks of ``axes``, detached."""
+    out = x.detach().to(torch.float32, memory_format=torch.contiguous_format, copy=True)
+    _count(tag, out)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_grp(mesh, axes)[0])
+    return out.to(x.dtype)
+
+
+def init_world(device_type: str) -> bool:
+    """Join the world this process was started in, if any; return whether
+    one is initialized.  A world already initialized (``run_ranks``) is
+    kept; otherwise ``torchrun``'s ``WORLD_SIZE`` / ``RANK`` (``env://``)
+    start one when ``WORLD_SIZE`` > 1.  The backend is picked: NCCL when
+    every rank of the host has a card of its own, gloo when ranks share a
+    card or run on the CPU.  On CUDA, rank r takes card ``LOCAL_RANK %
+    device_count``."""
+    if dist.is_initialized():
+        return True
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        return False
+    if device_type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", "0")))
+        per_host = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
+        torch.cuda.set_device(local % torch.cuda.device_count())
+        backend = "nccl" if torch.cuda.device_count() >= per_host else "gloo"
+    else:
+        backend = "gloo"
+    dist.init_process_group(backend, init_method="env://",
+                            timeout=datetime.timedelta(seconds=INIT_TIMEOUT_S))
+    return True
 
 
 # ------------------------------------------------------------------ ranks

@@ -3,6 +3,7 @@ fault-tolerant training loop (port of ``repro.train``)."""
 from .step import (
     chunked_cross_entropy,
     cross_entropy,
+    init_opt_state,
     make_loss_fn,
     make_prefill,
     make_serve_step,
@@ -15,6 +16,7 @@ __all__ = [
     "chunked_cross_entropy",
     "make_loss_fn",
     "make_train_step",
+    "init_opt_state",
     "make_prefill",
     "make_serve_step",
     "TrainLoop",

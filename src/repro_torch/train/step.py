@@ -11,6 +11,20 @@ come from ``torch.autograd.grad`` on detached copies of the parameters, so
 the step is a pure function like its JAX counterpart and returns new
 parameter tensors.
 
+With ``policy=`` (a ``repro_torch.parallel.ShardingPolicy``) the step is
+the sharded one: every rank calls it on its blocks of the parameters
+(``shard_params``' DTensors, or the local tensors themselves) and its rows
+of the batch, under the policy's hint resolver.  The loss is the mean over
+the whole batch; gradients are summed over the data axes (FSDP leaves by
+the reduce-scatter of their gathers, the rest by one all-reduce per set of
+axes), and over ``model`` where the model code's region edges say so
+(``repro_torch.parallel.hints``).  The cross entropy runs over the rank's
+vocabulary columns and combines the per-row max, sum-exp and label logit
+across the model axis in float32.  An element-wise optimizer updates the
+blocks, with its global norm over the whole gradient; one that needs whole
+leaves (``Optimizer.whole_leaves``: Shampoo) gets them gathered and hands
+back the rank's block of its update.
+
 ``make_prefill`` / ``make_serve_step`` build the inference entry points:
 a full-sequence forward returning the next token, and one-token decode
 against a cache (updated in place, as the JAX serve step donates it).
@@ -25,15 +39,19 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.backend import probe
-from repro_torch.models import ModelConfig, decode_step, forward
+from repro_torch.models import ModelConfig, decode_step, forward, model_meta
+from repro_torch.models.lm import gathered
 from repro_torch.optim import Optimizer, apply_updates, global_norm
-from repro_torch.tree import flatten_with_paths, tree_map
+from repro_torch.optim.base import sharded_norm
+from repro_torch.parallel import comm, hints
+from repro_torch.tree import flatten_with_paths, leaves, tree_map
 
 __all__ = [
     "cross_entropy",
     "chunked_cross_entropy",
     "make_loss_fn",
     "make_train_step",
+    "init_opt_state",
     "make_prefill",
     "make_serve_step",
 ]
@@ -72,9 +90,20 @@ def chunked_cross_entropy(
     logsumexp, in float32; each chunk runs under ``torch.utils.checkpoint``
     (the backward recomputes its logits).  h: (B, S, D); table: (V, D).  The
     last position of each row has weight 0 (its label wraps).
+
+    Under a sharding resolver, ``h`` is in the residual stream's layout,
+    ``table`` is this rank's block of vocabulary rows (``act_vocab``) and
+    ``labels`` the rank's rows of the batch: the per-row max, sum-exp and
+    label logit are combined over the vocabulary's ranks, and the mean is
+    over the whole batch (the data axes' sums).
     """
+    res = hints.active_resolver()
+    vocab_axes = res.axes("act_vocab") if res is not None else ()
+    h = hints.tp_input(h, ("act_batch", "act_res_seq", None), "act_vocab")
     B, S, D = h.shape
     V = table.shape[0]
+    v0 = res.index("act_vocab") * V if vocab_axes else 0
+    labels = labels.long() - v0
     CH = -(-V // n_chunks)
     table_p = torch.nn.functional.pad(table, (0, 0, 0, CH * n_chunks - V))
     m = torch.full((B, S), NEG, dtype=torch.float32, device=h.device)
@@ -84,10 +113,20 @@ def chunked_cross_entropy(
         W_c = table_p[c * CH : (c + 1) * CH]
         m, l, lab = checkpoint(_ce_chunk, m, l, lab, W_c, h, labels, c * CH, V, softcap,
                                use_reentrant=False)
+    if vocab_axes:  # one rank holds each label; the max only shifts the sum
+        M = comm.all_reduce_max(m, res.mesh, vocab_axes)
+        l = comm.all_reduce(l * torch.exp(m - M), res.mesh, vocab_axes)
+        lab = comm.all_reduce(lab, res.mesh, vocab_axes)
+        m = M
     nll = (m + torch.log(torch.clamp(l, min=1e-30))) - lab
     weights = torch.ones_like(nll)
     weights[:, -1] = 0.0
-    return torch.sum(nll * weights) / torch.clamp(torch.sum(weights), min=1.0)
+    num, den = torch.sum(nll * weights), torch.sum(weights)
+    batch_axes = res.batch_axes() if res is not None else ()
+    if batch_axes:
+        num = comm.all_reduce(num, res.mesh, batch_axes)
+        den = comm.all_reduce(den, res.mesh, batch_axes)
+    return num / torch.clamp(den, min=1.0)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -109,8 +148,15 @@ def make_loss_fn(cfg: ModelConfig) -> Callable:
             kwargs["embeds"] = batch["embeds"]
         else:
             kwargs["tokens"] = batch["tokens"]
-        h, aux = forward(params, cfg, return_hidden=True, **kwargs)
-        table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        res = hints.active_resolver()
+        table = gathered(params, "embed" if cfg.tie_embeddings else "unembed")
+        if cfg.tie_embeddings and res is not None and res.param_specs is not None:
+            # One FSDP gather of the tied table serves the lookup and the head.
+            specs = dict(res.param_specs, embed=res.local_spec(res.param_specs["embed"]))
+            with hints.hint_resolver(res.with_params(specs)):
+                h, aux = forward(dict(params, embed=table), cfg, return_hidden=True, **kwargs)
+        else:
+            h, aux = forward(params, cfg, return_hidden=True, **kwargs)
         ce = chunked_cross_entropy(
             h, table, batch["labels"], softcap=cfg.logit_softcap,
             n_chunks=max(min(8, cfg.vocab // 8192), 1),
@@ -135,41 +181,137 @@ def value_and_grad(loss_fn: Callable, params, *args):
     return (loss.detach(), metrics), rebuild(gs)
 
 
+def _local(t):
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _like(new, old):
+    """``new`` (a local tensor) held as ``old`` is: a DTensor with its
+    placements when ``old`` is one."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(old, DTensor):
+        return new
+    return DTensor.from_local(new, old.device_mesh, old.placements, run_check=False,
+                              shape=old.shape, stride=old.stride())
+
+
+def _rewrap(new_tree, old_tree):
+    return tree_map(_like, new_tree, old_tree)
+
+
+def _sync_grads(grads, shardings, res):
+    """Sum each leaf's gradient over the batch axes that do not split it
+    (FSDP leaves were reduce-scattered by their gathers' backward): one
+    float32 all-reduce per set of axes."""
+    batch = res.batch_axes()
+    _, gs, rebuild = flatten_with_paths(grads)
+    shs = leaves(shardings)
+    buckets = {}
+    for i, (g, sh) in enumerate(zip(gs, shs)):
+        axes = tuple(a for a in batch if a not in sh.axes())
+        if axes:
+            buckets.setdefault(axes, []).append(i)
+    gs = list(gs)
+    for axes, idx in sorted(buckets.items()):
+        flat = comm.all_reduce(torch.cat([gs[i].reshape(-1).to(torch.float32) for i in idx]),
+                               res.mesh, axes, tag="grad")
+        off = 0
+        for i in idx:
+            n = gs[i].numel()
+            gs[i] = flat[off:off + n].reshape(gs[i].shape).to(gs[i].dtype)
+            off += n
+    return rebuild(gs)
+
+
+def init_opt_state(optimizer: Optimizer, params):
+    """``optimizer.init`` for the params a (sharded) train step takes: on
+    the rank's blocks, with every params-shaped tree of the state held as
+    ``params`` is (DTensors for DTensor leaves); for an optimizer that needs
+    whole leaves (Shampoo), on the gathered whole tree (its state then
+    replicated on every rank)."""
+    from repro_torch.parallel.sharding import gather_params
+
+    if optimizer.whole_leaves:
+        return optimizer.init(gather_params(params))
+    state = optimizer.init(tree_map(_local, params))
+    pp = flatten_with_paths(params)[0]
+
+    def wrap(sub):
+        return _rewrap(sub, params) if isinstance(sub, dict) and flatten_with_paths(sub)[0] == pp else sub
+
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(wrap(v) for v in state))
+    return wrap(state)
+
+
 def make_train_step(
     cfg: ModelConfig,
     optimizer: Optimizer,
     *,
     microbatches: int = 1,
     compression=None,  # (init, apply) from ef_compress_transform
+    policy=None,
 ) -> Callable:
+    """The train step; with ``policy`` the sharded one (module docstring):
+    ``params`` are this rank's blocks (DTensors or local tensors),
+    ``opt_state`` comes from :func:`init_opt_state`, and ``batch`` holds the
+    rank's rows of the global batch."""
     loss_fn = make_loss_fn(cfg)
+    resolver = shardings = None
+    if policy is not None:
+        meta = model_meta(cfg)
+        specs = policy.param_specs(meta)
+        shardings = policy.param_shardings(meta)
+        resolver = policy.resolver().with_params(specs)
+
+    def grads_of(params, batch):
+        if microbatches <= 1:
+            return value_and_grad(loss_fn, params, batch)
+        gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+        lsum = None
+        for i in range(microbatches):
+            mb_batch = {k: v[i * (v.shape[0] // microbatches) : (i + 1) * (v.shape[0] // microbatches)]
+                        for k, v in batch.items()}
+            (l, metrics), g = value_and_grad(loss_fn, params, mb_batch)
+            gsum = tree_map(lambda a, b: a + b.to(torch.float32), gsum, g)
+            lsum = l if lsum is None else lsum + l
+        metrics["loss"] = lsum / microbatches
+        return (metrics["loss"], metrics), tree_map(lambda g: g / microbatches, gsum)
 
     def train_step(params, opt_state, batch, step):
-        if microbatches <= 1:
-            (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
-        else:
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
-            lsum = None
-            for i in range(microbatches):
-                mb_batch = {k: v[i * (v.shape[0] // microbatches) : (i + 1) * (v.shape[0] // microbatches)]
-                            for k, v in batch.items()}
-                (l, metrics), g = value_and_grad(loss_fn, params, mb_batch)
-                gsum = tree_map(lambda a, b: a + b.to(torch.float32), gsum, g)
-                lsum = l if lsum is None else lsum + l
-            grads = tree_map(lambda g: g / microbatches, gsum)
-            metrics["loss"] = lsum / microbatches
+        with hints.hint_resolver(resolver):
+            local = tree_map(_local, params)
+            state = tree_map(_local, opt_state)
+            (loss, metrics), grads = grads_of(local, batch)
+            if resolver is not None:
+                grads = _sync_grads(grads, shardings, resolver)
 
-        ef_state = None
-        if compression is not None:
-            opt_state, ef_state = opt_state
-            grads, ef_state = compression[1](grads, ef_state)
+            ef_state = None
+            if compression is not None:
+                state, ef_state = state
+                grads, ef_state = compression[1](grads, ef_state)
 
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        params = apply_updates(params, updates)
-        metrics["grad_norm"] = global_norm(updates)
-        if compression is not None:
-            opt_state = (opt_state, ef_state)
-        return params, opt_state, metrics
+            if resolver is not None and optimizer.whole_leaves:
+                whole = lambda t, sh, tag: sh.gather(t, tag=tag)
+                g_all = tree_map(lambda g, sh: whole(g, sh, "grad"), grads, shardings)
+                p_all = tree_map(lambda p, sh: whole(p, sh, "param"), local, shardings)
+                upd_all, state = optimizer.update(g_all, state, p_all)
+                metrics["grad_norm"] = global_norm(upd_all)
+                updates = tree_map(lambda u, sh: sh.shard(u), upd_all, shardings)
+            elif resolver is not None:
+                with sharded_norm(resolver.mesh, [sh.axes() for sh in leaves(shardings)]):
+                    updates, state = optimizer.update(grads, state, local)
+                    metrics["grad_norm"] = global_norm(updates)
+            else:
+                updates, state = optimizer.update(grads, state, local)
+                metrics["grad_norm"] = global_norm(updates)
+            new = apply_updates(local, updates)
+            if compression is not None:
+                state = (state, ef_state)
+        return _rewrap(new, params), _rewrap(state, opt_state), metrics
 
     return train_step
 

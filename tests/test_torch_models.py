@@ -277,8 +277,13 @@ def test_entry_points_need_a_card_or_the_cpu():
         models.model_params(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         models.init_params(models.model_meta(cfg), torch.Generator())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        models.partition_specs(models.model_meta(cfg), {})
+    # partition_specs needs no card: it equals the JAX package's under a rule table.
+    rules = {"vocab": "model", "embed": ("pod", "data"), "mlp": "model", "q_heads": "model", "kv_heads": "model"}
+    jspecs = jax.tree_util.tree_leaves(
+        jmodels.partition_specs(jmodels.model_meta(jconfigs.get_smoke_config(ARCH)), rules),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    assert [tuple(sp) for sp in flatten_with_paths(models.partition_specs(models.model_meta(cfg), rules))[1]] \
+        == [tuple(sp) for sp in jspecs]
 
 
 def _gqa_logits(dtype):

@@ -211,13 +211,44 @@ def test_frontend_archs_train_on_embeds(arch):
     assert len(hist) == 2 and all(np.isfinite(hist))
 
 
+SHARDED_ARGV = ["--arch", ARCH, "--smoke", "--steps", "2", "--batch", "4", "--seq", "32", "--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def sharded_launcher(tmp_path_factory):
+    """``main(SHARDED_ARGV + ["--model-axis", "2"])`` on two gloo CPU ranks
+    (a (1, 2) mesh: heads, vocabulary and MLP split on the model axis),
+    with a checkpoint directory; then its checkpoint restored with
+    ``shardings=`` in the same world."""
+    import torch_shard_ranks as ranks
+    from repro_torch.models import model_params
+    from repro_torch.parallel import run_ranks
+
+    ckpt = str(tmp_path_factory.mktemp("sharded_launcher") / "ckpt")
+    whole = model_params(configs.get_smoke_config(ARCH), torch.Generator().manual_seed(0), device="cpu")
+    argv = SHARDED_ARGV + ["--model-axis", "2", "--ckpt-dir", ckpt]
+    res = run_ranks(ranks.launcher_ranks, 2, backend="gloo", device_type="cpu", args=(argv, ckpt, whole),
+                    timeout_s=300)
+    return dict(res=res, ckpt=ckpt, whole=whole)
+
+
+def test_launcher_model_axis_2_equals_model_axis_1(sharded_launcher):
+    """The launcher on two ranks with ``--model-axis 2`` gives the 2-step
+    loss history of one process (``--model-axis 1``) at 1e-5, on every
+    rank."""
+    one = main(SHARDED_ARGV + ["--model-axis", "1"])
+    for res in sharded_launcher["res"]:
+        assert len(res["history"]) == 2
+        np.testing.assert_allclose(res["history"], one, rtol=1e-5)
+
+
 def _loop_parts(cfg):
     dc = data.DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2, seed=3)
     opt = optim.adamw(1e-3)
     return train.make_train_step(cfg, opt), (lambda s: data.synthetic_batch(dc, s, device="cpu")), opt
 
 
-def test_checkpoint_roundtrip_and_resume(tmp_path):
+def test_checkpoint_roundtrip_and_resume(tmp_path, sharded_launcher):
     """Save/restore keeps every leaf of params and a Shampoo state (bf16
     through float32) in the target's device and dtype; a run stopped at
     step 4 and resumed to 6 reaches the weights and AdamW state of an
@@ -233,8 +264,16 @@ def test_checkpoint_roundtrip_and_resume(tmp_path):
     back = mgr.restore(3, tree)
     for a, b in zip(leaves(back), leaves(tree)):
         assert a.dtype == b.dtype and torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        mgr.restore(3, tree, shardings=tree)
+    # A sharded run's checkpoint, restored with shardings= into a 2-rank
+    # world (tests/torch_shard_ranks.py): each rank's blocks, gathered,
+    # equal the whole saved values.
+    whole = CheckpointManager(sharded_launcher["ckpt"]).restore(
+        sharded_launcher["res"][0]["step"], {"params": sharded_launcher["whole"]})["params"]
+    embed = [i for i, t in enumerate(leaves(whole)) if t is whole["embed"]][0]
+    for res in sharded_launcher["res"]:
+        assert res["local_shapes"][embed] == (256, 64)  # the vocabulary on 2 ranks
+        for a, b in zip(res["whole"], leaves(whole)):
+            np.testing.assert_array_equal(a, b.numpy())
 
     cfg = configs.get_smoke_config(ARCH)
     params = interop.model_params(jax.tree_util.tree_map(
@@ -320,5 +359,5 @@ def test_entry_points_need_a_card_or_the_cpu():
         data.synthetic_batch(dc, 0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--arch", ARCH, "--smoke", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(RuntimeError, match="torchrun"):  # --model-axis 2 needs a world of ranks
         main(["--arch", ARCH, "--smoke", "--steps", "1", "--model-axis", "2", "--device", "cpu"])
