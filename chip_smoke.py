@@ -80,7 +80,7 @@ Phases, each printing its own lines:
    Then the same 3 steps with AdamW, the step-1 statistics through
    batched ``torch.linalg.eigh`` plus the root (the yardstick), the peak
    memory, and ``python -m repro_torch.launch.train --arch llama3.2-3b
-   --smoke --steps 20 --optimizer shampoo`` on the card.
+   --smoke --steps 10 --optimizer shampoo`` on the card.
 9. Serving on the card through the port's entry points (``get_config``,
    ``model_params``, ``cache_init``, ``make_serve_step``, ``make_prefill``,
    ``decode_step``), random weights from the seed, bf16 activations and
@@ -97,11 +97,12 @@ Phases, each printing its own lines:
    decoding on its recurrent states; musicgen-large and
    llava-next-mistral-7b at full width cut to 2 layers, batch 4, prompt
    32, gen 16, on tokens.  Each cell times the serve loop (the prompt,
-   its first 128 tokens where longer, by teacher-forced decode steps, then
+   its first 64 tokens where longer, by teacher-forced decode steps, then
    greedy decode), the full-sequence
    ``make_prefill``, the peak memory, and a step's device time (the step
    captured as one CUDA graph).  Gates: a float32 copy of the config on the
-   same weights (granite-moe's first 4 layers: see ``SERVE_CELLS``),
+   same weights (granite-moe's first 4 layers; llama3.2-3b's, mamba2-370m's
+   and recurrentgemma-2b's first 8: see ``SERVE_CELLS``),
    teacher-forced over the prompt and then greedy, gives decode logits
    within ``TOL_SERVE`` of max|logits| of ``forward``'s over the same
    tokens at every position, or within 4x the forward's own change under a
@@ -111,7 +112,7 @@ Phases, each printing its own lines:
    mixtral's positions past 4096 also on their own); its greedy tokens, and
    ``make_prefill``'s, are the forward's argmax (or within that tolerance
    of its max, a tie); the bf16 decode logits over the same tokens (the
-   first 128 + 16 positions where longer) are finite and within 0.1
+   first 64 + 16 positions where longer) are finite and within 0.1
    (mean) of max|logits| of the float32 ones; kernels
    A-E launch no time.  Then ``python -m repro_torch.launch.serve --arch
    mixtral-8x7b --smoke`` on the card.
@@ -128,7 +129,7 @@ Phases, each printing its own lines:
    ``synthetic_batch``'s embeddings: finite losses, ``frontend_proj``
    moved.  (d) ``python -m repro_torch.launch.serve --arch mamba2-370m
    --smoke`` and ``python -m repro_torch.launch.train --arch
-   recurrentgemma-2b --smoke --steps 20 --optimizer shampoo`` on the card.
+   recurrentgemma-2b --smoke --steps 10 --optimizer shampoo`` on the card.
 11. The multi-device paths, multi-controller, through
    ``repro_torch.parallel.run_ranks``: four ranks share the card over gloo
    (NCCL refuses two ranks on one device), each with its own launch
@@ -179,6 +180,25 @@ Phases, each printing its own lines:
    solve's and its roots within 1e-3 of float64.  Prints each rank's step
    ms and peak memory, the bytes a step moved (parameter gathers, gradient
    sums, activations) and whether gloo sums bfloat16 CUDA tensors.
+13. Tensor parallelism of the mixers, sharded serving and the dry-run.
+   (a) On phase 12's four ranks: mamba2-370m at full width cut to 2
+   layers (8 x 256) and recurrentgemma-2b cut to one (rglru, rglru, attn)
+   unit (4 x 512), float32, ``make_policy(pure_dp=False)`` (the mixers'
+   width split on model), one sharded train step under phase 12's float32
+   gates; then ``make_prefill`` and ``make_serve_step`` (FSDP off) on
+   ``launch.cache_specs``' cache shards, a 32-token prompt teacher-forced
+   and 8 greedy tokens: the tokens equal one process's, the logits within
+   phase 9's gate of one process's.  (b) ``launch.dryrun.run_cell`` on
+   fake CUDA tensors in fake worlds of 256 and 512 ranks, at full width
+   and depth: llama3.2-3b train_4k, mamba2-370m long_500k and
+   mixtral-8x7b decode_32k (multi-pod), each record's summary line.  (c)
+   The dry-run of (a)'s mamba2 cell against the same cell run for real on
+   the four ranks (``count_cell``): rank 0's collective bytes by kind and
+   group, and its walked FLOPs against ``FlopCounterMode``'s, exactly;
+   and of llama3.2-3b, 1 layer, 8 x 128, one process, against its real
+   step: the peak estimate over the step's peak memory (``TOL_PEAK``),
+   FLOPs exactly, and the step's time over the roofline's bound.  No
+   kernel launches (AdamW; serving).
 
 Then one JSON line with the kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -222,21 +242,24 @@ ROOT_BLOCKS = 64
 # 0.63 at 32 (scripts/serve_sensitivity.py on an H100), so no two float32
 # computations of the 32-layer model agree and its gates run on its
 # first 4 layers.
-# mamba2-370m and recurrentgemma-2b run all their layers, over prompts
-# that cross their scans' chunks (256 positions: 2 SSD chunks of 128; 544:
-# 2 RG-LRU chunks of 272); the frontend archs' backbones on tokens, cut as
-# the other dense cells are.  mixtral-8x7b keeps one layer: its 4240
+# mamba2-370m and recurrentgemma-2b serve at all their layers, over
+# prompts that cross their scans' chunks (256 positions: 2 SSD chunks of
+# 128; 544: 2 RG-LRU chunks of 272), and gate on their first 8 layers
+# (recurrentgemma's 2 units and its remainder), as llama3.2-3b does: the
+# gates' float32 decode loops over every position were the phase's
+# longest (cut to keep the script within its time); the frontend
+# archs' backbones on tokens, cut as the other dense cells are.  mixtral-8x7b keeps one layer: its 4240
 # positions, which wrap the 4096-slot ring, make three decode loops the
 # longest of the phase.
 SERVE_CELLS = (
-    ("llama3.2-3b", None, 8, 64, 32, None),
+    ("llama3.2-3b", None, 8, 64, 32, 8),
     ("codeqwen1.5-7b", 2, 4, 32, 16, None),
     ("stablelm-3b", 2, 4, 32, 16, None),
     ("qwen3-14b", 2, 4, 32, 16, None),
     ("granite-moe-3b-a800m", None, 4, 32, 16, 4),
     ("mixtral-8x7b", 1, 2, 4224, 16, None),
-    ("mamba2-370m", None, 4, 240, 16, None),
-    ("recurrentgemma-2b", None, 2, 528, 16, None),
+    ("mamba2-370m", None, 4, 240, 16, 8),
+    ("recurrentgemma-2b", None, 2, 528, 16, 8),
     ("musicgen-large", 2, 4, 32, 16, None),
     ("llava-next-mistral-7b", 2, 4, 32, 16, None),
 )
@@ -255,7 +278,7 @@ BF16_GATE_LAYERS = {"mamba2-370m": 8}
 # figure is ms a step), and the bf16 gate decodes at most this many plus
 # the generated ones; the float32 gate decodes every position of the
 # longer prompts (mixtral's ring wrap, the RG-LRU's chunks).
-SERVE_SHORT_PROMPT = 128
+SERVE_SHORT_PROMPT = 64
 # Phase 10 Shampoo training cuts: (arch, layers, batch, seq, steps, step 1
 # repeated bit for bit).  mamba2-370m's 4 of 48 layers over 256 positions
 # (two SSD chunks of 128); one (rglru, rglru, attn) unit of
@@ -332,6 +355,35 @@ TOL_SHARD_PARAMS = 1e-4
 # llama case.
 TOL_SHARD_MU = 1e-4
 SHARD_MU_FACTOR = 4.0
+
+# Phase 13: (a) tensor parallelism of the mixers and sharded serving, on
+# phase 12's world: mamba2-370m at full width cut to 2 layers (8 x 256,
+# two SSD chunks) and recurrentgemma-2b at full width cut to one (rglru,
+# rglru, attn) unit (4 x 512), float32, make_policy(pure_dp=False) (the
+# mixers' width on model; recurrentgemma's MQA decode splits its window),
+# each cell's config as the dry-run builds it (launch.dryrun.cell_config).
+# One sharded train step under phase 12's float32 gates (the momentum gate
+# on mamba2: recurrentgemma's 2.6 GB tied table makes its float64
+# reference the largest of the phase), then, under make_policy(fsdp=False)
+# (FSDP would gather every weight at every decode step through gloo's host
+# copies), make_prefill and a 32-token prompt teacher-forced plus 8 greedy
+# tokens through make_serve_step: the
+# greedy tokens equal one process's, and the logits (decode_step under the
+# resolver, gathered) within phase 9's gate of one process's.  (b) Three
+# dry-runs of fake CUDA tensors on the fake production worlds at full
+# width and depth.  (c) The dry-run of (a)'s mamba2 cell against the real
+# cell on the four ranks (count_cell): rank 0's collective bytes by kind
+# and its FLOPs equal exactly; and of a one-process llama3.2-3b cell (1
+# layer, 8 x 128) against its real step on the card: the peak estimate
+# over the step's peak device memory within TOL_PEAK (set from the
+# prediction written in PERF.md before this phase first ran), and the
+# step's time over the roofline's bound.
+MIXER_CELLS = (("mamba2", "mamba2-370m", 2, 8, 256), ("recurrentgemma", "recurrentgemma-2b", 3, 4, 512))
+SERVE13_PROMPT, SERVE13_GEN = 32, 8
+DRY_CELLS = (("llama3.2-3b", "train_4k", False), ("mamba2-370m", "long_500k", False),
+             ("mixtral-8x7b", "decode_32k", True))
+PEAK_CELL = ("llama3.2-3b", 1, 8, 128)
+TOL_PEAK = (0.8, 1.25)
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, the
 # float32 rate outside the tensor cores, and the bf16 and TF32 tensor-core
@@ -1448,7 +1500,7 @@ def phase_training(torch, gen):
     print(f"phase 8 the step-1 statistics (2 x {NB} blocks) through batched torch.linalg.eigh + root: "
           f"{lib_s:.2f} s, against the refresh's {refresh_s:.2f} s")
 
-    cli_s = run_cli("phase 8", ["repro_torch.launch.train", "--arch", "llama3.2-3b", "--smoke", "--steps", "20",
+    cli_s = run_cli("phase 8", ["repro_torch.launch.train", "--arch", "llama3.2-3b", "--smoke", "--steps", "10",
                                 "--optimizer", "shampoo"], lambda lines: "on NVIDIA" in lines[-1])
     record.update(library_s=lib_s, adamw_steady_ms=sum(ta[1:]) / len(ta[1:]) * 1e3, cli_s=cli_s)
     return got, got_dev, record
@@ -1638,9 +1690,13 @@ def phase_serving(torch, gen):
 
         # The gates: a float32 copy on the same weights against forward,
         # MoE archs replaying the float32 decode's routing.
-        if gate_layers is not None:
+        if gate_layers is not None:  # the first units, and the remainder layers where the cut keeps them
+            full_rem = rem
             cfg = replace(cfg, n_layers=gate_layers)
-            params = dict(params, units=tree_map(lambda t: t[:gate_layers], params["units"]))
+            _, n_cut, cut_rem = pattern_unit(cfg)
+            require(cut_rem in ((), full_rem), f"phase 9 {arch}: a gate cut to {gate_layers} layers")
+            params = dict(params, units=tree_map(lambda t: t[:n_cut], params["units"]),
+                          rem=params["rem"] if cut_rem else {})
         cfg32 = replace(cfg, dtype="float32")
         ref_cfg = replace(cfg32, moe_impl="dense", attn_chunk=_chunk(T), attn_kv_chunk=_chunk(T))
         routing, flips, flips16 = [], [0], [0]
@@ -1795,7 +1851,7 @@ def phase_families(torch, gen):
         "phase 10", ["repro_torch.launch.serve", "--arch", "mamba2-370m", "--smoke"],
         lambda lines: len(lines) >= 3 and lines[-3].startswith("[serve] mamba2-370m"))
     records["train_cli_s"] = run_cli(
-        "phase 10", ["repro_torch.launch.train", "--arch", "recurrentgemma-2b", "--smoke", "--steps", "20",
+        "phase 10", ["repro_torch.launch.train", "--arch", "recurrentgemma-2b", "--smoke", "--steps", "10",
                      "--optimizer", "shampoo"], lambda lines: "recurrentgemma-2b on NVIDIA" in lines[-1])
     return launches, device_launches, records
 
@@ -2246,8 +2302,19 @@ def _shard_case(torch, tag: str, cfg, policy, batch: int, seq: int, steps: int, 
     if gated:  # the one-process float32 step against the same step in float64
         c64 = dataclasses.replace(cfg, dtype="float64", param_dtype="float64")
         p64 = tree_map(lambda t: t.double(), whole)
+        whole = None  # (sens is for bf16 steps only)
+        if not momentum:  # only the momentum gate reads the float32 state
+            ref_s = None
+        # Off the card during the float64 step (recurrentgemma-2b's unit
+        # with its 2.6 GB table takes ~45 GB there), back for the gates.
+        new, ref_p = tree_map(lambda t: t.cpu(), new), tree_map(lambda t: t.cpu(), ref_p)
+        torch.cuda.empty_cache()
         n64, s64, _ = make_train_step(c64, opt)(p64, start(opt.init(p64)), full, 0)
         del p64
+        if not momentum:
+            s64 = None
+        torch.cuda.empty_cache()
+        new, ref_p = tree_map(lambda t: t.cuda(), new), tree_map(lambda t: t.cuda(), ref_p)
         n = len(paths)
         rec["leaf_gate"] = shard_leaf_gate(paths, leaves(new), leaves(ref_p), leaves(n64), [moved] * n,
                                            TOL_SHARD_PARAMS)
@@ -2336,6 +2403,8 @@ def _shard_rank():
     out["d"]["blocks"] = st.stats_l.shape[0]
     out["d"]["root_err"] = {side: float(root_errors(torch, getattr(st, "stats_" + side), getattr(st, "pre_" + side),
                                                     idx, opts.eps)[0].max()) for side in ("l", "r")}
+    del st, idx  # (d)'s Shampoo state, before phase 13's cases
+    out["p13"] = _mixer_rank(mesh)
     return out
 
 
@@ -2350,8 +2419,22 @@ def phase_sharding(torch):
     gc.collect()
     torch.cuda.empty_cache()
     t0, t_wall = time.perf_counter(), time.time()
-    res = run_ranks(_shard_rank, SHARD_RANKS, backend="gloo", device_type="cuda", timeout_s=600)
-    ranks_s = time.perf_counter() - t0
+    # The ranks' allocators grow segments in place: phase 13's one-process
+    # float64 reference on rank 0 left 8 GiB reserved in fragments beside
+    # its 41 GiB (an NVIDIA H100 80GB HBM3) and ran out of memory.
+    import os
+
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        res = run_ranks(_shard_rank, SHARD_RANKS, backend="gloo", device_type="cuda", timeout_s=900)
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    mixers = [r.pop("p13") for r in res]  # phase 13 (a), run by the same ranks
+    ranks_s = time.perf_counter() - t0 - max(m["s"] for m in mixers)
     start_s = max(r["started"] for r in res) - t_wall
     require([r["backend"] for r in res] == ["gloo"] * SHARD_RANKS, "phase 12 gloo ranks")
     gloo_bf16 = all(r["gloo_bf16"] for r in res)
@@ -2429,9 +2512,217 @@ def phase_sharding(torch):
     require(d_rel < TOL_SHARD_LOSS, "phase 12 (d) loss vs one process")
     summary["d"].update(blocks=d[0]["blocks"], share=share, root_err=[r["root_err"] for r in d],
                         launches_per_rank=[r["launches"] for r in d])
-    print(f"phase 12 the {SHARD_RANKS} gloo ranks took {ranks_s:.1f} s, {start_s:.1f} s of it their start-up")
+    print(f"phase 12 the {SHARD_RANKS} gloo ranks took {ranks_s:.1f} s, {start_s:.1f} s of it their start-up (and "
+          f"then phase 13 (a))")
     return dict(ranks=SHARD_RANKS, ranks_s=ranks_s, start_s=start_s, gloo_bf16=gloo_bf16, attn_mode=res[0]["a_mode"],
-                moe_mode=res[0]["c_mode"], cases=summary)
+                moe_mode=res[0]["c_mode"], cases=summary, mixers=mixers)
+
+
+def _mixer_kw(layers: int, batch: int, seq: int) -> dict:
+    """The dry-run keywords of a phase 13 (a) cell on the (2, 2) mesh."""
+    return dict(mesh_override=(2, 2), overrides=dict(n_layers=layers, dtype="float32"), pure_dp=False,
+                shape_overrides=dict(batch=batch, seq=seq))
+
+
+def _serve_shard_case(torch, tag: str, cfg, policy, batch: int):
+    """Sharded ``make_prefill`` and teacher-forced + greedy
+    ``make_serve_step`` from seeded whole weights, then the same positions'
+    logits through ``decode_step`` under the resolver (gathered over the
+    vocabulary and the batch); on rank 0 the one-process prefill, decode
+    and forward (and its change when the embedding moves one ulp)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.cache_specs import cache_partition_specs, shard_cache
+    from repro_torch.models import cache_init, cache_meta, decode_step, forward, model_meta, model_params
+    from repro_torch.parallel import comm, hints, shard_params
+    from repro_torch.train import make_prefill, make_serve_step
+    from repro_torch.tree import tree_map
+
+    t_case = time.perf_counter()
+    P, G = SERVE13_PROMPT, SERVE13_GEN
+    T = P + G
+    max_len = T + T % 2  # the window splits over the model axis
+    mesh = policy.mesh
+    whole = model_params(cfg, torch.Generator(device="cuda").manual_seed(SEED + 31), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    prompts = torch.randint(0, cfg.vocab, (batch, P), generator=g, device="cuda", dtype=torch.int32)
+    meta = model_meta(cfg)
+    params = shard_params(whole, policy.param_shardings(meta))
+    whole = tree_map(lambda t: t.cpu(), whole) if dist.get_rank() == 0 else None
+    torch.cuda.empty_cache()
+    res = policy.resolver()
+    n, i = res.size("act_batch"), res.index("act_batch")
+    lo, hi = i * batch // n, (i + 1) * batch // n
+    first = make_prefill(cfg, policy=policy)(params, {"tokens": prompts[lo:hi]})
+    shardings = cache_partition_specs(cfg, mesh, policy, cache_meta(cfg, batch, max_len))
+    step = make_serve_step(cfg, policy=policy)
+    fed = torch.zeros((hi - lo, T), dtype=torch.int32, device="cuda")
+    fed[:, :P] = prompts[lo:hi]
+    cache = shard_cache(cache_init(cfg, batch, max_len), shardings)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(T - 1):
+        tok, cache = step(params, cache, fed[:, t:t + 1])
+        if t + 1 >= P:
+            fed[:, t + 1] = tok
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (T - 1)
+    cache = shard_cache(cache_init(cfg, batch, max_len), shardings)
+    local = tree_map(lambda t: t.to_local(), params)
+    logits = torch.empty((hi - lo, T, cfg.vocab), dtype=torch.float32, device="cuda")
+    vocab, rows = res.axes("act_vocab"), res.batch_axes()
+    with torch.inference_mode(), hints.hint_resolver(res.with_params(policy.param_specs(meta))):
+        for t in range(T):
+            lg, cache = decode_step(local, cfg, cache, tokens=fed[:, t:t + 1])
+            logits[:, t] = (comm.all_gather(lg, mesh, vocab, -1) if vocab else lg)[:, 0]
+        if rows:
+            fed, first, logits = (comm.all_gather(x, mesh, rows, 0) for x in (fed, first, logits))
+    del params, local, cache
+    rec = dict(step_ms=step_ms, traffic=dict(comm.traffic), tokens=fed[:, P:].cpu())
+    if dist.get_rank() != 0:
+        del logits
+        torch.cuda.empty_cache()
+        dist.barrier()
+        return rec
+    whole = tree_map(lambda t: t.cuda(), whole)
+    with torch.inference_mode():
+        first_ref = make_prefill(cfg)(whole, {"tokens": prompts})
+        ref = _decode_logits(torch, whole, cfg, fed.clone(), T)
+        fwd, _ = forward(whole, cfg, tokens=fed)
+        ulp = torch.randint(0, 2, whole["embed"].shape, generator=g, device="cuda") * 2.0 - 1
+        moved, _ = forward(dict(whole, embed=whole["embed"] * (1 + ulp * 2.0 ** -23)), cfg, tokens=fed)
+        del ulp
+    scale = float(ref.abs().max())
+    rec.update(
+        prefill_equal=bool(torch.equal(first, first_ref)),
+        tokens_equal=bool(torch.equal(fed[:, P:], ref[:, P - 1:T - 1].argmax(-1).to(fed.dtype))),
+        logit_err=float((logits - ref).abs().max()) / scale,
+        sens=float((moved - fwd).abs().max()) / float(fwd.abs().max()),
+        case_s=time.perf_counter() - t_case)
+    del whole, ref, fwd, moved, logits
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return rec
+
+
+def _mixer_rank(mesh):
+    """Phase 13 (a) and the real half of (c) in one rank of phase 12's
+    world."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import cell_config, count_cell
+    from repro_torch.parallel import make_policy
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tag = f"phase 13 rank {dist.get_rank()}"
+    out = {}
+    for key, arch, layers, batch, seq in MIXER_CELLS:
+        cfg = cell_config(arch, "train_4k", **_mixer_kw(layers, batch, seq))[0]
+        policy = make_policy(mesh, cfg, fsdp=True, pure_dp=False)
+        out[key] = _shard_case(torch, f"{tag} ({key})", cfg, policy, batch, seq, 1, momentum=key == "mamba2")
+        serve = make_policy(mesh, cfg, fsdp=False, pure_dp=False)  # no FSDP gathers at every decode step
+        out[key + "_serve"] = _serve_shard_case(torch, f"{tag} ({key} serve)", cfg, serve, batch)
+    _, arch, layers, batch, seq = MIXER_CELLS[0]
+    out["counts"] = count_cell(arch, "train_4k", device="cuda", **_mixer_kw(layers, batch, seq))
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_dryrun(torch, mixers, t_world: float):
+    """Phase 13: (a)'s gates from the ranks' records, (b) the dry-runs of
+    the production worlds, (c) the dry-run against real steps."""
+    from repro_torch.launch.dryrun import count_cell, run_cell, summary
+    from repro_torch.parallel import comm
+
+    t0 = time.perf_counter()
+    failed, out = [], {}
+    for key, arch, layers, batch, seq in MIXER_CELLS:
+        recs, first = [r[key] for r in mixers], mixers[0][key]
+        same = all(r["loss_bits"] == first["loss_bits"] for r in recs)
+        rel = abs(first["losses"][0] - first["ref_losses"][0]) / abs(first["ref_losses"][0])
+        rows, mus = first["leaf_gate"], first.get("mu_gate", [])
+        ok = same and rel < TOL_SHARD_LOSS and all(r["err"] < r["tol"] for r in rows + mus)
+        tight = [(r["path"], f"{r['err']:.3e}", f"{r['tol']:.3e}") for r in (rows[:2] + mus[:2])]
+        traffic = first["traffic"][-1]
+        print(f"phase 13 (a) {arch} ({layers} layers, {batch} x {seq}, mixers tensor-parallel) train step: losses "
+              f"{first['losses']} on every rank bit for bit: {same}; vs one process {first['ref_losses']} rel "
+              f"{rel:.3e} (tol {TOL_SHARD_LOSS:.0e}); tightest leaves (path, err, tol) {tight}; step ms per rank "
+              f"{[round(r['ms'][0], 1) for r in recs]}; peak GiB per rank {[round(r['peak_gib'], 2) for r in recs]}; "
+              f"bytes a step on rank 0 {traffic}")
+        if not ok:
+            failed.append(f"(a) {arch} train step")
+        if any(r["launches"] for r in recs):
+            failed.append(f"(a) {arch} AdamW step launched kernels")
+        sv = [r[key + "_serve"] for r in mixers]
+        s0 = sv[0]
+        tol = max(TOL_SERVE, SENS_FACTOR * s0["sens"])
+        same_tokens = all(torch.equal(r["tokens"], s0["tokens"]) for r in sv)
+        ok = s0["prefill_equal"] and s0["tokens_equal"] and same_tokens and s0["logit_err"] <= tol
+        print(f"phase 13 (a) {arch} sharded serving (prompt {SERVE13_PROMPT} teacher-forced, {SERVE13_GEN} greedy): "
+              f"prefill tokens equal one process's: {s0['prefill_equal']}; greedy tokens equal: {s0['tokens_equal']} "
+              f"(every rank the same: {same_tokens}); decode logits {s0['logit_err']:.3e} of max|logits| from one "
+              f"process's (tol {tol:.3e} = max({TOL_SERVE:.0e}, {SENS_FACTOR:g} x the forward's 1-ulp change "
+              f"{s0['sens']:.3e})); eager step ms per rank {[round(r['step_ms'], 1) for r in sv]}; rank 0's case "
+              f"{s0['case_s']:.1f} s")
+        if not ok:
+            failed.append(f"(a) {arch} serving")
+        out[key] = dict(loss_rel=rel, leaf_gate=rows[:3], mu_gate=mus[:3], traffic=traffic,
+                        serve=dict(logit_err=s0["logit_err"], tol=tol, step_ms=[r["step_ms"] for r in sv]))
+    require(not failed, f"phase 13 {failed}")
+
+    # (b) the production worlds, fake CUDA tensors.
+    t_b = time.perf_counter()
+    out["dryrun"] = []
+    for arch, shape, multi_pod in DRY_CELLS:
+        rec = run_cell(arch, shape, multi_pod=multi_pod, device="cuda", top=0, quiet=True)
+        require(rec["status"] == "ok" and rec["memory"]["peak_estimate_bytes"] > 0, f"phase 13 (b) {arch} {shape}")
+        print(f"phase 13 (b) {summary(rec)}")
+        out["dryrun"].append({k: rec[k] for k in ("arch", "shape", "mesh", "trace_s", "memory", "roofline")})
+    b_s = time.perf_counter() - t_b
+
+    # (c) the dry-run against real steps: (a)'s mamba2 cell on the world ...
+    _, arch, layers, batch, seq = MIXER_CELLS[0]
+    rec = run_cell(arch, "train_4k", device="cuda", top=0, quiet=True, **_mixer_kw(layers, batch, seq))
+    real = mixers[0]["counts"]
+    coll_ok = rec["collectives"] == real["collectives"]
+    flops_ok = rec["walk"]["flops_per_device"] == real["flops"]
+    bound = rec["roofline"]["bound_step_time_s"]
+    print(f"phase 13 (c) {arch} ({layers} layers, {batch} x {seq}) on (2, 2): the fake world's collectives on rank 0 "
+          f"equal the real world's exactly: {coll_ok} ({rec['collectives']['total_bytes']} bytes; per kind "
+          f"{ {k: (v['count'], v['bytes']) for k, v in rec['collectives']['per_kind'].items()} }); walked FLOPs "
+          f"{rec['walk']['flops_per_device']:.6e} equal FlopCounterMode's {real['flops']:.6e}: {flops_ok}; real "
+          f"step {real['step_s'] * 1e3:.1f} ms on rank 0 (four gloo ranks share the card) over the bound "
+          f"{bound * 1e3:.4f} ms ({rec['roofline']['dominant']}): {real['step_s'] / bound:.1f} x")
+    # ... and a one-process llama cell against its real step.
+    arch, layers, batch, seq = PEAK_CELL
+    kw = dict(mesh_override=(1, 1), overrides=dict(n_layers=layers), shape_overrides=dict(batch=batch, seq=seq))
+    prec = run_cell(arch, "train_4k", device="cuda", top=0, quiet=True, **kw)
+    with comm.fake_world(1):
+        preal = count_cell(arch, "train_4k", device="cuda", **kw)
+    ratio = prec["memory"]["peak_estimate_bytes"] / preal["peak_bytes"]
+    pflops_ok = prec["walk"]["flops_per_device"] == preal["flops"]
+    pbound = prec["roofline"]["bound_step_time_s"]
+    print(f"phase 13 (c) {arch} ({layers} layer, {batch} x {seq}, one process): peak estimate "
+          f"{prec['memory']['peak_estimate_bytes'] / 2**30:.4f} GiB over the real step's "
+          f"{preal['peak_bytes'] / 2**30:.4f} GiB = {ratio:.4f} (gate {TOL_PEAK}); walked FLOPs "
+          f"{prec['walk']['flops_per_device']:.6e} equal FlopCounterMode's {preal['flops']:.6e}: {pflops_ok}; step "
+          f"{preal['step_s'] * 1e3:.2f} ms over the bound {pbound * 1e3:.4f} ms ({prec['roofline']['dominant']}): "
+          f"{preal['step_s'] / pbound:.1f} x, a roofline share of {pbound / preal['step_s']:.4f}")
+    require(coll_ok and flops_ok and pflops_ok, "phase 13 (c) the dry-run's counts differ from the real steps'")
+    require(TOL_PEAK[0] <= ratio <= TOL_PEAK[1], f"phase 13 (c) peak ratio {ratio}")
+    out["check"] = dict(collectives_equal=coll_ok, flops_equal=flops_ok, step_over_bound=real["step_s"] / bound,
+                        peak_ratio=ratio, peak_flops_equal=pflops_ok, peak_step_ms=preal["step_s"] * 1e3,
+                        peak_bound_ms=pbound * 1e3)
+    main_s = time.perf_counter() - t0
+    print(f"phase 13 took {max(r['s'] for r in mixers) + main_s:.1f} s: (a) {max(r['s'] for r in mixers):.1f} s in "
+          f"the ranks (phase 12's world, started {t_world:.1f} s before its first case), (b) {b_s:.1f} s, the rest "
+          f"{main_s - b_s:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -2483,10 +2774,15 @@ def main() -> int:
     distributed = phase_distributed(torch, shampoo["ms"])
     t12 = time.perf_counter()
     sharded = phase_sharding(torch)
+    mixers = sharded.pop("mixers")
+    t13 = time.perf_counter()
+    dryrun = phase_dryrun(torch, mixers, sharded["start_s"])
     t_end = time.perf_counter()
+    p13_ranks = max(m["s"] for m in mixers)
     print(f"phase 6 took {t7 - t6:.1f} s, phase 7 {t8 - t7:.1f} s, phase 8 {t9 - t8:.1f} s, phase 9 "
-          f"{t10 - t9:.1f} s, phase 10 {t11 - t10:.1f} s, phase 11 {t12 - t11:.1f} s, phase 12 {t_end - t12:.1f} s; "
-          f"the script {t_end - t_start:.1f} s in all (kernel build included)")
+          f"{t10 - t9:.1f} s, phase 10 {t11 - t10:.1f} s, phase 11 {t12 - t11:.1f} s, phase 12 "
+          f"{t13 - t12 - p13_ranks:.1f} s, phase 13 {t_end - t13 + p13_ranks:.1f} s; the script "
+          f"{t_end - t_start:.1f} s in all (kernel build included)")
 
     # Kernel D serves two registry ops (syr2k, trailing_update); its launches
     # are the sum of both counters over the unfused plan(A) run.
@@ -2517,7 +2813,7 @@ def main() -> int:
         kernels.append(row)
     print(json.dumps({"kernels": kernels, "shampoo_refresh": shampoo, "shampoo_training": training,
                       "serving": serving, "families": families, "distributed": distributed,
-                      "sharding": sharded}))
+                      "sharding": sharded, "dryrun": dryrun}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

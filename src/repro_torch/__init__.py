@@ -6,7 +6,9 @@ Layout mirrors ``repro``: ``backend`` (device probe, kernel registry),
 ``core`` (the pipeline stages), ``solver`` (the plan API), and the
 training and serving stack around the solver's consumer, Shampoo:
 ``optim``, ``models`` (the decoder LM, dense and MoE, with its decode
-caches), ``configs``, ``data``, ``train``, ``ckpt`` and ``launch``; plus
+caches), ``configs``, ``data``, ``train``, ``ckpt`` and ``launch``;
+``parallel`` (model sharding on ``torch.distributed``) and ``analysis``
+(what a step costs, for the dry-run); plus
 ``tree`` (nested containers walked as ``jax.tree_util`` walks them) and
 ``interop`` (JAX-made state in, as numpy).
 
@@ -20,5 +22,5 @@ caches), ``configs``, ``data``, ``train``, ``ckpt`` and ``launch``; plus
 """
 __all__ = [
     "backend", "core", "kernels", "solver", "optim", "models", "configs", "data", "train",
-    "ckpt", "launch", "parallel", "tree", "interop",
+    "ckpt", "launch", "parallel", "analysis", "tree", "interop",
 ]

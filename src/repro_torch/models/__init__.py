@@ -14,9 +14,12 @@ recurrent states for Mamba2 and RG-LRU layers), and model sharding:
 ``cp`` modes, the MoE's ``ep`` / ``capacity`` / ``tp`` modes, the
 vocab-parallel embedding and head, FSDP gathers per unit and sequence
 parallelism, all through ``repro_torch.parallel.hints``; and ``remat``
-``"none"``, ``"block"`` and ``"dots"``.  Tensor parallelism of the Mamba2
-and RG-LRU mixers is not ported (ROADMAP Queue 1 item 12(c)); under pure
-data parallelism they shard like the rest.
+``"none"``, ``"block"`` and ``"dots"``; tensor parallelism of the Mamba2
+(whole heads a rank, the gated norm's sum of squares reduced) and RG-LRU
+(its width, the block-diagonal gates' heads gathered where a cut splits
+one) mixers; and sharded decode (attention on its heads, or on a slice of
+the cache's window where KV heads stay whole; the mixers' states on the
+model axis).
 """
 from .config import ModelConfig
 from .params import ParamMeta, PartitionSpec, abstract_params, init_params, partition_specs, param_count

@@ -209,24 +209,43 @@ def attention_decode(
     Writes the new key and value into ``cache`` in place and returns
     (out (B, 1, D), cache).  Windowed layers use a ring buffer (slot =
     pos % W); full layers write slot = pos.
+
+    Under a decode resolver (``MeshResolver.for_decode``) each rank holds
+    its block of ``p`` and of the cache: in ``heads`` mode its KV heads
+    (and their query heads); where the policy leaves KV heads whole
+    (``q_heads``, ``cp``) the cache's window is split instead
+    (``act_cache_window``): each rank scores every query head against its
+    slice of the slots, the softmax max and sum are reduced over the ranks,
+    and only the rank that holds the slot writes the new key.
     """
     B = x.shape[0]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ck, cv = cache["k"], cache["v"]
-    W = ck.shape[1]
+    res = hints.active_resolver()
+    mode, work = _attn_split(cfg, res)
+    win = res.axes("act_cache_window") if res is not None else ()
 
     q, k, v = _project_qkv(p, cfg, x)
     cos, sin = rotary_cos_sin(pos[None], hd, cfg.rope_theta)
     q = apply_rotary(q, cos[None], sin[None])
     k = apply_rotary(k, cos[None], sin[None])
 
+    Wl = ck.shape[1]
+    W = Wl * res.size(win) if win else Wl
+    w0 = res.index(win) * Wl if win else 0
     slot = (pos % W if window is not None else pos).reshape(1).long()
+    if win:  # only the rank that holds the slot writes it
+        local = slot - w0
+        mine = (local >= 0) & (local < Wl)
+        slot = local.clamp(0, Wl - 1)
+        k = torch.where(mine, k.to(ck.dtype), ck.index_select(1, slot))
+        v = torch.where(mine, v.to(cv.dtype), cv.index_select(1, slot))
     ck.index_copy_(1, slot, k.to(ck.dtype))
     cv.index_copy_(1, slot, v.to(cv.dtype))
 
     # Positions held in each slot, for the mask (keys were rotated with
     # their absolute positions when written).
-    slots = torch.arange(W, device=x.device)
+    slots = torch.arange(w0, w0 + Wl, device=x.device)
     if window is not None:
         # Ring buffer: slot s holds the latest position p <= pos with
         # p % W == s (torch's % on tensors is the floor-mod JAX uses).
@@ -234,14 +253,34 @@ def attention_decode(
     else:
         valid = slots <= pos
 
-    qg = (q * hd ** -0.5).reshape(B, 1, hkv, hq // hkv, hd)
+    hq_loc = q.shape[2]
+    if win and hq_loc != hq:  # every query head scores this rank's slots
+        q = comm.all_gather(q, res.mesh, res.axes(work), 2)
+    hkv_loc = ck.shape[2]
+    qg = (q * hd ** -0.5).reshape(B, 1, hkv_loc, -1, hd)
     # float32 scores from the cache's dtype (JAX: preferred_element_type).
     s = torch.einsum("bqhgk,bchk->bhgqc", qg.to(torch.float32), ck.to(torch.float32))
     if cfg.attn_logit_softcap is not None:
         s = cfg.attn_logit_softcap * torch.tanh(s / cfg.attn_logit_softcap)
     s = torch.where(valid, s, NEG_INF)
-    pr = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqc,bchk->bhgqk", pr.to(cv.dtype), cv)
-    o = o.permute(0, 3, 1, 2, 4).reshape(B, 1, hq, hd)
+    if not win:
+        pr = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgqc,bchk->bhgqk", pr.to(cv.dtype), cv)
+        o = o.permute(0, 3, 1, 2, 4).reshape(B, 1, hq_loc, hd)
+    else:  # the softmax over every rank's slots
+        m = s.amax(-1, keepdim=True)
+        pr = torch.exp(s - m)
+        o = torch.einsum("bhgqc,bchk->bhgqk", pr.to(cv.dtype), cv).to(torch.float32)
+        M = comm.all_reduce_max(m, res.mesh, win)
+        scale = torch.exp(m - M)
+        l = comm.all_reduce(pr.sum(-1, keepdim=True) * scale, res.mesh, win)
+        o = (o * scale).permute(0, 3, 1, 2, 4).reshape(B, 1, hq, hd)
+        l = l.permute(0, 3, 1, 2, 4).reshape(B, 1, hq, 1)
+        if hq_loc != hq:  # this rank's query heads of the sum, for its rows of wo
+            o = comm.reduce_scatter(o, res.mesh, win, 2)
+            l = comm.split(l, res.mesh, win, 2)
+        else:
+            o = comm.all_reduce(o, res.mesh, win)
+        o = (o / l).to(cv.dtype)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
-    return out, cache
+    return hints.shard_hint(out, RES, partial=None if mode == "cp" else work), cache

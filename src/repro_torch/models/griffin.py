@@ -18,6 +18,17 @@ blocks), in float32.
 Block structure: x -> (gate branch: linear + GeLU) * (x branch: linear ->
 causal conv(4) -> RG-LRU) -> output linear.  Decode carries (h, conv
 window), O(width) state, updated in place.
+
+Under a sharding resolver whose ``act_mlp`` is a mesh axis (tensor
+parallelism), each rank holds its block of the width: columns of ``w_x``,
+``w_gate``, ``conv_*``, ``bias_*`` and ``lam``, rows of ``w_out`` (whose
+partial sums are reduced, or reduce-scattered under sequence
+parallelism).  The block-diagonal gates ``gate_a`` / ``gate_x`` are
+replicated (their gradients summed over the model axis): a rank applies
+the blocks of the heads its columns meet.  A cut inside a head (10 heads
+of 256 on 4 or 16 ranks) needs the head's other columns, so the gates'
+input is then all-gathered over the model axis first.  Decode splits
+``h`` and the conv window on the width the same way.
 """
 from __future__ import annotations
 
@@ -27,16 +38,16 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.parallel import hints
+from repro_torch.parallel import comm, hints
 
 from .config import ModelConfig
-from .layers import refuse_mixer_tp
 from .params import ParamMeta
 
 __all__ = ["rglru_meta", "rglru_forward", "rglru_decode", "rglru_cache_meta"]
 
 _C = 8.0
 _CHUNK = 512
+RES = ("act_batch", "act_res_seq", None)  # the residual stream's layout
 
 
 def _width(cfg: ModelConfig) -> int:
@@ -62,12 +73,16 @@ def rglru_meta(cfg: ModelConfig, pdtype) -> dict:
     }
 
 
-def _block_diag(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x: (..., W) -> block-diagonal linear with (H, bw, bw) weights."""
+def _block_diag(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, off: int = 0) -> torch.Tensor:
+    """x: (..., H * bw) -> block-diagonal linear with (H, bw, bw) weights;
+    of the result, the ``b.shape[-1]`` columns from ``off`` on, plus ``b``."""
     H, bw, _ = w.shape
     xs = x.reshape(*x.shape[:-1], H, bw)
-    y = torch.einsum("...hi,hij->...hj", xs, w.to(x.dtype))
-    return y.reshape(x.shape) + b.to(x.dtype)
+    y = torch.einsum("...hi,hij->...hj", xs, w.to(x.dtype)).reshape(x.shape)
+    n = b.shape[-1]
+    if off or n != y.shape[-1]:
+        y = y[..., off:off + n]
+    return y + b.to(x.dtype)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -79,12 +94,38 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return out + b
 
 
+def _gate_input(p, x: torch.Tensor):
+    """(p, the gates' input, offset): under tensor parallelism, the
+    replicated gate blocks made shared and cut to the heads that this
+    rank's columns of ``x`` meet, and ``x`` widened to those heads'
+    columns (all-gathered when the cut splits a head), with the offset of
+    the rank's own columns in it."""
+    res = hints.active_resolver()
+    axes = res.axes("act_mlp") if res is not None else ()
+    H, bw, _ = p["gate_a"].shape
+    n = x.shape[-1]
+    if not axes or n == H * bw:
+        return p, x, 0
+    lo = res.index("act_mlp") * n
+    h0, h1 = lo // bw, -(-(lo + n) // bw)
+    gates = hints.shared_param({"gate_a": p["gate_a"], "gate_x": p["gate_x"]}, "act_mlp")
+    p = dict(p, gate_a=gates["gate_a"][h0:h1], gate_x=gates["gate_x"][h0:h1])
+    if lo % bw or n % bw:  # the cut splits a head: gather the width
+        x = comm.all_gather(x, res.mesh, axes, -1, length=H * bw)[..., h0 * bw:h1 * bw]
+        return p, x, lo - h0 * bw
+    return p, x, 0
+
+
 def _gates(p, x: torch.Tensor):
-    """Returns (a_t, gated input) in float32.  x: (..., W)."""
+    """Returns (a_t, gated input) in float32.  x: (..., W), this rank's
+    columns under tensor parallelism."""
     f32 = torch.float32
-    xf = x.to(f32)
-    r = torch.sigmoid(_block_diag(xf, p["gate_a"].to(f32), p["bias_a"].to(f32)))
-    i = torch.sigmoid(_block_diag(xf, p["gate_x"].to(f32), p["bias_x"].to(f32)))
+    p, xh, off = _gate_input(p, x)
+    xf = xh.to(f32)
+    r = torch.sigmoid(_block_diag(xf, p["gate_a"].to(f32), p["bias_a"].to(f32), off))
+    i = torch.sigmoid(_block_diag(xf, p["gate_x"].to(f32), p["bias_x"].to(f32), off))
+    if xh is not x:
+        xf = x.to(f32)
     log_a = -_C * F.softplus(p["lam"].to(f32)) * r
     # Where r saturates, a sits within a few ulps of 1 and one ulp of a^2
     # moves sqrt(1 - a^2) by up to ~40 %.  The JAX package, compiled, takes
@@ -118,8 +159,8 @@ def _chunk_body(h_in: torch.Tensor, ac: torch.Tensor, gc: torch.Tensor) -> torch
 
 
 def rglru_forward(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D)."""
-    refuse_mixer_tp("RG-LRU")
+    """x: (B, S, D) in the residual stream's layout -> the same."""
+    x = hints.tp_input(x, RES, "act_mlp")
     dt = x.dtype
     gate = F.gelu(x @ p["w_gate"].to(dt), approximate="tanh")  # jax.nn.gelu's default
     xb = x @ p["w_x"].to(dt)
@@ -144,7 +185,7 @@ def rglru_forward(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         _, h = _scan(a, gx)
     h = h.to(dt) * gate
-    return hints.shard_hint(h @ p["w_out"].to(dt), ("act_batch", "act_res_seq", None))
+    return hints.shard_hint(h @ p["w_out"].to(dt), RES, partial="act_mlp")
 
 
 def rglru_cache_meta(cfg: ModelConfig, batch: int) -> dict:
@@ -170,4 +211,4 @@ def rglru_decode(
     cache["h"].copy_(h)
     cache["conv"].copy_(window[:, 1:])
     out_h = h.to(dt)[:, None, :] * gate
-    return out_h @ p["w_out"].to(dt), cache
+    return hints.shard_hint(out_h @ p["w_out"].to(dt), RES, partial="act_mlp"), cache

@@ -7,8 +7,6 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel import hints
-
 from .params import ParamMeta
 
 __all__ = [
@@ -19,7 +17,6 @@ __all__ = [
     "embed_meta",
     "embed_lookup",
     "unembed",
-    "refuse_mixer_tp",
 ]
 
 
@@ -81,14 +78,3 @@ def unembed(x: torch.Tensor, table: torch.Tensor, softcap: Optional[float]) -> t
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     return logits
-
-
-def refuse_mixer_tp(block: str) -> None:
-    """Raise where a policy splits a recurrent mixer's width over the model
-    axis: its gated norm over all of ``d_inner`` and per-head gates are not
-    ported under tensor parallelism."""
-    res = hints.active_resolver()
-    if res is not None and (res.axes("act_mlp") or res.axes("act_res_seq")):
-        raise NotImplementedError(
-            f"tensor parallelism of the {block} mixer (its width split over the model axis) is not ported: "
-            "ROADMAP Queue 1 item 12(c); train it under pure data parallelism (make_policy(..., pure_dp=True))")

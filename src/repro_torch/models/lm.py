@@ -273,23 +273,50 @@ def decode_step(
     cache's device.
 
     Returns (logits (B, 1, V) fp32, cache): the same cache dict, its K/V
-    written in place (the JAX serve step donates it) and ``pos`` + 1."""
+    written in place (the JAX serve step donates it) and ``pos`` + 1.
+
+    Under a sharding resolver the parameters and the cache are this rank's
+    blocks (``launch.cache_specs``) and the tokens its rows of the batch:
+    the step runs under the resolver's decode rules
+    (``MeshResolver.for_decode``), gathers each unit's FSDP shards, and
+    returns the rank's vocabulary columns of the logits."""
+    res = hints.active_resolver()
+    if res is not None:
+        res = res.for_decode()
+    with hints.hint_resolver(res):
+        return _decode(params, cfg, cache, tokens, embeds, res)
+
+
+def _decode(params, cfg: ModelConfig, cache, tokens, embeds, res):
     pat, n_units, rem = pattern_unit(cfg)
+    specs = res.param_specs if res is not None else None
+    unit_specs = None
+    if specs is not None:
+        from repro_torch.models.params import PartitionSpec
+
+        unit_specs = tree_map(lambda sp: PartitionSpec(*tuple(sp)[1:]), specs["units"])
+    used = ["final_norm", "frontend_proj" if embeds is not None else "embed"]
+    used.append("embed" if cfg.tie_embeddings else "unembed")
+    top = {k: gathered(params, k, specs) for k in dict.fromkeys(used)}  # one order on every rank
     pos = cache["pos"]
-    x = _embed_input(params, cfg, tokens, embeds)
+    x = _embed_input(top, cfg, tokens, embeds)
     for u in range(n_units):
+        unit = tree_map(lambda t: t[u], params["units"])
+        if res is not None:
+            unit = res.gather_params(unit, unit_specs)
         for i, kind in enumerate(pat):
             key = f"L{i}_{kind}"
-            x, _ = block_decode(tree_map(lambda t: t[u], params["units"][key]), cfg, kind, x,
-                                tree_map(lambda t: t[u], cache["units"][key]), pos)
+            x, _ = block_decode(unit[key], cfg, kind, x, tree_map(lambda t: t[u], cache["units"][key]), pos)
     for i, kind in enumerate(rem):
         key = f"R{i}_{kind}"
-        x, _ = block_decode(params["rem"][key], cfg, kind, x, cache["rem"][key], pos)
+        x, _ = block_decode(gathered(params["rem"], key, None if specs is None else specs["rem"]), cfg, kind, x,
+                            cache["rem"][key], pos)
 
-    x = apply_norm(params["final_norm"], x, cfg.norm)
-    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    x = apply_norm(top["final_norm"], x, cfg.norm)
+    table = top["embed"] if cfg.tie_embeddings else top["unembed"]
     cache["pos"] = pos + 1
-    return unembed(x, table, cfg.logit_softcap), cache
+    logits = unembed(x, table, cfg.logit_softcap)
+    return hints.shard_hint(logits, ("act_batch", None, "act_vocab")), cache
 
 
 class _ParamTree(nn.Module):

@@ -16,6 +16,21 @@ the decay and statistics math is float32.
 
 Decode keeps (state, conv window) caches, O(H*P*N) per layer, updated in
 place so that a decode step can be captured as one CUDA graph.
+
+Under a sharding resolver whose ``act_mlp`` is a mesh axis (tensor
+parallelism), each rank holds whole heads: its column blocks of ``w_z``,
+``w_x``, ``conv_x_*`` and ``norm_scale`` and its row block of
+``out_proj`` (the ``mlp`` axis, ``d_inner / m`` a multiple of the head
+width), and takes its heads' entries of the replicated ``w_dt``,
+``A_log``, ``dt_bias`` and ``D``; ``B`` / ``C`` are computed whole on
+every rank from replicated weights (their gradients summed over the
+model axis).  The gated RMSNorm over all of ``d_inner`` sums its squares
+over the model axis, and ``out_proj``'s partial sums are reduced (or
+reduce-scattered under sequence parallelism, whose sequence is gathered
+on the way in).  Decode splits its caches the same way: the state on
+heads, the conv window on channels, the B/C window whole.  This is what
+GSPMD computes for the JAX package's rule tables (``mlp`` split;
+``state``, ``conv``, ``heads`` replicated).
 """
 from __future__ import annotations
 
@@ -27,7 +42,7 @@ import torch.nn.functional as F
 from repro_torch.parallel import hints
 
 from .config import ModelConfig
-from .layers import apply_norm, refuse_mixer_tp
+from .layers import apply_norm
 from .params import ParamMeta
 
 __all__ = [
@@ -191,9 +206,46 @@ def _pre_ssm(p, cfg: ModelConfig, x: torch.Tensor):
     return z, xs, Bm, Cm, dt_raw
 
 
+RES = ("act_batch", "act_res_seq", None)  # the residual stream's layout
+_SHARED = ("w_B", "w_C", "conv_B_w", "conv_B_b", "conv_C_w", "conv_C_b", "w_dt", "A_log", "dt_bias", "D")
+
+
+def _tp_params(p: dict, cfg: ModelConfig) -> dict:
+    """``p`` with the weights that every rank holds whole made shared over
+    the model axis (their gradients summed) and the per-head ones cut to
+    this rank's heads; ``p`` itself without tensor parallelism."""
+    res = hints.active_resolver()
+    if res is None or not res.axes("act_mlp"):
+        return p
+    h = p["w_x"].shape[-1] // cfg.ssm_headdim
+    h0 = res.index("act_mlp") * h
+    q = dict(p, **hints.shared_param({k: p[k] for k in _SHARED}, "act_mlp"))
+    q["w_dt"] = q["w_dt"][:, h0:h0 + h]
+    for k in ("A_log", "dt_bias", "D"):
+        q[k] = q[k][h0:h0 + h]
+    return q
+
+
+def _groups(cfg: ModelConfig, res, h: int):
+    """The B/C groups of this rank's ``h`` heads, as a slice."""
+    g, H = cfg.ssm_ngroups, cfg.ssm_nheads
+    if h == H:
+        return slice(0, g)
+    rep = H // g
+    h0 = res.index("act_mlp") * h
+    if g > 1 and (h % rep or h0 % rep):
+        raise ValueError(f"{h} heads a rank from {h0} do not hold whole B/C groups of {rep} heads")
+    return slice(h0 // rep, -(-(h0 + h) // rep))
+
+
 def _post_ssm(p, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     gated = y * F.silu(z)
-    normed = apply_norm({"scale": p["norm_scale"]}, gated, "rmsnorm")
+    if gated.shape[-1] == cfg.d_inner:
+        normed = apply_norm({"scale": p["norm_scale"]}, gated, "rmsnorm")
+    else:  # the RMS over all of d_inner: each rank's sum of squares, summed
+        xf = gated.to(torch.float32)
+        ss = hints.tp_sum(torch.sum(torch.square(xf), dim=-1, keepdim=True), "act_mlp")
+        normed = (xf * torch.rsqrt(ss / cfg.d_inner + 1e-6) * p["norm_scale"].to(torch.float32)).to(y.dtype)
     return normed @ p["out_proj"].to(y.dtype)
 
 
@@ -203,20 +255,22 @@ def _dt_and_A(p, dt_raw: torch.Tensor):
 
 
 def mamba2_forward(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D)."""
-    refuse_mixer_tp("Mamba2")
+    """x: (B, S, D) in the residual stream's layout -> the same."""
+    x = hints.tp_input(x, RES, "act_mlp")
+    p = _tp_params(p, cfg)
     B, S, D = x.shape
-    di, g, n, h = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads
-    P = cfg.ssm_headdim
+    n, P = cfg.ssm_state, cfg.ssm_headdim
     z, xseg, Bseg, Cseg, dt_raw = _pre_ssm(p, cfg, x)
+    h = xseg.shape[-1] // P  # this rank's heads
+    grp = _groups(cfg, hints.active_resolver(), h)
     xs = xseg.reshape(B, S, h, P)
-    Bm = Bseg.reshape(B, S, g, n)
-    Cm = Cseg.reshape(B, S, g, n)
+    Bm = Bseg.reshape(B, S, -1, n)[:, :, grp]
+    Cm = Cseg.reshape(B, S, -1, n)[:, :, grp]
     dt, A = _dt_and_A(p, dt_raw)
     y = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xs
-    out = _post_ssm(p, cfg, y.reshape(B, S, di), z)
-    return hints.shard_hint(out, ("act_batch", "act_res_seq", None))
+    out = _post_ssm(p, cfg, y.reshape(B, S, h * P), z)
+    return hints.shard_hint(out, RES, partial="act_mlp")
 
 
 # ----------------------------------------------------------------------
@@ -239,33 +293,48 @@ def mamba2_cache_meta(cfg: ModelConfig, batch: int) -> dict:
 def mamba2_decode(
     p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos: torch.Tensor
 ) -> Tuple[torch.Tensor, dict]:
-    """x: (B, 1, D) -> (out (B, 1, D), cache), the cache updated in place."""
+    """x: (B, 1, D) -> (out (B, 1, D), cache), the cache updated in place.
+    Under tensor parallelism the cache holds this rank's heads (state) and
+    channels (conv window); the B/C window is whole, and replicated over
+    the batch axes too, of which the rank reads and writes its own rows
+    (the JAX package's GSPMD gathers every rank's new rows back into the
+    replicated leaf; no rank reads another's)."""
     B = x.shape[0]
-    di, g, n, h = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads
-    P = cfg.ssm_headdim
+    g, n, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
     gn = g * n
     dt_ = x.dtype
+    p = _tp_params(p, cfg)
 
     z = x @ p["w_z"].to(dt_)
     x_new = x @ p["w_x"].to(dt_)
     B_new = x @ p["w_B"].to(dt_)
     C_new = x @ p["w_C"].to(dt_)
     dt_raw = x @ p["w_dt"].to(dt_)
+    h = x_new.shape[-1] // P  # this rank's heads
+    grp = _groups(cfg, hints.active_resolver(), h)
 
+    conv_bc = cache["conv_bc"]
+    if conv_bc.shape[0] != B:  # replicated over the batch axes (launch.cache_specs): this rank's rows
+        res = hints.active_resolver()
+        r0 = res.index(res.batch_axes()) * B
+        conv_bc = conv_bc[r0:r0 + B]
     win_x = torch.cat([cache["conv"], x_new], dim=1)  # (B, W, di)
-    win_bc = torch.cat([cache["conv_bc"], torch.cat([B_new, C_new], dim=-1)], dim=1)
+    win_bc = torch.cat([conv_bc, torch.cat([B_new, C_new], dim=-1)], dim=1)
     xs_c = F.silu(torch.einsum("bwc,wc->bc", win_x, p["conv_x_w"].to(dt_)) + p["conv_x_b"].to(dt_))
     wbc = torch.cat([p["conv_B_w"].to(dt_), p["conv_C_w"].to(dt_)], dim=1)
     bbc = torch.cat([p["conv_B_b"].to(dt_), p["conv_C_b"].to(dt_)])
     bc_c = F.silu(torch.einsum("bwc,wc->bc", win_bc, wbc) + bbc)
     cache["conv"].copy_(win_x[:, 1:])
-    cache["conv_bc"].copy_(win_bc[:, 1:])
+    conv_bc.copy_(win_bc[:, 1:])
 
     xs = xs_c.reshape(B, h, P)
-    # Each group's B / C for its h // g heads (an expand: no host sync, so
-    # the step can be captured in a CUDA graph).
-    Bm = bc_c[..., :gn].reshape(B, g, 1, n).expand(B, g, h // g, n).reshape(B, h, n)
-    Cm = bc_c[..., gn:].reshape(B, g, 1, n).expand(B, g, h // g, n).reshape(B, h, n)
+    # Each group's B / C for its heads (an expand: no host sync, so the
+    # step can be captured in a CUDA graph).
+    Bg = bc_c[..., :gn].reshape(B, g, n)[:, grp]
+    Cg = bc_c[..., gn:].reshape(B, g, n)[:, grp]
+    gl = Bg.shape[1]
+    Bm = Bg.reshape(B, gl, 1, n).expand(B, gl, h // gl, n).reshape(B, h, n)
+    Cm = Cg.reshape(B, gl, 1, n).expand(B, gl, h // gl, n).reshape(B, h, n)
     dt, A = _dt_and_A(p, dt_raw[:, 0])  # (B, h), (h,)
     a_t = torch.exp(dt * A)
     outer = dt[..., None, None] * torch.einsum(
@@ -274,4 +343,5 @@ def mamba2_decode(
     cache["state"].copy_(state)
     y = torch.einsum("bhn,bhnp->bhp", Cm.to(torch.float32), state).to(dt_)
     y = y + p["D"].to(dt_)[None, :, None] * xs
-    return _post_ssm(p, cfg, y.reshape(B, 1, di), z), cache
+    out = _post_ssm(p, cfg, y.reshape(B, 1, h * P), z)
+    return hints.shard_hint(out, RES, partial="act_mlp"), cache

@@ -13,7 +13,6 @@ axes, init law).  From it:
 The init laws and the fan-in rule are the JAX package's.  The stream is
 torch's, not threefry: one generator drawn leaf after leaf in the tree's
 order, so weights match the JAX package's in distribution only.
-``partition_specs`` (sharding) is not ported yet.
 """
 from __future__ import annotations
 

@@ -18,10 +18,11 @@ holds what those functions need from the process group:
   along any dim (its backward a reduce-scatter, or the rank's own slice)
   and its reverse :func:`reduce_scatter`; :func:`split` (the own slice,
   gathered back in the backward); and :func:`all_reduce_max`, without a
-  gradient.  Sums run in float32 whatever the tensor's dtype, then cast
-  back.  A dim that the group does not divide is split as GSPMD pads it:
-  ``ceil(n / k)`` rows a rank, the last ranks short (:func:`chunk_bounds`).
-  :data:`traffic` counts the bytes each call moved, by tag.
+  gradient.  Sums run in float32 (float64 for a float64 tensor), then
+  cast back.  A dim that the group does not divide is split as GSPMD pads
+  it: ``ceil(n / k)`` rows a rank, the last ranks short
+  (:func:`chunk_bounds`).  :data:`traffic` counts the bytes each call
+  moved, by tag, and :data:`kinds` by kind and group.
 * :func:`run_ranks` — run a function on ``world_size`` fresh processes, the
   counterpart of JAX's ``--xla_force_host_platform_device_count`` (the
   tests and ``chip_smoke.py`` use it).
@@ -29,21 +30,24 @@ holds what those functions need from the process group:
 **Gloo and CUDA tensors.**  Several ranks that share one card cannot use
 NCCL (it refuses two ranks on one device), so they use the gloo backend.
 Gloo's c10d collectives take CUDA tensors and copy them through host
-memory themselves (``all_gather``, ``all_reduce`` and
-``reduce_scatter_tensor``, checked on an H100 with torch 2.11 by
-``scripts/gloo_cuda_check.py``).
+memory themselves (``all_gather``, ``all_gather_into_tensor``,
+``all_reduce`` and ``reduce_scatter_tensor``, checked on an H100 with
+torch 2.11 by ``scripts/gloo_cuda_check.py``).
 DTensor's own collectives do not: ``DTensor.full_tensor()`` goes through
 the functional collectives, and on a gloo group with CUDA tensors its
 ``wait_tensor`` crashed the process (segmentation fault, torch 2.11 + CUDA
 12.8 on an H100).  So :func:`full_tensor` gathers a sharded DTensor by c10d
-``all_gather`` on every backend: one path, the same bytes as
-``DTensor.full_tensor()``.  DTensor is a container only: a rank's shard and
-its placements, never the path data moves by.  :func:`reduce_scatter` is
-``reduce_scatter_tensor`` on every backend, an uneven split padded with
+``all_gather_into_tensor`` on every backend, as every gather here does
+(one buffer for the group's rows: a list of 256 outputs cost the fake
+backend of the dry-run 0.2 s a call): one path, the same bytes as
+``DTensor.full_tensor()``.  DTensor is a container only: a rank's shard
+and its placements, never the path data moves by.  :func:`reduce_scatter`
+is ``reduce_scatter_tensor`` on every backend, an uneven split padded with
 zero rows.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import faulthandler
 import math
@@ -57,6 +61,7 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _disable_current_modes
 
 __all__ = [
     "axes_group",
@@ -71,7 +76,9 @@ __all__ = [
     "all_reduce_max",
     "chunk_bounds",
     "traffic",
+    "kinds",
     "reset_traffic",
+    "fake_world",
     "init_world",
     "run_ranks",
     "INIT_TIMEOUT_S",
@@ -89,6 +96,8 @@ Axes = Union[str, Sequence[str]]
 # ``new_group`` is collective, so every rank builds the same groups in the
 # same order.
 _groups: Dict[Tuple[Any, Any, Tuple[str, ...]], Tuple[Any, int]] = {}
+# The mesh axes of each group this rank is in (for :data:`kinds`).
+_group_axes: Dict[Any, Tuple[str, ...]] = {}
 
 
 def _axes(axes: Axes) -> Tuple[str, ...]:
@@ -107,23 +116,32 @@ def axes_group(mesh, axes: Axes):
     if missing or len(set(axes)) != len(axes) or not axes:
         raise ValueError(f"axes {axes} must be distinct names of the mesh's dimensions {names}")
     if len(axes) == 1:
-        return mesh.get_group(axes[0]), mesh.get_local_rank(axes[0])
+        group = mesh.get_group(axes[0])
+        _group_axes[group] = axes
+        return group, mesh.get_local_rank(axes[0])
     key = (dist.group.WORLD, mesh, axes)
     if key not in _groups:
-        dims = [names.index(a) for a in axes]
-        rest = [d for d in range(len(names)) if d not in dims]
-        size = math.prod(mesh.mesh.shape[d] for d in dims)
-        rows = mesh.mesh.permute(*rest, *dims).reshape(-1, size).tolist()
-        me = dist.get_rank()
-        found = None
-        for ranks in rows:  # every rank creates every group, in this order
-            group = dist.new_group(ranks, backend=dist.get_backend())
-            if me in ranks:
-                found = (group, ranks.index(me))
-        if found is None:
-            raise ValueError(f"rank {me} is not in the mesh {mesh}")
-        _groups[key] = found
+        with _disable_current_modes():  # not a step's work: out of a dry-run's fake tensors and count
+            _groups[key] = _new_group(mesh, names, axes)
     return _groups[key]
+
+
+def _new_group(mesh, names, axes):
+    """The group of this rank's peers over several mesh axes, and its index in it."""
+    dims = [names.index(a) for a in axes]
+    rest = [d for d in range(len(names)) if d not in dims]
+    size = math.prod(mesh.mesh.shape[d] for d in dims)
+    rows = mesh.mesh.permute(*rest, *dims).reshape(-1, size).tolist()
+    me = dist.get_rank()
+    found = None
+    for ranks in rows:  # every rank creates every group, in this order
+        group = dist.new_group(ranks, backend=dist.get_backend())
+        if me in ranks:
+            found = (group, ranks.index(me))
+            _group_axes[group] = axes
+    if found is None:
+        raise ValueError(f"rank {me} is not in the mesh {mesh}")
+    return found
 
 
 def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
@@ -160,7 +178,9 @@ def full_tensor(dt) -> torch.Tensor:
         if not isinstance(pl, Shard) or x.shape[pl.dim] * mesh.size(i) > dt.shape[pl.dim]:
             raise ValueError(f"full_tensor takes Shard / Replicate placements of equal shards, got "
                              f"{dt.placements} of {tuple(dt.shape)} on {mesh}")
-        x = _gather(x, pl.dim, mesh.get_group(i), mesh.size(i), None, "param")
+        group = mesh.get_group(i)
+        _group_axes.setdefault(group, (names[i],))
+        x = _gather(x, pl.dim, group, mesh.size(i), None, "param")
     if tuple(x.shape) != tuple(dt.shape):
         raise ValueError(f"full_tensor: shards of {tuple(dt.shape)} over {names} are not equal")
     return x
@@ -171,14 +191,22 @@ def full_tensor(dt) -> torch.Tensor:
 # parallelism, "param": parameter gathers, "grad": gradient sums): the
 # payload one rank hands the collective.
 traffic: Dict[str, int] = {}
+# The same calls by kind, then by the mesh axes of the group ("data",
+# "model", or "pod+data" for a group over several): {"count", "bytes"}.
+kinds: Dict[str, Dict[str, Dict[str, int]]] = {}
 
 
 def reset_traffic() -> None:
     traffic.clear()
+    kinds.clear()
 
 
-def _count(tag: str, t: torch.Tensor) -> None:
-    traffic[tag] = traffic.get(tag, 0) + t.numel() * t.element_size()
+def _count(tag: str, t: torch.Tensor, kind: str, group) -> None:
+    n = t.numel() * t.element_size()
+    traffic[tag] = traffic.get(tag, 0) + n
+    rec = kinds.setdefault(kind, {}).setdefault("+".join(_group_axes.get(group, ("?",))), {"count": 0, "bytes": 0})
+    rec["count"] += 1
+    rec["bytes"] += n
 
 
 def chunk_bounds(n: int, parts: int, index: int) -> Tuple[int, int]:
@@ -188,29 +216,37 @@ def chunk_bounds(n: int, parts: int, index: int) -> Tuple[int, int]:
     return min(index * c, n), min((index + 1) * c, n)
 
 
+def _wide(x: torch.Tensor) -> torch.dtype:
+    """The dtype a reduction runs in: float32, or float64 for float64."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def _sum(x: torch.Tensor, group, tag: str) -> torch.Tensor:
-    """All-reduce sum in float32, cast back to ``x``'s dtype."""
-    out = x.detach().to(torch.float32, memory_format=torch.contiguous_format, copy=True)
-    _count(tag, out)
+    """All-reduce sum in float32 (float64 for float64), cast back to
+    ``x``'s dtype."""
+    out = x.detach().to(_wide(x), memory_format=torch.contiguous_format, copy=True)
+    _count(tag, out, "all_reduce", group)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out.to(x.dtype)
 
 
 def _gather(x: torch.Tensor, dim: int, group, k: int, length, tag: str) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in group order; shards
-    of ``ceil(length / k)`` rows, the last ones short, trimmed to ``length``."""
+    of ``ceil(length / k)`` rows, the last ones short, trimmed to ``length``.
+    One ``all_gather_into_tensor`` into a buffer of the group's rows."""
     x = x.detach()
     n_loc = x.shape[dim]
     c = n_loc if length is None else -(-length // k)
+    src = x.movedim(dim, 0)
     if n_loc < c:
-        pad = list(x.shape)
-        pad[dim] = c - n_loc
-        x = torch.cat([x, x.new_zeros(pad)], dim)
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(k)]
-    _count(tag, x)
-    dist.all_gather(parts, x, group=group)
-    out = torch.cat(parts, dim)
+        src = torch.cat([src, src.new_zeros((c - n_loc,) + tuple(src.shape[1:]))])
+    src = src.contiguous()
+    out = src.new_empty((k * c,) + tuple(src.shape[1:]))
+    _count(tag, src, "all_gather", group)
+    dist.all_gather_into_tensor(out, src, group=group)
+    # Contiguous, as a concatenation is: a permuted weight would send its
+    # products to other GEMM kernels, which round bf16 otherwise.
+    out = out.movedim(0, dim).contiguous()
     return out if length is None else out.narrow(dim, 0, length)
 
 
@@ -225,12 +261,12 @@ def _reduce_scatter(x: torch.Tensor, dim: int, group, k: int, index: int, tag: s
     ``k`` parts of ``ceil(n / k)`` rows."""
     n = x.shape[dim]
     c = -(-n // k)
-    src = x.detach().to(torch.float32).movedim(dim, 0)
+    src = x.detach().to(_wide(x)).movedim(dim, 0)
     if n < k * c:
         src = torch.cat([src, src.new_zeros((k * c - n,) + tuple(src.shape[1:]))])
     src = src.contiguous()
     out = src.new_empty((c,) + tuple(src.shape[1:]))
-    _count(tag, src)
+    _count(tag, src, "reduce_scatter", group)
     dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group)
     lo, hi = chunk_bounds(n, k, index)
     return out[:hi - lo].movedim(0, dim).to(x.dtype).contiguous()
@@ -340,9 +376,10 @@ def split(x: torch.Tensor, mesh, axes: Axes, dim: int, *, tag: str = "act") -> t
 
 def all_reduce_max(x: torch.Tensor, mesh, axes: Axes, *, tag: str = "act") -> torch.Tensor:
     """The elementwise max of ``x`` over the ranks of ``axes``, detached."""
-    out = x.detach().to(torch.float32, memory_format=torch.contiguous_format, copy=True)
-    _count(tag, out)
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_grp(mesh, axes)[0])
+    out = x.detach().to(_wide(x), memory_format=torch.contiguous_format, copy=True)
+    group = _grp(mesh, axes)[0]
+    _count(tag, out, "all_reduce_max", group)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out.to(x.dtype)
 
 
@@ -369,6 +406,28 @@ def init_world(device_type: str) -> bool:
     dist.init_process_group(backend, init_method="env://",
                             timeout=datetime.timedelta(seconds=INIT_TIMEOUT_S))
     return True
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """This process as rank 0 of a world of ``world_size`` ranks on c10d's
+    ``fake`` backend: groups and meshes build as in the real world, and
+    every collective returns at once without moving a byte (an output keeps
+    whatever it held).  Code that runs inside counts what rank 0 of the real
+    world would send (:data:`traffic`, :data:`kinds`).  On exit the group is
+    destroyed and the cached groups forgotten.  Raises if a process group is
+    already initialized."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        _groups.clear()
+        _group_axes.clear()
 
 
 # ------------------------------------------------------------------ ranks

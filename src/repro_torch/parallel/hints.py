@@ -28,12 +28,14 @@ A hint whose names do not match ``x``'s rank is skipped, as JAX skips it,
 when it only states a layout; with ``partial`` or ``src`` it raises
 ``ValueError``, since skipping it would change the value.
 
-Two more entry points carry what GSPMD would infer at a tensor-parallel
+Three more entry points carry what GSPMD would infer at a tensor-parallel
 region's edge: :func:`tp_input` (the region's input, whole over the
 region's axes, its gradient summed over them: Megatron's *f*, or the
-sequence all-gather under sequence parallelism) and :func:`shared_param`
+sequence all-gather under sequence parallelism), :func:`shared_param`
 (a parameter replicated over the axes that split its work, its gradient
-summed over them).
+summed over them) and :func:`tp_sum` (a statistic summed over the region's
+ranks and used again by each rank's part: a sum in the forward and in the
+backward, as a norm over a split width needs).
 
 The resolver is thread-local, as in the JAX package.  PyTorch runs a
 backward (and a checkpoint's recomputation) on its own threads, so a
@@ -52,7 +54,7 @@ import torch
 from . import comm
 
 __all__ = ["shard_hint", "hint_resolver", "make_mesh_resolver", "active_resolver", "MeshResolver",
-           "tp_input", "shared_param", "bind"]
+           "tp_input", "shared_param", "tp_sum", "bind"]
 
 _state = threading.local()
 
@@ -113,6 +115,20 @@ class MeshResolver:
 
     def with_params(self, param_specs) -> "MeshResolver":
         return MeshResolver(self.mesh, self.rules, param_specs)
+
+    def for_decode(self) -> "MeshResolver":
+        """The rules of one-token decode: the residual stream is whole (a
+        sequence of one is not split), and a cache whose KV heads the
+        policy does not split has its window split on ``model`` instead
+        (``act_cache_window``, as ``launch.cache_specs`` lays it out).
+        Raises ``ValueError`` where the batch axes take the model axis
+        (``pure_dp``): the caches split the mixers' heads over it."""
+        names = tuple(self.mesh.mesh_dim_names)
+        if "model" in names and "model" in self.batch_axes():
+            raise ValueError("sharded decode needs a policy whose batch axes leave out 'model' (pure_dp=False): "
+                             "the caches split heads, channels and windows over it")
+        win = "model" if "model" in names and self.rules.get("act_kv_heads") is None else None
+        return MeshResolver(self.mesh, dict(self.rules, act_res_seq=None, act_cache_window=win), self.param_specs)
 
     # ---- lookups
     def axes(self, name: Optional[str]) -> Tuple[str, ...]:
@@ -259,6 +275,18 @@ def tp_input(x: torch.Tensor, logical_axes: Sequence[Optional[str]], work: Optio
     if res is None:
         return x
     return res.tp_input(x, tuple(logical_axes), work)
+
+
+def tp_sum(x: torch.Tensor, work: Optional[str]) -> torch.Tensor:
+    """The sum of ``x`` (each rank's part of a statistic of the whole) over
+    the mesh axes of ``work``, for rank-local work to use: an all-reduce,
+    and in the backward the gradient summed over the same axes (Megatron's
+    *g* then *f*).  The identity without a resolver or without those axes."""
+    res = active_resolver()
+    axes = res.axes(work) if res is not None else ()
+    if not axes:
+        return x
+    return comm.copy_to(comm.all_reduce(x, res.mesh, axes), res.mesh, axes)
 
 
 def shared_param(p, work: Optional[str]):

@@ -29,7 +29,8 @@ back the rank's block of its update.
 a full-sequence forward returning the next token, and one-token decode
 against a cache (updated in place, as the JAX serve step donates it).
 Both run under ``torch.inference_mode()`` on the device they are built
-for.
+for, and with ``policy=`` sharded as the train step is (each rank its
+blocks of the parameters and of the cache, its rows of the batch).
 """
 from __future__ import annotations
 
@@ -54,6 +55,7 @@ __all__ = [
     "init_opt_state",
     "make_prefill",
     "make_serve_step",
+    "greedy",
 ]
 
 MOE_LB_COEF = 0.01
@@ -316,13 +318,42 @@ def make_train_step(
     return train_step
 
 
-def make_prefill(cfg: ModelConfig, *, device: Optional[Union[str, torch.device]] = None) -> Callable:
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The argmax over the last dim of ``logits`` (..., V), int32; ties go
+    to the lowest index, as ``jnp.argmax`` breaks them.  Under a resolver
+    that splits the vocabulary (``act_vocab``) ``logits`` are this rank's
+    columns: each rank's max and its index are reduced over those axes."""
+    idx = torch.argmax(logits, dim=-1)
+    res = hints.active_resolver()
+    axes = res.axes("act_vocab") if res is not None else ()
+    if not axes:
+        return idx.to(torch.int32)
+    best = torch.gather(logits, -1, idx[..., None])[..., 0].to(torch.float32)
+    top = comm.all_reduce_max(best, res.mesh, axes)
+    first = (idx + res.index(axes) * logits.shape[-1]).to(torch.float32)  # exact below 2^24
+    first = torch.where(best == top, first, float("inf"))
+    return (-comm.all_reduce_max(-first, res.mesh, axes)).to(torch.int32)
+
+
+def _inference_resolver(cfg: ModelConfig, policy):
+    if policy is None:
+        return None
+    return policy.resolver().with_params(policy.param_specs(model_meta(cfg)))
+
+
+def make_prefill(cfg: ModelConfig, *, policy=None, device: Optional[Union[str, torch.device]] = None) -> Callable:
     """Full-sequence inference forward — the prefill shape.  The returned
     ``prefill(params, batch)`` gives the next token (int32, (B,)) after
     each row of ``batch["tokens"]`` (or ``batch["embeds"]``), moved to
     ``device`` (default ``"cuda"``, which raises without a card: pass
-    ``device="cpu"``)."""
+    ``device="cpu"``).
+
+    With ``policy`` every rank calls it on its blocks of the parameters
+    (``shard_params``) and its rows of the batch, and gets its rows' tokens;
+    the forward is the sharded train step's, and the greedy token is
+    reduced over the vocabulary's ranks."""
     dev = probe.resolve_device(device)
+    resolver = _inference_resolver(cfg, policy)
 
     @torch.inference_mode()
     def prefill(params, batch):
@@ -330,23 +361,32 @@ def make_prefill(cfg: ModelConfig, *, device: Optional[Union[str, torch.device]]
             kwargs = {"embeds": batch["embeds"].to(dev)}
         else:
             kwargs = {"tokens": batch["tokens"].to(dev)}
-        logits, _ = forward(params, cfg, **kwargs)
-        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        with hints.hint_resolver(resolver):
+            logits, _ = forward(tree_map(_local, params), cfg, **kwargs)
+            return greedy(logits[:, -1, :])
 
     return prefill
 
 
-def make_serve_step(cfg: ModelConfig, *, device: Optional[Union[str, torch.device]] = None) -> Callable:
+def make_serve_step(cfg: ModelConfig, *, policy=None, device: Optional[Union[str, torch.device]] = None) -> Callable:
     """One-token decode against a cache — the decode shapes.  The returned
     ``serve_step(params, cache, tokens)`` takes tokens (B, 1), moved to
     ``device`` (default ``"cuda"``, which raises without a card: pass
     ``device="cpu"``), and gives (the greedy next token, int32 (B,), the
-    cache updated in place)."""
+    cache updated in place).
+
+    With ``policy`` every rank calls it on its blocks of the parameters,
+    its blocks of the cache (``launch.cache_specs.cache_partition_specs``,
+    cut by ``shard_cache``) and its rows of the tokens (all of them where
+    the batch does not divide the data axes, as the cache's rows), and gets
+    its rows' tokens (``lm.decode_step`` under a resolver)."""
     dev = probe.resolve_device(device)
+    resolver = _inference_resolver(cfg, policy)
 
     @torch.inference_mode()
     def serve_step(params, cache, tokens):
-        logits, cache = decode_step(params, cfg, cache, tokens=tokens.to(dev))
-        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32), cache
+        with hints.hint_resolver(resolver):
+            logits, cache = decode_step(tree_map(_local, params), cfg, cache, tokens=tokens.to(dev))
+            return greedy(logits[:, -1, :]), cache
 
     return serve_step
