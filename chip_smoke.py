@@ -30,17 +30,19 @@ Phases, each printing its own lines:
    on a seeded random symmetric A: launch counters reset just before and
    read just after (each kernel must have run, its CUDA launches exactly
    as many as its calls make), eigenvalues against
-   ``torch.linalg.eigvalsh``, residual and orthogonality, per-stage times
-   (each stage closed by a synchronize; the Q2 back-transform split into
-   the ``sweep_major_log`` regroup and kernel C), end-to-end time beside
-   ``torch.linalg.eigh`` / ``eigvalsh`` (cuSOLVER) and the peak memory.
+   ``torch.linalg.eigvalsh``, residual and orthogonality, end-to-end time
+   beside ``torch.linalg.eigh`` / ``eigvalsh`` (cuSOLVER) and the peak
+   memory.  (Its per-stage times, each stage closed by a synchronize and
+   the Q2 back-transform split into the ``sweep_major_log`` regroup and
+   kernel C, come from phase 5's unfused run of the executor since PR 23.)
 4. ``inverse_pth_root`` at n = 1024, p = 4 on a seeded PSD matrix, against
    V diag(w^-1/4) V^T from ``torch.linalg.eigh`` in float64.
-5. The unfused first stage at n = 4096: ``plan(4096, float32,
-   EvdConfig(tridiag="unfused"))(A)`` and ``.eigvals(A)`` against the gates
-   of phase 3, each with the counters reset just before and read just after
-   (one ``trailing_update`` launch per DBR block, kernel B once, one CUDA
-   launch, for the eigvals run), its stage times, and ``band_reduce(A, 8, 256,
+5. The unfused first stage at n = 2048 (4096 before PR 23): ``plan(2048,
+   float32, EvdConfig(tridiag="unfused"))``'s EVD (the executor ``plan(A)`` runs,
+   its stages timed in the same run since PR 23) and ``.eigvals(A)`` against
+   the gates of phase 3, each with the counters reset just before and read
+   just after (one ``trailing_update`` launch per DBR block, kernel B once,
+   one CUDA launch, for the eigvals run), and ``band_reduce(A, 8, 256,
    panel_method="kernel")`` (one ``panel_qr`` launch per panel) with the
    band's eigenvalues against ``torch.linalg.eigvalsh(A)`` (and one CUDA
    launch a panel, as the wrapper declares it).
@@ -75,12 +77,13 @@ Phases, each printing its own lines:
    Gates: finite losses, every weight moved, kernels A, B and C launched
    exactly 2 x blocks x one ``plan(128)`` solve's over the run, the step-1
    roots on 64 seeded blocks within 1e-3 of the float64 formula (beside
-   float32 ``torch.linalg.eigh``'s error on them), and step 1
-   repeated from the same state bit for bit (its refresh's stages timed).
-   Then the same 3 steps with AdamW, the step-1 statistics through
+   float32 ``torch.linalg.eigh``'s error on them); the refresh's stages
+   timed in step 1 (since PR 23; phase 10 repeats mamba2's step 1 bit for
+   bit).
+   Then the same 3 steps with AdamW, one side's step-1 statistics through
    batched ``torch.linalg.eigh`` plus the root (the yardstick), the peak
    memory, and ``python -m repro_torch.launch.train --arch llama3.2-3b
-   --smoke --steps 10 --optimizer shampoo`` on the card.
+   --smoke --steps 2 --optimizer shampoo`` on the card.
 9. Serving on the card through the port's entry points (``get_config``,
    ``model_params``, ``cache_init``, ``make_serve_step``, ``make_prefill``,
    ``decode_step``), random weights from the seed, bf16 activations and
@@ -122,14 +125,15 @@ Phases, each printing its own lines:
    8 x 256 (two SSD chunks of 128), 3 steps, step 1 repeated bit for bit
    (1749 blocks a side); recurrentgemma-2b cut to one (rglru, rglru, attn)
    unit, batch 4 x 1024 (two RG-LRU chunks of 512, the checkpointed carry
-   run backward), 2 steps, its refresh's stages timed in the run (14 560
-   blocks a side); kernels A, B and C launched exactly 2 x blocks x one
+   run backward), 2 steps, its refresh's stages timed in the run, its MLP
+   leaves on Adam's fallback (``max_dim_for_shampoo=4096``; 3760 blocks a
+   side); kernels A, B and C launched exactly 2 x blocks x one
    ``plan(128)``'s in each.  (b) is phase 9's (d).  (c) musicgen-large and
    llava-next-mistral-7b at full width cut to 1 layer, 2 AdamW steps on
    ``synthetic_batch``'s embeddings: finite losses, ``frontend_proj``
    moved.  (d) ``python -m repro_torch.launch.serve --arch mamba2-370m
    --smoke`` and ``python -m repro_torch.launch.train --arch
-   recurrentgemma-2b --smoke --steps 10 --optimizer shampoo`` on the card.
+   recurrentgemma-2b --smoke --steps 2 --optimizer shampoo`` on the card.
 11. The multi-device paths, multi-controller, through
    ``repro_torch.parallel.run_ranks``: four ranks share the card over gloo
    (NCCL refuses two ranks on one device), each with its own launch
@@ -199,6 +203,27 @@ Phases, each printing its own lines:
    step: the peak estimate over the step's peak memory (``TOL_PEAK``),
    FLOPs exactly, and the step's time over the roofline's bound.  No
    kernel launches (AdamW; serving).
+14. Kernels A-E as ``repro_torch`` operators and the dry-run's Shampoo
+   option.  (a) ``torch.library.opcheck`` of each operator (schema,
+   autograd registration, fake implementation, AOT dispatch) on phase 2's
+   inputs.  (b) The smoke Shampoo cell of tests/test_torch_dryrun.py
+   (llama3.2-3b's smoke config, 1 layer, (2, 2)), ``shampoo_sharded``
+   (the tests run it without too), on fake CUDA tensors against the same cell run for
+   real on phase 12's four ranks (``count_cell``): collective bytes, FLOPs
+   outside the data-dependent loops and each operator's FLOPs exactly, the
+   same loops listed, and every rank's kernels A-C launched exactly 2 x its
+   lanes x (4, 1, 1).  (c) The full-width dry-run: llama3.2-3b train_4k on
+   the 1-pod mesh with the refresh split over all 256 ranks: peak
+   estimate, the state's bytes, the refresh's FLOPs by operator,
+   collective bytes, roofline terms, ``trace_s``.  (d) A real one-layer
+   llama3.2-3b Shampoo step (8 x 128, one process; its refresh runs
+   kernels A-C on 2 x 1560 blocks of 256) against its dry-run: the peak
+   estimate over the measured peak within ``TOL_PEAK``, FLOPs outside the
+   loops and operator FLOPs exactly, launches exactly 2 x 1560 x (4, 1,
+   1).  (e) Each operator's host time a call beside its bare launcher's,
+   ``HOST_CALLS`` calls back to back behind a spin kernel, at the
+   refresh's shapes (n = 128, 256).  (f) Phase 6a's refresh time, which
+   runs through the operators.
 
 Then one JSON line with the kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -221,6 +246,9 @@ import time
 from pathlib import Path
 
 N_MAIN = 4096
+# Phase 5's unfused path (not the main path), cut from 4096 in PR 23 to
+# keep the script in its time: its plain chase and bisection scale as n^2.
+N_UNFUSED = 2048
 N_ROOT = 1024
 SEED = 0
 # One decoder layer of configs/llama32_3b.py (d_model 3072, kv 1024, d_ff
@@ -280,13 +308,18 @@ BF16_GATE_LAYERS = {"mamba2-370m": 8}
 # longer prompts (mixtral's ring wrap, the RG-LRU's chunks).
 SERVE_SHORT_PROMPT = 64
 # Phase 10 Shampoo training cuts: (arch, layers, batch, seq, steps, step 1
-# repeated bit for bit).  mamba2-370m's 4 of 48 layers over 256 positions
-# (two SSD chunks of 128); one (rglru, rglru, attn) unit of
-# recurrentgemma-2b over 1024 (two RG-LRU chunks of 512, the checkpointed
-# carry in the backward), not repeated: its refresh is ~8x mamba2's.
+# repeated bit for bit, ShampooOptions.max_dim_for_shampoo or None).
+# mamba2-370m's 4 of 48 layers over 256 positions (two SSD chunks of 128);
+# one (rglru, rglru, attn) unit of recurrentgemma-2b over 1024 (two RG-LRU
+# chunks of 512, the checkpointed carry in the backward; fewer layers leave
+# a stack of none, which the init law cannot draw).  Since PR 23, to keep
+# the script in its time, recurrentgemma-2b's leaves with a dimension above
+# 4096 (its MLP, d_ff 7680) take Adam's fallback (3760 blocks a side where
+# all of them made 14 560), and mamba2's step 1 is the script's one
+# full-width step repeated bit for bit (phase 8's no longer is).
 FAMILY_TRAIN_CELLS = (
-    ("mamba2-370m", 4, 8, 256, 3, True),
-    ("recurrentgemma-2b", 3, 4, 1024, 2, False),
+    ("mamba2-370m", 4, 8, 256, 3, True, None),
+    ("recurrentgemma-2b", 3, 4, 1024, 2, False, 4096),
 )
 # Phase 10 frontend cells: (arch, layers), 2 AdamW steps on embeds.
 FRONTEND_CELLS = (("musicgen-large", 1), ("llava-next-mistral-7b", 1))
@@ -384,6 +417,16 @@ DRY_CELLS = (("llama3.2-3b", "train_4k", False), ("mamba2-370m", "long_500k", Fa
              ("mixtral-8x7b", "decode_32k", True))
 PEAK_CELL = ("llama3.2-3b", 1, 8, 128)
 TOL_PEAK = (0.8, 1.25)
+# Phase 14: the smoke Shampoo cell of tests/test_torch_dryrun.py (llama3.2-3b's
+# smoke config, 1 layer, 11 blocks of 256 a side) on the (2, 2) world, the
+# full-width dry-run, and the host cost a call at the refresh's shapes.
+SHAMPOO_SMOKE = dict(mesh_override=(2, 2), smoke=True, overrides=dict(n_layers=1),
+                     shape_overrides=dict(batch=4, seq=32), optimizer_name="shampoo")
+# The card runs the cell with the refresh split over the four ranks (its
+# roots gathered); tests/test_torch_dryrun.py runs both modes.
+SMOKE_SHARDED = (True,)
+HOST_SHAPES = (128, 256)
+HOST_CALLS = 20
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, the
 # float32 rate outside the tensor cores, and the bf16 and TF32 tensor-core
@@ -506,6 +549,15 @@ def bound(nbytes: float, *work):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def work_bound(w):
+    """:func:`bound` of a kernel's ``repro_torch.kernels.work.Work``: fp32
+    work at the fp32 rate, 3xTF32 at 3 x flops over the TF32 rate, bf16 at
+    the bf16 tensor-core rate."""
+    rates = {"fp32": (1, PEAK_FP32_FLOP_PER_S), "tf32x3": (3, PEAK_TF32_FLOP_PER_S),
+             "bf16": (1, PEAK_BF16_FLOP_PER_S)}
+    return bound(w.bytes, *((rates[r][0] * f, rates[r][1]) for f, r in w.flops))
+
+
 def device_split(torch, fn):
     """Device time per CUDA kernel name of one ``fn()`` call, from
     ``torch.profiler`` (empty when the profiler records no device time)."""
@@ -543,7 +595,7 @@ def phase_kernels(torch, gen):
     from repro_torch.core.backtransform import backtransform_wy_xla, sweep_major_log
     from repro_torch.core.band_reduction import band_reduce, build_stage_schedule
     from repro_torch.core.bulge_chasing import chase_wavefront_slices, num_wavefronts
-    from repro_torch.kernels import cuda_lib, ref
+    from repro_torch.kernels import cuda_lib, ref, work
     from repro_torch.kernels.backtransform import backtransform_wy_cuda
     from repro_torch.kernels.bulge import bulge_wavefront_cuda
     from repro_torch.kernels.fused_panel import fused_panel_update_cuda
@@ -576,10 +628,7 @@ def phase_kernels(torch, gen):
     V = torch.randn((mt, w), generator=gen, device="cuda")
     lib_ms = cuda_ms(torch, lambda: C - Z @ V.T - V @ Z.T, 5)
     q = w // b
-    flops = sum(2.0 * m * (m - (j + 1) * b) * b + 12.0 * m * j * b * b for j in range(q))
-    trailing_flops = 2.0 * mt * mt * w
-    bms, by = bound((2.0 * m * m + m * w + q * b * b) * 4, (flops, PEAK_FP32_FLOP_PER_S),
-                    (3 * trailing_flops, PEAK_TF32_FLOP_PER_S))
+    bms, by = work_bound(work.fused_panel_update(m, w, b))
     print(f"phase 2 kernel A fused_panel_update m={m} w={w} b={b}: rel err B/V/T "
           f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol {TOL_A:.1e}) max_abs_err={max_abs:.3e}")
     print(f"phase 2 kernel A ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}: panel "
@@ -655,8 +704,10 @@ def phase_kernels(torch, gen):
     ms_values = cuda_ms(torch, lambda: bulge_wavefront_cuda(Bband, b), 3)
     steps = num_wavefronts(n, b)
     n_ops = int(active.sum())
+    require(n_ops == work.chase_ops(n, b), f"kernel B's log has {n_ops} active slots, the schedule "
+            f"{work.chase_ops(n, b)} chase ops")
     Wn, An = lk.taus.shape
-    bms, by = bound((2.0 * n * n + Wn * An * (b + 2)) * 4, (26.0 * b * b * n_ops, PEAK_FP32_FLOP_PER_S))
+    bms, by = work_bound(work.bulge_wavefront(n, b))
     print(f"phase 2 kernel B bulge_wavefront n={n} b={b} wavefronts={Wn} slots={An} ops={n_ops}: "
           f"eig(T) vs plain {eL:.3e} (max_abs_err={max_abs:.3e}), Q2 T Q2^T vs B {eR:.3e} "
           f"(tol {TOL_B:.1e}); T exactly tridiagonal; row0 exact; entrywise vs plain, "
@@ -685,9 +736,10 @@ def phase_kernels(torch, gen):
     plain_ms = cuda_ms(torch, lambda: backtransform_wy_xla(X, vs, taus, b=b), 1)
     S, K, _ = vs.shape
     n_refl = int((taus != 0).sum())
-    bms, by = bound((2.0 * n * n + S * K * (b + 1)) * 4, (4.0 * b * n_refl * n, PEAK_FP32_FLOP_PER_S))
+    bms, by = work_bound(work.backtransform_wy(n, n, S, K, b))
     print(f"phase 2 kernel C backtransform_wy (n, m)=({n}, {n}) S={S} K={K}: rel err Q2/Q2^T "
-          f"{errs[0]:.3e}/{errs[1]:.3e} (tol {TOL_C:.1e}) max_abs_err={max_abs:.3e}")
+          f"{errs[0]:.3e}/{errs[1]:.3e} (tol {TOL_C:.1e}) max_abs_err={max_abs:.3e}; reflectors with "
+          f"tau != 0 {n_refl} of the schedule's {work.chase_ops(n, b)} (the bound counts the schedule's)")
     print(f"phase 2 kernel C ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}), "
           f"{share(bms, ms)}; library: none")
     # One profiler session for A, B, C and one band_reduce(panel_method=
@@ -740,8 +792,7 @@ def phase_kernels(torch, gen):
     ms = cuda_ms(torch, lambda: trailing_update_cuda(C, Y, Z), 10)
     plain_ms = cuda_ms(torch, lambda: ref.syr2k_ref(Z, Y, C, alpha=-1.0), 5)
     lib_ms = cuda_ms(torch, lambda: C - Z @ Y.T - Y @ Z.T, 10)
-    lower = mt * (mt + 1) / 2
-    bms, by = bound((2.0 * mt * w + lower + mt * mt) * 4, (3 * 4.0 * w * lower, PEAK_TF32_FLOP_PER_S))
+    bms, by = work_bound(work.syr2k(mt, w))
     print(f"phase 2 kernel D trailing_update (n, k)=({mt}, {w}): rel err with C / C absent "
           f"{errs[0]:.3e}/{errs[1]:.3e} (tol {TOL_D:.0e}) max_abs_err={max_abs:.3e}; "
           f"exactly symmetric")
@@ -761,7 +812,7 @@ def phase_kernels(torch, gen):
     bf_ms = cuda_ms(torch, lambda: trailing_update_cuda(Cb, Yb, Zb), 10)
     bf_plain_ms = cuda_ms(torch, lambda: ref.syr2k_ref(Zb, Yb, Cb, alpha=-1.0), 5)
     bf_lib_ms = cuda_ms(torch, lambda: Cb - Zb @ Yb.T - Yb @ Zb.T, 10)
-    bf_bms, bf_by = bound((2.0 * mt * w + lower + mt * mt) * 2, (4.0 * w * lower, PEAK_BF16_FLOP_PER_S))
+    bf_bms, bf_by = work_bound(work.syr2k(mt, w, itemsize=2))
     print(f"phase 2 kernel D bf16 trailing_update (n, k)=({mt}, {w}): rel err {bf_err:.3e} "
           f"(tol {TOL_D_BF16:.0e}) max_abs_err={bf_max_abs:.3e}; exactly symmetric")
     print(f"phase 2 kernel D bf16 ms={bf_ms:.4f} plain_ms={bf_plain_ms:.4f} (bf16 torch ops) "
@@ -811,9 +862,7 @@ def phase_kernels(torch, gen):
                 panel_qr_cuda(P)
 
         host_ms = wall_ms(torch, calls) / E_HOST_CALLS
-        flops = sum(3.0 * (m_e - j) + 4.0 * (m_e - j) * (b - 1 - j) + 2.0 * (m_e - j) * j
-                    for j in range(b)) + b ** 3 / 3.0
-        bms, by = bound((2.0 * m_e * b + 2.0 * b * b + b) * 4, (flops, PEAK_FP32_FLOP_PER_S))
+        bms, by = work_bound(work.panel_qr(m_e, b))
         cs, in_smem = ke.launch_plan(m_e, b, ke.cluster_size(m_e))
         rows_per_cta = -(-m_e // cs)
         print(f"phase 2 kernel E panel_qr (m, b)=({m_e}, {b}) on a cluster of {cs} CTAs, "
@@ -825,6 +874,7 @@ def phase_kernels(torch, gen):
               f"(LAPACK signs, no T) ms={geqrf_ms:.4f}; with the launcher's host work "
               f"{host_ms:.4f} ms a call ({E_HOST_CALLS} calls back to back, host clock)")
         if m_e == n - b:
+            P_e = P
             rows["panel_qr"] = dict(max_abs_err=max_abs, compared="V, T, taus and R entrywise",
                                     ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                                     library_ms=geqrf_ms,
@@ -833,7 +883,8 @@ def phase_kernels(torch, gen):
                                     cluster=cs, rows_per_cta=rows_per_cta, host_ms=host_ms,
                                     band_reduce_traced=dict(launches=e_traced[0], device_ms=e_traced[1]),
                                     cluster_sweep_ms={f"{m}x{cs}": v for (m, cs), v in sweep.items()})
-    return rows
+    inputs = dict(A=A, b=b, w=w, band=Bband, X=X, vs=vs, taus=taus, C=C, Y=Y, Z=Z, P=P_e)
+    return rows, inputs
 
 
 def max_eig_err(w, w_ref) -> float:
@@ -861,8 +912,9 @@ def check_evd(torch, phase: str, A, w, V):
     return w_ref
 
 
-def stage_times(torch, phase: str, A, pl) -> None:
-    """One more EVD through the plan's stages, each closed by a synchronize."""
+def stage_times(torch, phase: str, A, pl):
+    """One EVD through the plan's stages, each closed by a synchronize:
+    ``(w, V, ms)``, ``ms`` the whole run's."""
     from repro_torch.solver.plan import _execute
 
     stages = {}
@@ -875,9 +927,10 @@ def stage_times(torch, phase: str, A, pl) -> None:
         last[0] = now
 
     torch.cuda.synchronize()
-    last[0] = time.perf_counter()
-    _execute(A, pl, True, on_stage=mark)
+    last[0] = t0 = time.perf_counter()
+    w, V = _execute(A, pl, True, on_stage=mark)
     print(f"{phase} stages ms: " + ", ".join(f"{k}={v:.1f}" for k, v in stages.items()))
+    return w, V, (last[0] - t0) * 1e3
 
 
 def phase_main_path(torch, gen):
@@ -914,8 +967,9 @@ def phase_main_path(torch, gen):
     require(got == want, f"main-path launches {got}, expected {want}")
     require(got_device == want_device, f"main-path CUDA launches {got_device}, expected {want_device}")
 
+    # Its stages are timed in phase 5's run (the same executor, unfused);
+    # a second fused run for them cost ~21 s (dropped in PR 23).
     w_ref = check_evd(torch, "phase 3", A, w, V)
-    stage_times(torch, "phase 3", A, pl)
 
     out = {}
     ev_ms = wall_ms(torch, lambda: out.setdefault("w", pl.eigvals(A)))
@@ -953,7 +1007,7 @@ def phase_unfused(torch, gen):
     from repro_torch.kernels import cuda_lib
     from repro_torch.solver import EvdConfig, plan
 
-    n = N_MAIN
+    n = N_UNFUSED
     A = torch.randn((n, n), generator=gen, device="cuda")
     A = A + A.T
     pl = plan(n, torch.float32, EvdConfig(tridiag="unfused"))
@@ -966,12 +1020,10 @@ def phase_unfused(torch, gen):
         print(f"phase 5 launches, {label}: {got}")
         require(got == want, f"phase 5 {label}: launches {got}, expected {want}")
 
+    # One run, its stages timed (closed by a synchronize each): the plan's
+    # executor, as plan(A) calls it (a second, untimed run cost ~40 s).
     cuda_lib.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    w, V = pl(A)
-    torch.cuda.synchronize()
-    e2e_ms = (time.perf_counter() - t0) * 1e3
+    w, V, e2e_ms = stage_times(torch, "phase 5", A, pl)
     launches = cuda_lib.launch_counts()
     device_launches = cuda_lib.device_launch_counts()
     # The chase with a log is plain tensor code on the card (chase_wavefront).
@@ -979,7 +1031,6 @@ def phase_unfused(torch, gen):
     require(device_launches["trailing_update"] == blocks and device_launches["backtransform_wy"] == 2,
             f"phase 5 plan(A) CUDA launches {device_launches}")
     w_ref = check_evd(torch, "phase 5", A, w, V)
-    stage_times(torch, "phase 5", A, pl)
 
     out = {}
     cuda_lib.reset_launch_counts()
@@ -1362,10 +1413,11 @@ def _train_run(torch, cfg, opt, params, batch_fn, steps: int, label: str):
 
 
 def shampoo_training(torch, phase: str, cfg, batch: int, seq: int, steps: int, repeat: bool,
-                     precond_mesh=None):
+                     precond_mesh=None, max_dim=None):
     """Shampoo training of ``cfg`` on the card through the port's entry
     points (random weights from the seed, ``shampoo(warmup_cosine(3e-4,
-    ...), ShampooOptions(precond_mesh=precond_mesh))``, ``make_train_step``,
+    ...), ShampooOptions(precond_mesh=precond_mesh[, max_dim_for_shampoo=max_dim]))``,
+    ``make_train_step``,
     ``TrainLoop``, ``synthetic_batch``), with phase 8's gates: finite
     losses, every weight moved, kernels A, B and C launched exactly 2 x
     blocks x one ``plan(128)`` solve's (with ``precond_mesh``, 2 x this
@@ -1385,7 +1437,8 @@ def shampoo_training(torch, phase: str, cfg, batch: int, seq: int, steps: int, r
     from repro_torch.train import make_train_step
     from repro_torch.tree import leaves
 
-    opts = ShampooOptions(precond_mesh=precond_mesh)
+    opts = ShampooOptions(precond_mesh=precond_mesh,
+                          **({} if max_dim is None else {"max_dim_for_shampoo": max_dim}))
     params = model_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
     _, NB = leaf_plans(params, opts)
     share = NB if precond_mesh is None else -(-NB // precond_ranks(precond_mesh))
@@ -1476,7 +1529,7 @@ def phase_training(torch, gen):
 
     cfg = dataclasses.replace(get_config("llama3.2-3b"), n_layers=TRAIN_LAYERS)
     got, got_dev, record, (params, batch_fn, sched, opts, (_, s1, _)) = shampoo_training(
-        torch, "phase 8", cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, repeat=True)
+        torch, "phase 8", cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, repeat=False)
     NB, refresh_s = record["blocks_a_side"], record["refresh_s"]
 
     # The same steps with AdamW.
@@ -1488,21 +1541,22 @@ def phase_training(torch, gen):
     print(f"phase 8 adamw losses {hist_a}; step times s {[round(t, 3) for t in ta]}: steady "
           f"{sum(ta[1:]) / len(ta[1:]) * 1e3:.1f} ms a step; peak memory {peak_a / 2**30:.2f} GiB")
 
-    # The yardstick: the same statistics through batched float32
-    # torch.linalg.eigh (cuSOLVER) and the root formula.
+    # The yardstick: one side's step-1 statistics through batched float32
+    # torch.linalg.eigh (cuSOLVER) and the root formula (one side since PR
+    # 23, to keep the script in its time: both sides took 24.4 s).
     def library():
-        for S in (s1.stats_l, s1.stats_r):
-            w, V = torch.linalg.eigh(S)
-            r = opts.eps * w.amax(-1).clamp(min=1e-30)
-            (V * (w.clamp(min=0) + r[:, None]).pow(-0.25)[:, None, :]) @ V.mT
+        w, V = torch.linalg.eigh(s1.stats_l)
+        r = opts.eps * w.amax(-1).clamp(min=1e-30)
+        (V * (w.clamp(min=0) + r[:, None]).pow(-0.25)[:, None, :]) @ V.mT
 
     lib_s = wall_ms(torch, library) / 1e3
-    print(f"phase 8 the step-1 statistics (2 x {NB} blocks) through batched torch.linalg.eigh + root: "
-          f"{lib_s:.2f} s, against the refresh's {refresh_s:.2f} s")
+    print(f"phase 8 one side's step-1 statistics ({NB} blocks) through batched torch.linalg.eigh + root: "
+          f"{lib_s:.2f} s, {lib_s / NB * 1e3:.3f} ms a block, against the refresh's {refresh_s:.2f} s for both "
+          f"sides, {refresh_s / (2 * NB) * 1e3:.3f} ms a block")
 
-    cli_s = run_cli("phase 8", ["repro_torch.launch.train", "--arch", "llama3.2-3b", "--smoke", "--steps", "10",
+    cli_s = run_cli("phase 8", ["repro_torch.launch.train", "--arch", "llama3.2-3b", "--smoke", "--steps", "2",
                                 "--optimizer", "shampoo"], lambda lines: "on NVIDIA" in lines[-1])
-    record.update(library_s=lib_s, adamw_steady_ms=sum(ta[1:]) / len(ta[1:]) * 1e3, cli_s=cli_s)
+    record.update(library_one_side_s=lib_s, adamw_steady_ms=sum(ta[1:]) / len(ta[1:]) * 1e3, cli_s=cli_s)
     return got, got_dev, record
 
 
@@ -1811,9 +1865,10 @@ def phase_families(torch, gen):
     torch.cuda.empty_cache()
     launches, device_launches, records = {}, {}, {}
     # (a) Shampoo training of the two recurrent families at full width.
-    for arch, layers, batch, seq, steps, repeat in FAMILY_TRAIN_CELLS:
+    for arch, layers, batch, seq, steps, repeat, max_dim in FAMILY_TRAIN_CELLS:
         cfg = replace(get_config(arch), n_layers=layers)
-        got, got_dev, record, state = shampoo_training(torch, "phase 10", cfg, batch, seq, steps, repeat)
+        got, got_dev, record, state = shampoo_training(torch, "phase 10", cfg, batch, seq, steps, repeat,
+                                                       max_dim=max_dim)
         for total, counts in ((launches, got), (device_launches, got_dev)):
             for op, n in counts.items():
                 total[op] = total.get(op, 0) + n
@@ -1851,7 +1906,7 @@ def phase_families(torch, gen):
         "phase 10", ["repro_torch.launch.serve", "--arch", "mamba2-370m", "--smoke"],
         lambda lines: len(lines) >= 3 and lines[-3].startswith("[serve] mamba2-370m"))
     records["train_cli_s"] = run_cli(
-        "phase 10", ["repro_torch.launch.train", "--arch", "recurrentgemma-2b", "--smoke", "--steps", "10",
+        "phase 10", ["repro_torch.launch.train", "--arch", "recurrentgemma-2b", "--smoke", "--steps", "2",
                      "--optimizer", "shampoo"], lambda lines: "recurrentgemma-2b on NVIDIA" in lines[-1])
     return launches, device_launches, records
 
@@ -2630,7 +2685,32 @@ def _mixer_rank(mesh):
     _, arch, layers, batch, seq = MIXER_CELLS[0]
     out["counts"] = count_cell(arch, "train_4k", device="cuda", **_mixer_kw(layers, batch, seq))
     out["s"] = time.perf_counter() - t0
+    out["shampoo"] = _shampoo_counts()
     return out
+
+
+def _shampoo_counts():
+    """Phase 14 (b)'s real half: the smoke Shampoo cell run for real on
+    this rank, without and with the refresh split over the four ranks."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.dryrun import count_cell
+
+    out = {}
+    for sharded in SMOKE_SHARDED:
+        t0 = time.perf_counter()
+        cuda_lib.reset_launch_counts()
+        rec = count_cell("llama3.2-3b", "train_4k", device="cuda", timed=False, shampoo_sharded=sharded,
+                         **SHAMPOO_SMOKE)
+        out[sharded] = dict(rec, launches=nonzero(cuda_lib.launch_counts()), s=time.perf_counter() - t0)
+    return out
+
+
+def _shampoo_rank():
+    """:func:`_shampoo_counts` in a rank of its own world (``scripts/phase14.py``)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return _shampoo_counts()
 
 
 def phase_dryrun(torch, mixers, t_world: float):
@@ -2725,6 +2805,166 @@ def phase_dryrun(torch, mixers, t_world: float):
     return out
 
 
+def _host_us(torch, calls) -> dict:
+    """Host time (us) a call of each ``(label, fn, args)``, issued ``HOST_CALLS``
+    times back to back behind a spin kernel (so the queue does not drain),
+    the labels in turn and then in reverse, the two means averaged."""
+    out = {label: [] for label, _, _ in calls}
+    for order in (calls, calls[::-1]):
+        for label, fn, make in order:
+            args = [make() for _ in range(HOST_CALLS)]
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SPIN_CYCLES)
+            t0 = time.perf_counter()
+            for a in args:
+                fn(*a)
+            out[label].append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+            torch.cuda.synchronize()
+    return {k: sum(v) / len(v) for k, v in out.items()}
+
+
+def phase_operators(torch, gen, inputs, shampoo_ranks, phase6a_ms: float):
+    """Phase 14: kernels A-E as ``repro_torch`` operators and the dry-run's
+    Shampoo option."""
+    from repro_torch.core.backtransform import sweep_major_log
+    from repro_torch.core.band_reduction import band_reduce
+    from repro_torch.kernels import cuda_lib, library
+    from repro_torch.kernels.backtransform import backtransform_wy_cuda
+    from repro_torch.kernels.bulge import bulge_wavefront_cuda
+    from repro_torch.kernels.fused_panel import fused_panel_update_cuda
+    from repro_torch.kernels.panel import panel_qr_cuda
+    from repro_torch.kernels.syr2k import trailing_update_cuda
+    from repro_torch.launch.dryrun import count_cell, run_cell, summary
+    from repro_torch.parallel import comm
+
+    t0 = time.perf_counter()
+    out = {}
+    # (a) opcheck of every operator on the card, on phase 2's inputs.
+    ops, i = torch.ops.repro_torch, inputs
+    b, w = i["b"], i["w"]
+    cases = {"fused_panel_update": (i["A"].clone(), b, w), "bulge_wavefront": (i["band"], b),
+             "bulge_chase": (i["band"], b), "backtransform_wy": (i["X"], i["vs"], i["taus"], b, False),
+             "syr2k": (i["Z"], i["Y"], i["C"], -1.0), "trailing_update": (i["C"], i["Y"], i["Z"]),
+             "panel_qr": (i["P"],)}
+    require(set(cases) == set(library.OPERATORS), "phase 14 (a) opcheck covers every operator")
+    out["opcheck"] = {}
+    for name, args in cases.items():
+        res = torch.library.opcheck(getattr(ops, name), args)
+        out["opcheck"][name] = res
+        print(f"phase 14 (a) opcheck repro_torch::{name} on phase 2's inputs "
+              f"{[tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]}: {res}")
+        require(set(res.values()) == {"SUCCESS"}, f"phase 14 (a) opcheck {name}: {res}")
+
+    # (b) the smoke Shampoo cell, fake world against the four ranks' real one.
+    out["smoke"] = {}
+    for sharded in SMOKE_SHARDED:
+        rec = run_cell("llama3.2-3b", "train_4k", device="cuda", top=0, quiet=True, shampoo_sharded=sharded,
+                       **SHAMPOO_SMOKE)
+        real = shampoo_ranks[0][sharded]
+        sites = {d["site"] for d in rec["walk"]["data_dependent"]}
+        ok_coll = rec["collectives"] == real["collectives"]
+        ok_flops = rec["walk"]["flops_outside_loops"] == real["flops_outside_loops"] > 0
+        ok_ops = {k: v["flops"] for k, v in rec["walk"]["operators"].items()} == real["operators"]
+        ok_loops = sites == {d["site"] for d in real["data_dependent"]} == {"core/jacobi.py:jacobi_eigh",
+                                                                          "core/tridiag_eig.py:_qr"}
+        lanes = rec["shampoo"]["rank0_lanes_per_side"]
+        want = {"fused_panel_update": 2 * lanes * 4, "bulge_wavefront": 2 * lanes, "backtransform_wy": 2 * lanes}
+        ok_launch = all(r[sharded]["launches"] == want for r in shampoo_ranks)
+        print(f"phase 14 (b) smoke Shampoo cell (llama3.2-3b smoke, 1 layer, (2, 2), sharded={sharded}): "
+              f"collectives equal the real world's {ok_coll} ({rec['collectives']['total_bytes']} bytes); FLOPs "
+              f"outside the data-dependent loops {rec['walk']['flops_outside_loops']:.6e} equal {ok_flops}; "
+              f"operator FLOPs equal {ok_ops} ({real['operators']}); loops {sorted(sites)} equal {ok_loops} "
+              f"(real trips {[(d['site'], d['trips']) for d in real['data_dependent']]}, fake "
+              f"{[(d['site'], d['trips']) for d in rec['walk']['data_dependent']]}); every rank's launches "
+              f"{[r[sharded]['launches'] for r in shampoo_ranks]} = {want}: {ok_launch}; trace {rec['trace_s']} s, "
+              f"rank 0's counted step {real['s']:.1f} s")
+        require(ok_coll and ok_flops and ok_ops and ok_loops and ok_launch, f"phase 14 (b) sharded={sharded}")
+        out["smoke"][str(sharded)] = dict(collectives=rec["collectives"]["total_bytes"],
+                                          flops_outside_loops=rec["walk"]["flops_outside_loops"],
+                                          operators=real["operators"], trace_s=rec["trace_s"])
+
+    # (c) the full-width dry-run: llama3.2-3b train_4k, 1-pod mesh, sharded refresh.
+    rec = run_cell("llama3.2-3b", "train_4k", device="cuda", top=0, quiet=True, optimizer_name="shampoo",
+                   shampoo_sharded=True)
+    require(rec["status"] == "ok", "phase 14 (c)")
+    sh, rf = rec["shampoo"], rec["roofline"]
+    print(f"phase 14 (c) {summary(rec)}")
+    print(f"phase 14 (c) shampoo: {sh['blocks_per_side']} blocks a side, rank 0 refreshes {sh['rank0_lanes_per_side']} "
+          f"a side; state bytes {sh['state_bytes']} ({sum(sh['state_bytes'].values()) / 1e9:.2f} GB); refresh FLOPs by "
+          f"operator {sh['refresh_flops_by_operator']} (calls {sh['refresh_calls_by_operator']}); peak estimate "
+          f"{rec['memory']['peak_estimate_bytes'] / 2**30:.2f} GiB; collectives {rec['collectives']['total_bytes']} "
+          f"bytes by kind { {k: v['bytes'] for k, v in rec['collectives']['per_kind'].items()} }; roofline terms "
+          f"compute {rf['compute_s']:.4f} s memory {rf['memory_s']:.4f} s collective {rf['collective_s']:.4f} s; "
+          f"data-dependent loops {rec['walk']['data_dependent']}; trace {rec['trace_s']} s")
+    out["full"] = {k: rec[k] for k in ("mesh", "trace_s", "memory", "roofline", "shampoo", "collectives")}
+
+    # (d) a real one-layer llama3.2-3b Shampoo step against its dry-run.
+    arch, layers, batch, seq = PEAK_CELL
+    kw = dict(mesh_override=(1, 1), overrides=dict(n_layers=layers), shape_overrides=dict(batch=batch, seq=seq),
+              optimizer_name="shampoo")
+    prec = run_cell(arch, "train_4k", device="cuda", top=0, quiet=True, **kw)
+    cuda_lib.reset_launch_counts()
+    t_real = time.perf_counter()
+    with comm.fake_world(1):
+        preal = count_cell(arch, "train_4k", device="cuda", timed=False, **kw)
+    t_real = time.perf_counter() - t_real
+    launches = nonzero(cuda_lib.launch_counts())
+    lanes = prec["shampoo"]["rank0_lanes_per_side"]
+    ratio = prec["memory"]["peak_estimate_bytes"] / preal["peak_bytes"]
+    ok_flops = prec["walk"]["flops_outside_loops"] == preal["flops_outside_loops"]
+    ok_ops = {k: v["flops"] for k, v in prec["walk"]["operators"].items()} == preal["operators"]
+    want = {"fused_panel_update": 2 * lanes * 4, "bulge_wavefront": 2 * lanes, "backtransform_wy": 2 * lanes}
+    print(f"phase 14 (d) {arch} ({layers} layer, {batch} x {seq}, one process) Shampoo step: {lanes} blocks of 256 a "
+          f"side; peak estimate {prec['memory']['peak_estimate_bytes'] / 2**30:.4f} GiB over the real step's "
+          f"{preal['peak_bytes'] / 2**30:.4f} GiB = {ratio:.4f} (gate {TOL_PEAK}); FLOPs outside the loops "
+          f"{prec['walk']['flops_outside_loops']:.6e} equal {ok_flops}; operator FLOPs equal {ok_ops} "
+          f"({preal['operators']}); loops real {[(d['site'], d['trips'], d['flops']) for d in preal['data_dependent']]} "
+          f"fake {[(d['site'], d['trips'], d['flops']) for d in prec['walk']['data_dependent']]}; launches {launches} "
+          f"(want {want}); counted step {t_real:.1f} s (FlopCounterMode on); trace {prec['trace_s']} s")
+    require(ok_flops and ok_ops and launches == want, "phase 14 (d) the dry-run's counts differ from the real step's")
+    require(TOL_PEAK[0] <= ratio <= TOL_PEAK[1], f"phase 14 (d) peak ratio {ratio}")
+    out["real"] = dict(peak_ratio=ratio, peak_bytes=preal["peak_bytes"],
+                       peak_estimate_bytes=prec["memory"]["peak_estimate_bytes"], launches=launches,
+                       counted_s=t_real, operators=preal["operators"])
+
+    # (e) host cost a call: each operator against its bare launcher.
+    host = {}
+    for n in HOST_SHAPES:
+        A = torch.randn((n, n), generator=gen, device="cuda")
+        A = A + A.T
+        band = band_reduce(A, 8, 64)
+        T, log = bulge_wavefront_cuda(band, 8, return_log=True)
+        vs, taus = sweep_major_log(log)
+        X = torch.randn((n, n), generator=gen, device="cuda")
+        C, Y, Z = A[64:, 64:], X[64:, :64].contiguous(), X[64:, 64:128].contiguous()
+        P = X[8:, :8].contiguous()
+        pairs = {
+            "fused_panel_update": ((fused_panel_update_cuda, lambda: (A.clone(), 8, 64)),
+                                   (library.fused_panel_update, lambda: (A.clone(), 8, 64))),
+            "bulge_wavefront": ((lambda B: bulge_wavefront_cuda(B, 8, return_log=True), lambda: (band,)),
+                                (lambda B: library.bulge_wavefront(B, 8, return_log=True), lambda: (band,))),
+            "backtransform_wy": ((lambda X: backtransform_wy_cuda(X, vs, taus, b=8), lambda: (X,)),
+                                 (lambda X: library.backtransform_wy(X, vs, taus, b=8), lambda: (X,))),
+            "trailing_update": ((trailing_update_cuda, lambda: (C, Y, Z)), (library.trailing_update, lambda: (C, Y, Z))),
+            "panel_qr": ((panel_qr_cuda, lambda: (P,)), (library.panel_qr, lambda: (P,))),
+        }
+        calls = []
+        for name, ((f_bare, make), (f_op, _)) in pairs.items():
+            calls += [(name + " launcher", f_bare, make), (name + " operator", f_op, make)]
+        us = _host_us(torch, calls)
+        host[n] = {name: dict(launcher_us=us[name + " launcher"], operator_us=us[name + " operator"]) for name in pairs}
+        print(f"phase 14 (e) host us a call at n = {n} (launcher / operator / added): " + "; ".join(
+            f"{k} {v['launcher_us']:.1f} / {v['operator_us']:.1f} / {v['operator_us'] - v['launcher_us']:+.1f}"
+            for k, v in host[n].items()))
+    out["host_us"] = host
+    print(f"phase 14 (f) phase 6a's refresh (1536 blocks of 128 through the operators) in this run: "
+          f"{phase6a_ms:.1f} ms")
+    out["phase6a_ms"] = phase6a_ms
+    out["s"] = time.perf_counter() - t0
+    print(f"phase 14 took {out['s']:.1f} s in the main process (its real smoke cells ran in phase 13's ranks)")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2753,7 +2993,7 @@ def main() -> int:
                     print(f"phase 1 ptxas {name}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows = phase_kernels(torch, gen)
+    rows, kernel_inputs = phase_kernels(torch, gen)
     launches, device_launches = phase_main_path(torch, gen)
     phase_inverse_root(torch, gen)
     unfused, unfused_device = phase_unfused(torch, gen)
@@ -2777,15 +3017,23 @@ def main() -> int:
     mixers = sharded.pop("mixers")
     t13 = time.perf_counter()
     dryrun = phase_dryrun(torch, mixers, sharded["start_s"])
+    t14 = time.perf_counter()
+    operators = phase_operators(torch, gen, kernel_inputs, [m["shampoo"] for m in mixers], shampoo["ms"])
     t_end = time.perf_counter()
     p13_ranks = max(m["s"] for m in mixers)
+    p14_ranks = max(max(r["s"] for r in m["shampoo"].values()) for m in mixers)
     print(f"phase 6 took {t7 - t6:.1f} s, phase 7 {t8 - t7:.1f} s, phase 8 {t9 - t8:.1f} s, phase 9 "
           f"{t10 - t9:.1f} s, phase 10 {t11 - t10:.1f} s, phase 11 {t12 - t11:.1f} s, phase 12 "
-          f"{t13 - t12 - p13_ranks:.1f} s, phase 13 {t_end - t13 + p13_ranks:.1f} s; the script "
-          f"{t_end - t_start:.1f} s in all (kernel build included)")
+          f"{t13 - t12 - p13_ranks - p14_ranks:.1f} s, phase 13 {t14 - t13 + p13_ranks:.1f} s, phase 14 "
+          f"{t_end - t14 + p14_ranks:.1f} s; the script {t_end - t_start:.1f} s in all (kernel build included)")
 
     # Kernel D serves two registry ops (syr2k, trailing_update); its launches
     # are the sum of both counters over the unfused plan(A) run.
+    operator_names = {"fused_panel_update": ["repro_torch::fused_panel_update"],
+                      "bulge_wavefront": ["repro_torch::bulge_wavefront", "repro_torch::bulge_chase"],
+                      "backtransform_wy": ["repro_torch::backtransform_wy"],
+                      "syr2k": ["repro_torch::syr2k", "repro_torch::trailing_update"],
+                      "panel_qr": ["repro_torch::panel_qr"]}
     meta = {
         "fused_panel_update": ("src/repro_torch/csrc/fused_panel.cu", "src/repro/kernels/fused_panel.py:136"),
         "bulge_wavefront": ("src/repro_torch/csrc/bulge.cu", "src/repro/kernels/bulge.py:128"),
@@ -2796,6 +3044,7 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in meta.items():
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "operators": operator_names[name],
                "launches": launches[name], "device_launches": device_launches[name]}
         if name in batched:
             row.update(shampoo_bucket_launches=batched[name],
@@ -2813,7 +3062,7 @@ def main() -> int:
         kernels.append(row)
     print(json.dumps({"kernels": kernels, "shampoo_refresh": shampoo, "shampoo_training": training,
                       "serving": serving, "families": families, "distributed": distributed,
-                      "sharding": sharded, "dryrun": dryrun}))
+                      "sharding": sharded, "dryrun": dryrun, "operators": operators}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

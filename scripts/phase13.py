@@ -7,9 +7,10 @@ serving and the dry-run held against real steps.
 Four gloo ranks share the card on a (2, 2) ("data", "model") mesh and run
 ``chip_smoke._mixer_rank`` (phase 13 (a) and the real half of (c)); then
 this process runs ``chip_smoke.phase_dryrun`` ((a)'s gates, (b)'s
-dry-runs of the production worlds, (c)).  No kernel is built: nothing in
-the phase launches one.  Prints the card's name and power limit first and
-exits 0 only if every gate passes.
+dry-runs of the production worlds, (c)).  The kernels are built first:
+the ranks also run phase 14 (b)'s real Shampoo steps, whose gates
+``scripts/phase14.py`` holds.  Prints the card's name and power limit
+first and exits 0 only if every gate passes.
 """
 from __future__ import annotations
 
@@ -40,7 +41,10 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import cuda_lib
+
     print(cs.card_line())
+    cuda_lib.build()
     t0 = time.perf_counter()
     mixers = run_ranks(_rank, cs.SHARD_RANKS, backend="gloo", device_type="cuda", timeout_s=900)
     world_s = time.perf_counter() - t0 - max(m["s"] for m in mixers)

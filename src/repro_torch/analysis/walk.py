@@ -25,6 +25,22 @@ Python loops run, so there are no trip counts to resolve.
 * Peak live bytes: the most bytes held at once by storages that the step's
   ops created (its inputs not included), each freed when its last tensor
   goes, saved activations included.
+* The port's own operators (``repro_torch::``, kernels A–E:
+  ``repro_torch.kernels.library``) count as aten ops do: FLOPs by their
+  registered work formula (``kernels/work.py``), bytes each input read
+  once and each output written once, a mutated input once; ``operators``
+  keeps each one's calls, FLOPs and bytes.
+* ``data_dependent``: each loop whose trips depend on values
+  (``repro_torch.backend.trace.data_dependent``), by its place in the
+  code: how often it was entered, the trips it ran and the FLOPs of the ops
+  run inside it (innermost loop only), and what it runs on fake tensors;
+  the counterpart of the JAX walk's ``unknown_trip_whiles``.  Its FLOPs
+  are part of ``flops``; ``flops_outside_loops`` is the rest, which a fake
+  step and the same step run for real count alike.
+* On fake tensors a loop of identical trips runs one trip
+  (``trace.repeated``, ``trace.map_lanes``), counted once a trip: every
+  count above is the full loop's.  Peak live bytes hold a per-lane result
+  once a lane; within a trip they see one trip's temporaries.
 * ``top``: the largest contributors by bytes and by FLOPs, each an op and
   its operands' shapes.
 
@@ -40,7 +56,10 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
-__all__ = ["StepWalk", "analyze_step"]
+from repro_torch.backend import trace
+from repro_torch.kernels import library
+
+__all__ = ["StepWalk", "LoopLog", "analyze_step"]
 
 _aten = torch.ops.aten
 # Metadata queries, as FlopCounterMode skips them.
@@ -73,6 +92,11 @@ def _key(t: torch.Tensor) -> int:
     return t.untyped_storage()._cdata
 
 
+def _enter_loop(loops: Dict[str, Dict], site: str, fake: str) -> None:
+    rec = loops.setdefault(site, {"site": site, "entries": 0, "trips": 0, "flops": 0, "on_fake": fake})
+    rec["entries"] += 1
+
+
 class StepWalk(TorchDispatchMode):
     """Counts FLOPs, HBM bytes and peak live bytes of the ops run under it
     (module docstring); ``top`` > 0 keeps the contributors."""
@@ -90,10 +114,57 @@ class StepWalk(TorchDispatchMode):
         self.peak = 0
         self._held = set()
         self.contrib = defaultdict(lambda: {"bytes": 0, "flops": 0, "count": 0})
+        self.operators = defaultdict(lambda: {"count": 0, "flops": 0, "bytes": 0})
+        self.loops: Dict[str, Dict] = {}
+        self._open = []
+        self._depth = 0
+        self._mult = 1
+        self._sizes: Dict[int, int] = {}
+        self._holds = []
 
-    def _free(self, key: int, n: int) -> None:
+    def __enter__(self):
+        if not self._depth:
+            trace.listeners.append(self)
+        self._depth += 1
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        self._depth -= 1
+        if not self._depth:
+            trace.listeners.remove(self)
+        return super().__exit__(*exc)
+
+    def loop_enter(self, site: str, fake: str) -> None:
+        _enter_loop(self.loops, site, fake)
+        self._open.append(site)
+
+    def loop_trip(self, site: str) -> None:
+        self.loops[site]["trips"] += self._mult
+
+    def scale(self, n: int, hold: bool = False) -> None:
+        """From here on count each op ``n`` times more (``trace.repeated``,
+        ``trace.map_lanes``); with ``hold``, the storages made until
+        :meth:`unscale` that are alive then are held ``n`` times."""
+        self._mult *= n
+        if hold:
+            self._holds.append(set())
+
+    def unscale(self, n: int, hold: bool = False) -> None:
+        self._mult //= n
+        if hold:
+            for key in self._holds.pop():
+                if key in self._held:
+                    extra = (n - 1) * self._sizes[key]
+                    self._sizes[key] += extra
+                    self.live += extra
+            self.peak = max(self.peak, self.live)
+
+    def loop_exit(self, site: str) -> None:
+        self._open.pop()
+
+    def _free(self, key: int) -> None:
         self._held.discard(key)
-        self.live -= n
+        self.live -= self._sizes.pop(key)
 
     def _track(self, t: torch.Tensor) -> None:
         key = _key(t)
@@ -102,9 +173,12 @@ class StepWalk(TorchDispatchMode):
         st = _storage(t)
         n = st.nbytes()
         self._held.add(key)
+        self._sizes[key] = n
+        for hold in self._holds:
+            hold.add(key)
         self.live += n
         self.peak = max(self.peak, self.live)
-        weakref.finalize(st, self._free, key, n)
+        weakref.finalize(st, self._free, key)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -122,7 +196,7 @@ class StepWalk(TorchDispatchMode):
         for t in outs:
             if _key(t) not in in_keys:
                 self._track(t)
-        if func.namespace != "aten":
+        if func.namespace not in ("aten", library.NAMESPACE):
             return out
         name = func._schema.name.split("::")[-1]
         mutates = any(a.alias_info is not None and a.alias_info.is_write for a in func._schema.arguments)
@@ -140,15 +214,24 @@ class StepWalk(TorchDispatchMode):
             nbytes = sum(_nbytes(t) for t in ins if _key(t) not in written) + sum(_nbytes(t) for t in outs)
         else:
             nbytes = sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
-        self.ops += 1
+        flops *= self._mult
+        nbytes *= self._mult
+        self.ops += self._mult
         self.flops += flops
         self.hbm_bytes += nbytes
+        if self._open:
+            self.loops[self._open[-1]]["flops"] += flops
+        if func.namespace == library.NAMESPACE:
+            op = self.operators[name]
+            op["count"] += self._mult
+            op["flops"] += flops
+            op["bytes"] += nbytes
         if self.top and (nbytes or flops):
             shapes = "x".join(str(tuple(t.shape)) for t in ins[:3])
             c = self.contrib[f"{func._overloadpacket}|{shapes}"]
             c["bytes"] += nbytes
             c["flops"] += flops
-            c["count"] += 1
+            c["count"] += self._mult
         return out
 
     def record(self) -> Dict:
@@ -158,6 +241,9 @@ class StepWalk(TorchDispatchMode):
             "peak_live_bytes": self.peak,
             "ops": self.ops,
             "flops_note": "every recomputation the step runs is counted (remat, flash attention's backward)",
+            "operators": {k: dict(v) for k, v in sorted(self.operators.items())},
+            "data_dependent": [dict(v) for _, v in sorted(self.loops.items())],
+            "flops_outside_loops": self.flops - sum(v["flops"] for v in self.loops.values()),
         }
         if self.top:
             items = list(self.contrib.items())
@@ -167,10 +253,47 @@ class StepWalk(TorchDispatchMode):
         return rec
 
 
+class LoopLog:
+    """The data-dependent loops of a real run counted by ``counter`` (a
+    ``FlopCounterMode``) rather than walked (``launch.dryrun.count_cell``):
+    each loop's entries, trips and the FLOPs the counter counted inside it
+    (innermost loop only), in the walk's ``data_dependent`` form."""
+
+    def __init__(self, counter):
+        self.counter = counter
+        self.loops: Dict[str, Dict] = {}
+        self._open = []
+
+    def __enter__(self):
+        trace.listeners.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        trace.listeners.remove(self)
+
+    def loop_enter(self, site: str, fake: str) -> None:
+        _enter_loop(self.loops, site, fake)
+        self._open.append([site, self.counter.get_total_flops(), 0])
+
+    def loop_trip(self, site: str) -> None:
+        self.loops[site]["trips"] += 1
+
+    def loop_exit(self, site: str) -> None:
+        _, start, inner = self._open.pop()
+        total = self.counter.get_total_flops() - start
+        self.loops[site]["flops"] += total - inner
+        if self._open:
+            self._open[-1][2] += total
+
+    def record(self):
+        return [dict(v) for _, v in sorted(self.loops.items())]
+
+
 def analyze_step(fn: Callable, *args, top: int = 0) -> Tuple[object, Dict]:
     """``(fn(*args), record)``: ``fn`` run under a :class:`StepWalk`
-    (``record``: ``flops``, ``hbm_bytes``, ``peak_live_bytes``, ``ops``
-    and, with ``top``, ``top_bytes`` / ``top_flops``).  Run it inside a
+    (``record``: ``flops``, ``hbm_bytes``, ``peak_live_bytes``, ``ops``,
+    ``operators``, ``data_dependent``, ``flops_outside_loops`` and, with
+    ``top``, ``top_bytes`` / ``top_flops``).  Run it inside a
     ``FakeTensorMode`` on fake inputs to count without computing."""
     walk = StepWalk(top)
     with walk:

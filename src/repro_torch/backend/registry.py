@@ -5,8 +5,10 @@ has two backends:
 
 * ``"torch"`` — the plain PyTorch version (eager tensor code; runs on any
   device and is the CPU path the parity tests hold against JAX);
-* ``"cuda"``  — the hand-written Hopper kernel (``repro_torch.kernels``).
-  It takes CUDA tensors only and raises on anything else.
+* ``"cuda"``  — the hand-written Hopper kernel, through its ``repro_torch``
+  operator (``repro_torch.kernels.library``: a fake implementation and a
+  work formula beside the launcher).  It takes CUDA tensors only and
+  raises on anything else.
 
 There is no fallback between them.  A plan resolves its backend once
 (``EvdConfig.backend``, else the ``REPRO_TORCH_KERNEL_BACKEND`` env var,
@@ -90,7 +92,7 @@ def default_tridiag() -> str:
 def _build_impls() -> None:
     from repro_torch.core.backtransform import backtransform_wy_xla
     from repro_torch.core.bulge_chasing import chase_wavefront, chase_wavefront_slices
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import library, ref
     from repro_torch.kernels.panel import panel_qr_body
 
     def torch_trailing_update(C, Y, Z):
@@ -105,9 +107,6 @@ def _build_impls() -> None:
     def torch_panel_qr(panel):
         return panel_qr_body(panel, panel.shape[1], lapack_sign=False)
 
-    def cuda_bulge_chase(B, b):
-        return ops.bulge_wavefront_cuda(B, b)
-
     _IMPLS.update({
         ("trailing_update", "torch"): torch_trailing_update,
         ("syr2k", "torch"): ref.syr2k_ref,
@@ -116,13 +115,13 @@ def _build_impls() -> None:
         ("bulge_wavefront", "torch"): torch_bulge_wavefront,
         ("panel_qr", "torch"): torch_panel_qr,
         ("backtransform_wy", "torch"): backtransform_wy_xla,
-        ("trailing_update", "cuda"): ops.trailing_update_cuda,
-        ("syr2k", "cuda"): ops.syr2k_cuda,
-        ("fused_panel_update", "cuda"): ops.fused_panel_update_cuda,
-        ("bulge_chase", "cuda"): cuda_bulge_chase,
-        ("bulge_wavefront", "cuda"): ops.bulge_wavefront_cuda,
-        ("panel_qr", "cuda"): ops.panel_qr_cuda,
-        ("backtransform_wy", "cuda"): ops.backtransform_wy_cuda,
+        ("trailing_update", "cuda"): library.trailing_update,
+        ("syr2k", "cuda"): library.syr2k,
+        ("fused_panel_update", "cuda"): library.fused_panel_update,
+        ("bulge_chase", "cuda"): library.bulge_chase,
+        ("bulge_wavefront", "cuda"): library.bulge_wavefront,
+        ("panel_qr", "cuda"): library.panel_qr,
+        ("backtransform_wy", "cuda"): library.backtransform_wy,
     })
 
 

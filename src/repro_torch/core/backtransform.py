@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.backend import registry
+from repro_torch.backend.trace import map_lanes, repeated
 
 from .band_reduction import BandReflectors, apply_q_left
 from .bulge_chasing import ChaseLog, _kmax_table
@@ -157,11 +158,13 @@ def backtransform_wy_xla(
     Xp = torch.zeros((n + K * b, m), dtype=X.dtype, device=X.device)
     Xp[:n] = X
     order = range(S) if transpose else range(S - 1, -1, -1)
-    for s in order:
-        P = Xp[s + 1 : s + 1 + K * b].view(K, b, m)
-        V = vs[s]
-        proj = torch.einsum("kb,kbm->km", V, P)
-        P -= taus[s][:, None, None] * V[:, :, None] * proj[:, None, :]
+    with repeated(S, X) as sweeps:
+        for j in sweeps:
+            s = order[j]
+            P = Xp[s + 1 : s + 1 + K * b].view(K, b, m)
+            V = vs[s]
+            proj = torch.einsum("kb,kbm->km", V, P)
+            P -= taus[s][:, None, None] * V[:, :, None] * proj[:, None, :]
     return Xp[:n].clone()
 
 
@@ -206,6 +209,5 @@ def apply_q2_blocked_many(
     if on_stage is not None:
         on_stage("q2_regroup")
     fn = registry.resolve("backtransform_wy", backend or registry.default_backend(X.device))
-    return torch.stack([
-        fn(X[i], vs[i], taus[i], b=b, group=group, transpose=transpose) for i in range(len(logs))
-    ])
+    return torch.stack(map_lanes(
+        lambda i: fn(X[i], vs[i], taus[i], b=b, group=group, transpose=transpose), range(len(logs)), X))

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.backend import registry
+from repro_torch.backend.trace import repeated
 
 from .householder import house
 
@@ -192,14 +193,15 @@ def chase_wavefront(B: torch.Tensor, b: int, return_log: bool = False):
     if return_log:
         vs = torch.empty((W_total, A, b), dtype=dtype, device=dev)
         taus = torch.empty((W_total, A), dtype=dtype, device=dev)
-    for w in range(W_total):
-        rows = rows_all[w]
-        ri, ci = rows[:, :, None], rows[:, None, :]
-        Wn, v, tau = _window_op(Bp[ri, ci], ks[w], b)
-        Bp[ri, ci] = Wn
-        if return_log:
-            vs[w] = v
-            taus[w] = tau
+    with repeated(W_total, B) as wavefronts:
+        for w in wavefronts:
+            rows = rows_all[w]
+            ri, ci = rows[:, :, None], rows[:, None, :]
+            Wn, v, tau = _window_op(Bp[ri, ci], ks[w], b)
+            Bp[ri, ci] = Wn
+            if return_log:
+                vs[w] = v
+                taus[w] = tau
     out = Bp[off : off + n, off : off + n].clone()
     if not return_log:
         return out

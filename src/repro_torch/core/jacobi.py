@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.backend.trace import data_dependent, is_fake, repeated
+
 __all__ = ["jacobi_eigh", "round_robin_pairs"]
 
 
@@ -76,16 +78,23 @@ def jacobi_eigh(A: torch.Tensor, max_sweeps: int = 16, tol: float = 1e-7):
     V = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape).clone()
     bound = tol * torch.linalg.norm(A, dim=(-2, -1))
     active = _off_norm(A) > bound
-    for _ in range(max_sweeps):
-        # A sweep rotates only the matrices still above their bound.
-        idx = torch.nonzero(active).squeeze(-1)
-        if idx.numel() == 0:
-            break
-        A1, V1 = A[idx], V[idx]
-        for pq in rounds:
-            _one_round(A1, V1, pq[:, 0], pq[:, 1])
-        A[idx], V[idx] = A1, V1
-        active[idx] = _off_norm(A1) > bound[idx]
+    # Fake tensors have no values to test: every matrix takes every sweep.
+    fake = is_fake(A)
+    with data_dependent("core/jacobi.py:jacobi_eigh", f"{max_sweeps} sweeps over every matrix") as loop, \
+            repeated(max_sweeps, A) as sweeps:
+        for _ in sweeps:
+            # A sweep rotates only the matrices still above their bound.
+            idx = torch.arange(A.shape[0], device=A.device) if fake else torch.nonzero(active).squeeze(-1)
+            if idx.numel() == 0:
+                break
+            loop.trip()
+            A1, V1 = A[idx], V[idx]
+            with repeated(len(rounds), A) as steps:
+                for r in steps:
+                    pq = rounds[r]
+                    _one_round(A1, V1, pq[:, 0], pq[:, 1])
+            A[idx], V[idx] = A1, V1
+            active[idx] = _off_norm(A1) > bound[idx]
     lams, order = torch.sort(torch.diagonal(A, dim1=-2, dim2=-1), dim=-1, stable=True)
     V = torch.take_along_dim(V, order[..., None, :], dim=-1)
     return lams.reshape(shape[:-1]), V.reshape(shape)

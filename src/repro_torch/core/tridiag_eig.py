@@ -20,6 +20,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.backend.trace import data_dependent, is_fake, repeated
+
 __all__ = [
     "sturm_count",
     "eigvalsh_tridiag",
@@ -53,10 +55,11 @@ def sturm_count(d: torch.Tensor, e: torch.Tensor, x: torch.Tensor) -> torch.Tens
     dmx = d.movedim(-1, 0)[..., None] - x[None]
     neg = torch.empty((n,) + batch + (x.shape[-1],), dtype=torch.bool, device=d.device)
     q = torch.ones(batch + x.shape[-1:], dtype=d.dtype, device=d.device)
-    for i in range(n):
-        q = torch.addcdiv(dmx[i], e2[i], q, value=-1.0)
-        q = torch.where(q.abs() < pivmin, neg_pivmin, q)
-        torch.lt(q, 0, out=neg[i])
+    with repeated(n, d) as rows:
+        for i in rows:
+            q = torch.addcdiv(dmx[i], e2[i], q, value=-1.0)
+            q = torch.where(q.abs() < pivmin, neg_pivmin, q)
+            torch.lt(q, 0, out=neg[i])
     return neg.sum(0, dtype=torch.int32)
 
 
@@ -71,11 +74,12 @@ def _bisect_indices(d: torch.Tensor, e: torch.Tensor, ks: torch.Tensor, max_iter
     lanes = torch.broadcast_shapes(d.shape[:-1] + (1,), ks.shape)
     lo =(lo0 - 0.001 * span)[..., None].expand(lanes).clone()
     hi = (hi0 + 0.001 * span)[..., None].expand(lanes).clone()
-    for _ in range(max_iter):
-        mid = 0.5 * (lo + hi)
-        go_up = sturm_count(d, e, mid) <= ks
-        lo = torch.where(go_up, mid, lo)
-        hi = torch.where(go_up, hi, mid)
+    with repeated(max_iter, d) as steps:
+        for _ in steps:
+            mid = 0.5 * (lo + hi)
+            go_up = sturm_count(d, e, mid) <= ks
+            lo = torch.where(go_up, mid, lo)
+            hi = torch.where(go_up, hi, mid)
     return 0.5 * (lo + hi)
 
 
@@ -137,27 +141,30 @@ def _tridiag_solve_pivoted(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor, 
     # cur = the running pivot-candidate row (b_cur, c_cur, 0, r_cur).
     cur = torch.stack([d[0], du[0].expand(lanes), zrow[0], rhs[0]])
     U = torch.empty((n - 1, 4) + lanes, dtype=dtype, device=dev)
-    for i in range(n - 1):
-        swap = absa[i] > cur[0].abs()
-        P = torch.where(swap, nxt[i], cur)   # pivot row: (p1, p2, p3, pr)
-        E = torch.where(swap, cur, nxt[i])   # eliminated row: (e1, e2, e3, er)
-        p1 = P[0]
-        U[i] = P
-        torch.where(p1.abs() < tiny, torch.where(p1 < 0, -tiny, tiny), p1, out=U[i, 0])
-        mfac = E[0] / U[i, 0]
-        new = torch.addcmul(E[1:], mfac, P[1:], value=-1.0)  # (nb, nc, nr)
-        cur = torch.cat([new[:2], zrow, new[2:]])
+    with repeated(n - 1, d) as steps:
+        for i in steps:
+            swap = absa[i] > cur[0].abs()
+            P = torch.where(swap, nxt[i], cur)   # pivot row: (p1, p2, p3, pr)
+            E = torch.where(swap, cur, nxt[i])   # eliminated row: (e1, e2, e3, er)
+            p1 = P[0]
+            U[i] = P
+            torch.where(p1.abs() < tiny, torch.where(p1 < 0, -tiny, tiny), p1, out=U[i, 0])
+            mfac = E[0] / U[i, 0]
+            new = torch.addcmul(E[1:], mfac, P[1:], value=-1.0)  # (nb, nc, nr)
+            cur = torch.cat([new[:2], zrow, new[2:]])
     b_last = cur[0]
     b_safe = torch.where(b_last.abs() < tiny, torch.where(b_last < 0, -tiny, tiny), b_last)
     x = torch.empty((n,) + lanes, dtype=dtype, device=dev)
     x[n - 1] = cur[3] / b_safe
     x2 = torch.zeros(lanes, dtype=dtype, device=dev)
-    for i in range(n - 2, -1, -1):
-        u = U[i]
-        t = torch.addcmul(u[3], u[1], x[i + 1], value=-1.0)
-        t = torch.addcmul(t, u[2], x2, value=-1.0)
-        torch.div(t, u[0], out=x[i])
-        x2 = x[i + 1]
+    with repeated(n - 1, d) as steps:
+        for j in steps:
+            i = n - 2 - j
+            u = U[i]
+            t = torch.addcmul(u[3], u[1], x[i + 1], value=-1.0)
+            t = torch.addcmul(t, u[2], x2, value=-1.0)
+            torch.div(t, u[0], out=x[i])
+            x2 = x[i + 1]
     return x.movedim(0, -2)
 
 
@@ -169,15 +176,19 @@ def _qr(X: torch.Tensor):
     orthogonal Q all the same; CUDA's batched QR does not (a Shampoo
     statistics block of rank 4 in 128 gets roots far off; measured by
     scripts/batched_qr_check.py), so on CUDA each matrix whose Q is not
-    orthogonal to 1e-4 is factored again on its own."""
+    orthogonal to 1e-4 is factored again on its own (on fake tensors, which
+    have no values, none is: the loop is listed as data-dependent)."""
     Q, R = torch.linalg.qr(X)
     if not X.is_cuda or X.ndim < 3:
         return Q, R
     k = Q.shape[-1]
     Qf, Rf, Xf = Q.reshape(-1, *Q.shape[-2:]), R.reshape(-1, k, k), X.reshape(-1, *X.shape[-2:])
     eye = torch.eye(k, dtype=Q.dtype, device=Q.device)
-    for i in ((Qf.mT @ Qf - eye).abs().amax((-2, -1)) > 1e-4).nonzero().flatten().tolist():
-        Qf[i], Rf[i] = torch.linalg.qr(Xf[i])
+    bad = (Qf.mT @ Qf - eye).abs().amax((-2, -1)) > 1e-4
+    with data_dependent("core/tridiag_eig.py:_qr", "no re-factor") as loop:
+        for i in [] if is_fake(bad) else bad.nonzero().flatten().tolist():
+            loop.trip()
+            Qf[i], Rf[i] = torch.linalg.qr(Xf[i])
     return Qf.reshape(Q.shape), Rf.reshape(R.shape)
 
 
@@ -218,9 +229,10 @@ def eigvecs_inverse_iteration(
     dsh = d[..., :, None] - lams_p[..., None, :]
     V = v0[:, None].expand(dsh.shape).contiguous()
     tiny = torch.finfo(dtype).tiny
-    for _ in range(n_iter):
-        X = _tridiag_solve_pivoted(e, dsh, e, V)
-        V = X / torch.clamp(torch.linalg.norm(X, dim=-2), min=tiny)[..., None, :]
+    with repeated(n_iter, d) as steps:
+        for _ in steps:
+            X = _tridiag_solve_pivoted(e, dsh, e, V)
+            V = X / torch.clamp(torch.linalg.norm(X, dim=-2), min=tiny)[..., None, :]
     inf = torch.full_like(lams[..., :1], float("inf"))
     gaps = lams.diff(dim=-1)
     gap = torch.minimum(torch.cat([inf, gaps], -1), torch.cat([gaps, inf], -1))

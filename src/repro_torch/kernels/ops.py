@@ -1,7 +1,8 @@
 """Device-dispatching wrappers of the port's kernels.
 
-A CUDA tensor goes to the hand-written kernel (which launches or raises);
-a CPU tensor goes to the plain PyTorch version.  Nothing else decides: no
+A CUDA tensor goes to the hand-written kernel through its ``repro_torch``
+operator (``kernels/library.py``; it launches or raises); a CPU tensor
+goes to the plain PyTorch version.  Nothing else decides: no
 size ceiling, no ``try``, no environment default.  The registry
 (``repro_torch.backend.registry``) resolves the same two implementations
 by backend name.
@@ -10,11 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from .backtransform import backtransform_wy_cuda
-from .bulge import bulge_wavefront_cuda
-from .fused_panel import fused_panel_update_cuda
-from .panel import panel_qr_body, panel_qr_cuda
-from .syr2k import syr2k_cuda, trailing_update_cuda
+from . import library
+from .panel import panel_qr_body
 
 __all__ = [
     "syr2k",
@@ -24,12 +22,6 @@ __all__ = [
     "bulge_wavefront",
     "panel_qr",
     "backtransform_wy",
-    "syr2k_cuda",
-    "trailing_update_cuda",
-    "fused_panel_update_cuda",
-    "bulge_wavefront_cuda",
-    "panel_qr_cuda",
-    "backtransform_wy_cuda",
 ]
 
 
@@ -42,7 +34,7 @@ def _on_cuda(t: torch.Tensor) -> bool:
 def syr2k(A: torch.Tensor, B: torch.Tensor, C=None, *, alpha: float = 1.0) -> torch.Tensor:
     """Symmetric ``C + alpha (A B^T + B A^T)`` (``C`` absent: zeros)."""
     if _on_cuda(A):
-        return syr2k_cuda(A, B, C, alpha=alpha)
+        return library.syr2k(A, B, C, alpha=alpha)
     from .ref import syr2k_ref
 
     return syr2k_ref(A, B, C, alpha=alpha)
@@ -51,7 +43,7 @@ def syr2k(A: torch.Tensor, B: torch.Tensor, C=None, *, alpha: float = 1.0) -> to
 def trailing_update(C: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
     """The DBR trailing update ``C - Z Y^T - Y Z^T`` (syr2k, alpha = -1)."""
     if _on_cuda(C):
-        return trailing_update_cuda(C, Y, Z)
+        return library.trailing_update(C, Y, Z)
     from .ref import syr2k_ref
 
     return syr2k_ref(Z, Y, C, alpha=-1.0)
@@ -60,14 +52,14 @@ def trailing_update(C: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor) -> torch.
 def panel_qr(panel: torch.Tensor):
     """Householder QR (beta = +|x|) of an (m, b) panel: ``(V, T, taus, R)``."""
     if _on_cuda(panel):
-        return panel_qr_cuda(panel)
+        return library.panel_qr(panel)
     return panel_qr_body(panel, panel.shape[1], lapack_sign=False)
 
 
 def fused_panel_update(Bv: torch.Tensor, b: int, w: int):
     """One DBR block step on the trailing view ``Bv``, in place."""
     if _on_cuda(Bv):
-        return fused_panel_update_cuda(Bv, b, w)
+        return library.fused_panel_update(Bv, b, w)
     from .ref import fused_panel_update_ref
 
     return fused_panel_update_ref(Bv, b, w)
@@ -76,7 +68,7 @@ def fused_panel_update(Bv: torch.Tensor, b: int, w: int):
 def bulge_wavefront(B: torch.Tensor, b: int, *, return_log: bool = False):
     """Band -> tridiagonal, optionally with the (W, A, b) reflector log."""
     if _on_cuda(B):
-        return bulge_wavefront_cuda(B, b, return_log=return_log)
+        return library.bulge_wavefront(B, b, return_log=return_log)
     from repro_torch.core.bulge_chasing import chase_wavefront_slices
 
     return chase_wavefront_slices(B, b, return_log)
@@ -86,7 +78,7 @@ def bulge_chase(B: torch.Tensor, b: int) -> torch.Tensor:
     """Band -> tridiagonal without the log (kernel B, as JAX's
     ``ops.bulge_chase`` runs ``bulge_wavefront_pallas`` without it)."""
     if _on_cuda(B):
-        return bulge_wavefront_cuda(B, b)
+        return library.bulge_chase(B, b)
     from repro_torch.core.bulge_chasing import chase_wavefront
 
     return chase_wavefront(B, b)
@@ -95,7 +87,7 @@ def bulge_chase(B: torch.Tensor, b: int) -> torch.Tensor:
 def backtransform_wy(X, vs, taus, *, b: int, group=None, transpose: bool = False):
     """Q2 @ X (or Q2^T @ X) from the sweep-major log."""
     if _on_cuda(X):
-        return backtransform_wy_cuda(X, vs, taus, b=b, group=group, transpose=transpose)
+        return library.backtransform_wy(X, vs, taus, b=b, group=group, transpose=transpose)
     from repro_torch.core.backtransform import backtransform_wy_xla
 
     return backtransform_wy_xla(X, vs, taus, b=b, group=group, transpose=transpose)

@@ -8,6 +8,8 @@ FLOPs, HBM bytes, collective bytes and roofline (port of
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mamba2-370m \\
         --shape decode_32k --mesh 2,4 --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-3b \\
+        --shape train_4k --optimizer shampoo [--shampoo-sharded]
 
 The JAX package lowers and compiles each cell for 512 fake CPU devices and
 reads XLA's analyses.  The port runs the cell's step instead, as rank 0 of
@@ -17,7 +19,8 @@ nothing), on fake tensors (``FakeTensorMode``: shapes, dtypes and devices,
 no data and no compute) of rank 0's shards, under the policy the JAX
 function picks.  What runs is the step a real rank runs, branch for branch:
 
-* ``memory``: the bytes of rank 0's inputs (``argument_bytes``), the step's
+* ``memory``: the bytes of rank 0's inputs (``argument_bytes``; by input
+  in ``argument_bytes_by_input``), the step's
   new outputs and those that alias an input (the decode cache, written in
   place), the most bytes its ops hold at once beyond the inputs
   (``analysis.walk``), and ``peak_estimate_bytes`` = inputs + that most;
@@ -31,8 +34,22 @@ function picks.  What runs is the step a real rank runs, branch for branch:
   tensors (JAX's ``lower_s`` and ``compile_s``).
 
 The step runs on fake tensors of ``device`` (default ``"cuda"``, which
-raises without a card: pass ``device="cpu"``).  The Shampoo option is not
-ported (ROADMAP Queue 1 item 13(e)).
+raises without a card: pass ``device="cpu"``).
+
+``optimizer_name="shampoo"`` trains a cell with the JAX function's
+options (``shampoo(3e-4, ShampooOptions(block_size=256, update_interval=20,
+evd=EvdConfig(b=8, nb=64)))``).  Its step refreshes the preconditioners:
+on a card through kernels A–C, whose ``repro_torch`` operators have fake
+implementations and work formulas (``kernels/library.py``), on the CPU
+through their plain versions op by op.  The state is what the port holds,
+whole leaves on every rank (``Optimizer.whole_leaves``), not JAX's layout,
+where ``mu`` and ``nu`` mirror the parameters' shardings;
+``shampoo_sharded`` splits the refresh over every mesh axis
+(``precond_mesh``, JAX's ``P(axes, None, None)`` on the statistics), so
+rank 0 refreshes its share and gathers the roots.  The record gains
+``shampoo`` (blocks, rank 0's share, the state's bytes by part, the
+refresh's FLOPs by operator, whether it was counted), and the walk lists
+the loops whose trips depend on values (``walk["data_dependent"]``).
 """
 from __future__ import annotations
 
@@ -46,12 +63,14 @@ import time
 import traceback
 from typing import Dict, Optional, Tuple
 
-__all__ = ["run_cell", "count_cell", "cell_config", "cell_inputs", "cell_step", "summary", "main"]
+__all__ = ["run_cell", "count_cell", "cell_config", "cell_inputs", "cell_step", "cell_optimizer",
+           "shampoo_options", "summary", "main"]
 
 SKIP_REASON = ("long_500k requires sub-quadratic serving state "
                "(pure full-attention arch; see DESIGN.md §6)")
-SHAMPOO_ITEM = ("run_cell(optimizer_name='shampoo') is not ported: the refresh reaches kernels A-C through "
-                "ctypes, which take no fake tensors (ROADMAP Queue 1 item 13(e))")
+OPTIMIZERS = ("adamw", "shampoo")
+REFRESH_NOTE = ("a fake step has no value, so it refreshes: the JAX walk counts both branches of its lax.cond, "
+                "an upper bound, and the keep branch is free")
 
 
 def _mesh_shape(multi_pod: bool, mesh_override) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
@@ -119,7 +138,8 @@ def _rows(mesh, axes, n: int) -> Tuple[int, int]:
 def cell_inputs(cfg, info, policy, dev, *, pure_dp: bool, optimizer=None) -> Dict:
     """Rank ``dist.get_rank()``'s inputs of the cell's step as new tensors
     on ``dev`` (fake ones inside a ``FakeTensorMode``): its shards of the
-    parameters (and of the optimizer state, from ``init_opt_state``) or of
+    parameters (and of the optimizer state, from ``init_opt_state``; an
+    optimizer of whole leaves, Shampoo, holds its whole state) or of
     the cache (``cache_partition_specs``), its rows of the batch, in the
     trees of ``launch.specs.input_specs``; zeros (what a step counts does
     not depend on the values)."""
@@ -128,7 +148,7 @@ def cell_inputs(cfg, info, policy, dev, *, pure_dp: bool, optimizer=None) -> Dic
     from repro_torch.launch.cache_specs import cache_partition_specs
     from repro_torch.launch.specs import batch_specs
     from repro_torch.models import cache_meta, model_meta
-    from repro_torch.tree import flatten_with_paths
+    from repro_torch.tree import flatten_with_paths, tree_map
 
     mesh = policy.mesh
 
@@ -152,7 +172,11 @@ def cell_inputs(cfg, info, policy, dev, *, pure_dp: bool, optimizer=None) -> Dic
         return {"params": params, "batch": batch}
     from repro_torch.train.step import init_opt_state
 
-    return {"params": params, "opt_state": init_opt_state(optimizer, params), "batch": batch, "step": 0}
+    if optimizer.whole_leaves:  # the state of the whole leaves, on every rank (init_opt_state gathers them)
+        state = optimizer.init(tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype, device=dev), meta))
+    else:
+        state = init_opt_state(optimizer, params)
+    return {"params": params, "opt_state": state, "batch": batch, "step": 0}
 
 
 def cell_step(cfg, info, policy, dev, *, microbatches: int = 1, optimizer=None):
@@ -191,15 +215,59 @@ def _policy(arch, shape, dev, *, multi_pod=False, overrides=None, mesh_override=
     return cfg, info, policy, pure_dp, microbatches
 
 
-def _step(cfg, info, policy, dev, pure_dp, microbatches):
+def shampoo_options(mesh=None, sharded: bool = False):
+    """The JAX dry-run's Shampoo options, with the refresh split over every
+    axis of ``mesh`` when ``sharded``."""
+    from repro_torch.optim import ShampooOptions
+    from repro_torch.solver import EvdConfig
+
+    precond = (mesh, tuple(mesh.mesh_dim_names)) if sharded else None
+    return ShampooOptions(block_size=256, update_interval=20, evd=EvdConfig(b=8, nb=64), precond_mesh=precond)
+
+
+def cell_optimizer(info, policy, optimizer_name: str = "adamw", shampoo_sharded: bool = False):
+    """The cell's optimizer as the JAX ``run_cell`` builds it (None unless
+    it trains): ``adamw(3e-4)`` or ``shampoo(3e-4, shampoo_options(...))``."""
+    from repro_torch.optim import adamw, shampoo
+
+    if optimizer_name not in OPTIMIZERS:
+        raise ValueError(f"optimizer_name={optimizer_name!r}: expected one of {OPTIMIZERS}")
+    if info["kind"] != "train":
+        return None
+    if optimizer_name == "shampoo":
+        return shampoo(3e-4, shampoo_options(policy.mesh, shampoo_sharded))
+    return adamw(3e-4)
+
+
+def _step(cfg, info, policy, dev, pure_dp, microbatches, optimizer):
     """``(inputs, fn, args)``: the rank's inputs and step (fake tensors
     inside a ``FakeTensorMode``)."""
-    from repro_torch.optim import adamw
-
-    optimizer = adamw(3e-4) if info["kind"] == "train" else None
     inputs = cell_inputs(cfg, info, policy, dev, pure_dp=pure_dp, optimizer=optimizer)
     fn, names = cell_step(cfg, info, policy, dev, microbatches=microbatches, optimizer=optimizer)
     return inputs, fn, [inputs[k] for k in names]
+
+
+def _shampoo_record(opt_state, opts, walk) -> Dict:
+    """The ``shampoo`` entry of a record: blocks a side, rank 0's share of
+    the refresh (identity lanes padding the batch to a multiple of the
+    ranks included), the state's bytes by part, the refresh's FLOPs by
+    operator and whether the refresh was counted."""
+    blocks = opt_state.stats_l.shape[0]
+    ranks = opts.precond_mesh[0].size() if opts.precond_mesh is not None else 1
+    lanes = -(-blocks // ranks)
+    return {
+        "block_size": opts.block_size,
+        "blocks_per_side": blocks,
+        "sharded": opts.precond_mesh is not None,
+        "refresh_ranks": ranks,
+        "rank0_lanes_per_side": lanes,
+        "rank0_blocks_per_side": min(lanes, blocks),
+        "state_bytes": {k: _bytes(getattr(opt_state, k)) for k in opt_state._fields},
+        "refresh_flops_by_operator": {k: v["flops"] for k, v in walk["operators"].items()},
+        "refresh_calls_by_operator": {k: v["count"] for k, v in walk["operators"].items()},
+        "refresh_counted": True,
+        "refresh_note": REFRESH_NOTE,
+    }
 
 
 def run_cell(arch: str, shape: str, *, multi_pod: bool = False, overrides=None, mesh_override=None,
@@ -209,8 +277,9 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False, overrides=None, 
     """One cell's record (module docstring), the JAX ``run_cell``'s keys
     with ``trace_s`` for ``lower_s`` / ``compile_s``.  ``shape_overrides``
     changes the shape's batch or seq; ``smoke`` starts from the reduced
-    config; ``top`` contributors are kept; ``shampoo_sharded`` is the JAX
-    signature's, for the Shampoo option, which is not ported."""
+    config; ``top`` contributors are kept; ``optimizer_name`` is
+    ``"adamw"`` or ``"shampoo"`` (with ``shampoo_sharded``: the refresh
+    over every mesh axis)."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -224,10 +293,6 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False, overrides=None, 
     arch = canonical(arch)
     if not cell_applicable(arch, shape):
         return {"arch": arch, "shape": shape, "multi_pod": multi_pod, "status": "skipped", "reason": SKIP_REASON}
-    if optimizer_name == "shampoo":
-        raise NotImplementedError(SHAMPOO_ITEM)
-    if optimizer_name != "adamw":
-        raise ValueError(f"optimizer_name={optimizer_name!r}: adamw (shampoo is not ported)")
     dev = resolve_device(device)
     mesh_shape, axes = _mesh_shape(multi_pod, mesh_override)
     with comm.fake_world(math.prod(mesh_shape)):
@@ -235,9 +300,10 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False, overrides=None, 
             arch, shape, dev, multi_pod=multi_pod, overrides=overrides, mesh_override=mesh_override,
             sequence_parallel=sequence_parallel, fsdp=fsdp, pure_dp=pure_dp, microbatches=microbatches,
             shape_overrides=shape_overrides, smoke=smoke)
+        optimizer = cell_optimizer(info, policy, optimizer_name, shampoo_sharded)
         fake = FakeTensorMode()
         with fake:
-            inputs, fn, args = _step(cfg, info, policy, dev, pure_dp, microbatches)
+            inputs, fn, args = _step(cfg, info, policy, dev, pure_dp, microbatches, optimizer)
         in_keys = {t.untyped_storage()._cdata for t in leaves(inputs) if isinstance(t, torch.Tensor)}
         comm.reset_traffic()
         t0 = time.perf_counter()
@@ -261,6 +327,7 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False, overrides=None, 
                    "attn_shard_mode": cfg.attn_shard_mode, "moe_shard_mode": cfg.moe_shard_mode},
         "device": str(dev),
         "trace_s": round(trace_s, 1),
+        "argument_bytes_by_input": {k: _bytes(v) for k, v in inputs.items()},
         "memory": {
             "argument_bytes": arg_bytes,
             "output_bytes": out_bytes,
@@ -280,50 +347,79 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False, overrides=None, 
             "peak_live_bytes": walk["peak_live_bytes"],
             "ops": walk["ops"],
             "flops_note": walk["flops_note"],
+            "operators": walk["operators"],
+            "data_dependent": walk["data_dependent"],
+            "flops_outside_loops": float(walk["flops_outside_loops"]),
         },
     }
+    if optimizer_name == "shampoo" and info["kind"] == "train":
+        record["shampoo"] = _shampoo_record(inputs["opt_state"], shampoo_options(policy.mesh, shampoo_sharded), walk)
     record["roofline"] = roofline_terms(record, cfg, info)
     if not quiet:
         print(summary(record))
     return record
 
 
-def count_cell(arch: str, shape: str, *, mesh_override, device=None, **kw) -> Dict:
+def count_cell(arch: str, shape: str, *, mesh_override, device=None, optimizer_name: str = "adamw",
+               shampoo_sharded: bool = False, timed: bool = True, **kw) -> Dict:
     """The cell's step run for real by this rank of the initialized world
     (every rank calls it with the same arguments; the mesh's size is the
     world's), twice: the first run under ``FlopCounterMode`` gives
-    ``collectives`` (``analysis.collective_bytes``) and ``flops``, the
-    second ``step_s`` and, on CUDA, ``peak_bytes`` (the inputs' bytes plus
-    the most ``torch.cuda.max_memory_allocated`` rose over what was held
-    before the step).  A dry-run record of the same cell holds its rank 0's
-    counts against these.  ``kw`` as :func:`run_cell`'s."""
+    ``collectives`` (``analysis.collective_bytes``), ``flops``,
+    ``operators`` (the FLOPs of each ``repro_torch`` operator),
+    ``data_dependent`` (``analysis.walk.LoopLog``: the loops whose trips
+    depend on values, with the FLOPs counted inside them) and
+    ``flops_outside_loops``, the second ``step_s`` (without ``timed``, no
+    second run).  On CUDA ``peak_bytes`` is the inputs' bytes plus the most
+    ``torch.cuda.max_memory_allocated`` rose over what was held before the
+    last run.  A dry-run record of the same cell holds its rank 0's counts
+    against these.  ``optimizer_name`` / ``shampoo_sharded`` and ``kw`` as
+    :func:`run_cell`'s."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.analysis import collective_bytes
+    from repro_torch.analysis.walk import LoopLog
     from repro_torch.backend.probe import resolve_device
+    from repro_torch.kernels.library import NAMESPACE
     from repro_torch.parallel import comm
 
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
     cfg, info, policy, pure_dp, microbatches = _policy(arch, shape, dev, mesh_override=mesh_override, **kw)
-    inputs, fn, args = _step(cfg, info, policy, dev, pure_dp, microbatches)
+    optimizer = cell_optimizer(info, policy, optimizer_name, shampoo_sharded)
+    inputs, fn, args = _step(cfg, info, policy, dev, pure_dp, microbatches, optimizer)
+
+    def held():
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            return torch.cuda.memory_allocated()
+
+    def peak(before):
+        if cuda:
+            torch.cuda.synchronize()
+            rec["peak_bytes"] = _bytes(inputs) + torch.cuda.max_memory_allocated() - before
+
     comm.reset_traffic()
-    with FlopCounterMode(display=False) as fc:
+    before = held()
+    with FlopCounterMode(display=False) as fc, LoopLog(fc) as loops:
         out = fn(*args)
     colls = collective_bytes()
     comm.reset_traffic()
     del out
-    rec = {"collectives": colls, "flops": float(fc.get_total_flops())}
-    if cuda:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
+    flops, dd = fc.get_total_flops(), loops.record()
+    ops = {str(k).split(".")[-1]: v for k, v in fc.get_flop_counts()["Global"].items()
+           if str(k).startswith(NAMESPACE + ".")}
+    rec = {"collectives": colls, "flops": float(flops), "operators": ops, "data_dependent": dd,
+           "flops_outside_loops": float(flops - sum(d["flops"] for d in dd))}
+    if not timed:
+        peak(before)
+        return rec
+    before = held()
     t0 = time.perf_counter()
     out = fn(*args)
-    if cuda:
-        torch.cuda.synchronize()
-        rec["peak_bytes"] = _bytes(inputs) + torch.cuda.max_memory_allocated() - held
+    peak(before)
     rec["step_s"] = time.perf_counter() - t0
     comm.reset_traffic()
     return rec
@@ -355,6 +451,8 @@ def main(argv=None):
     p.add_argument("--smoke", action="store_true", help="use reduced configs")
     p.add_argument("--mesh", default=None, help="debug mesh override, e.g. '2,4' or '2,2,4'")
     p.add_argument("--device", default=None, help="the fake tensors' device (default cuda; cpu without a card)")
+    p.add_argument("--optimizer", default="adamw", choices=OPTIMIZERS, help="the train cells' optimizer")
+    p.add_argument("--shampoo-sharded", action="store_true", help="split the Shampoo refresh over every mesh axis")
     args = p.parse_args(argv)
     mesh_override = tuple(int(x) for x in args.mesh.split(",")) if args.mesh else None
 
@@ -362,10 +460,12 @@ def main(argv=None):
     cells = [(a, s) for a, s, _ in all_cells()] if args.all else [(args.arch, args.shape)]
     failures = 0
     for arch, shape in cells:
-        tag = f"{arch}_{shape}_{'2pod' if args.multi_pod else '1pod'}"
+        opt = "" if args.optimizer == "adamw" else f"_{args.optimizer}{'_sharded' if args.shampoo_sharded else ''}"
+        tag = f"{arch}_{shape}_{'2pod' if args.multi_pod else '1pod'}{opt}"
         try:
             rec = run_cell(arch, shape, multi_pod=args.multi_pod, mesh_override=mesh_override,
-                           device=args.device, smoke=args.smoke)
+                           device=args.device, smoke=args.smoke, optimizer_name=args.optimizer,
+                           shampoo_sharded=args.shampoo_sharded)
             if rec["status"] != "ok":
                 print(summary(rec))
         except Exception as e:  # noqa: BLE001 — record, keep sweeping

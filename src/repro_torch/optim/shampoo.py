@@ -29,7 +29,9 @@ the one-process state, replicated on every rank.
 Grafting: AdaGrad-norm grafting (the update rescaled to the diagonal-Adam
 update's norm per parameter).  The refresh runs at step 1 and at every
 multiple of ``update_interval``: a Python branch on the step, where the JAX
-package has ``lax.cond``.
+package has ``lax.cond``.  On fake tensors (the dry-run) the step has no
+value and refreshes: the JAX walk counts both branches of its ``cond``, an
+upper bound, and the other branch is free.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from typing import Any, List, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.backend.trace import is_fake
 from repro_torch.solver import EvdConfig, solve_many
 from repro_torch.tree import flatten_with_paths, leaves, tree_map
 
@@ -194,8 +197,12 @@ def shampoo(
             L, R = state.stats_l, state.stats_r
 
         # ---- refresh preconditioners every update_interval ----------------
-        s = int(step)
-        if s == 1 or s % opts.update_interval == 0:
+        # A fake step has no value: it refreshes (the branch that costs).
+        refresh = is_fake(step)
+        if not refresh:
+            s = int(step)
+            refresh = s == 1 or s % opts.update_interval == 0
+        if refresh:
             pre_l, pre_r = _roots(L), _roots(R)
         else:
             pre_l, pre_r = state.pre_l, state.pre_r

@@ -10,7 +10,8 @@ holds what those functions need from the process group:
   order the axes are given, as ``jax.lax.axis_index`` over a tuple of axes
   counts).
 * :func:`all_gather_rows` / :func:`all_reduce_sum` — the two plain
-  collectives, and :func:`full_tensor`, a sharded DTensor made whole.
+  collectives (the gather counted in :data:`traffic`), and
+  :func:`full_tensor`, a sharded DTensor made whole.
 * The collectives of a sharded train step, each a ``torch.autograd.Function``
   over the group of some mesh axes (:func:`axes_group`), in Megatron's
   pairs: :func:`all_reduce` (sum forward, identity backward: *g*) and
@@ -144,11 +145,13 @@ def _new_group(mesh, names, axes):
     return found
 
 
-def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, group, tag: str = "rows") -> torch.Tensor:
     """Every rank's ``x`` (all of one shape), concatenated along dim 0 in
-    the group's rank order; the same tensor on every rank."""
+    the group's rank order; the same tensor on every rank.  Its bytes are
+    counted under ``tag``."""
     x = x.detach().contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    _count(tag, x, "all_gather", group)
     dist.all_gather(parts, x, group=group)
     return torch.cat(parts)
 

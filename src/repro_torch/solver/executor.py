@@ -158,7 +158,7 @@ def _run_bucket(stack: torch.Tensor, cfg: EvdConfig, op: str, p: int, eps: float
         out = bpl.inverse_pth_root(stack, p, eps=eps, donate=pad.donate)
     parts = out if op == "eigh" else (out,)
     if meshspec is not None:
-        parts = tuple(all_gather_rows(t, group) for t in parts)
+        parts = tuple(all_gather_rows(t, group, "evd") for t in parts)
     parts = tuple(t[:B] for t in parts)
     return parts if op == "eigh" else parts[0]
 

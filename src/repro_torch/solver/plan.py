@@ -35,6 +35,7 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.backend import probe, registry
+from repro_torch.backend.trace import map_lanes
 from repro_torch.core.backtransform import apply_q2_blocked_many, apply_q_left_blocked
 from repro_torch.core.band_reduction import BandReflectors, apply_q_left, band_reduce
 from repro_torch.core.bulge_chasing import apply_q2, band_to_tridiag, extract_tridiag
@@ -257,13 +258,13 @@ def _tridiag_bucket(
         d, e = extract_tridiag(T)
         return (d, e, ("direct", refl)) if return_reflectors else (d, e)
     kw = dict(mode=tridiag, backend=backend)
-    bands = [band_reduce(Ai, b, nb, return_reflectors=return_reflectors, **kw) for Ai in A]
+    bands = map_lanes(lambda Ai: band_reduce(Ai, b, nb, return_reflectors=return_reflectors, **kw), A, A)
     mark("band_reduce")
     if not return_reflectors:
-        T = torch.stack([band_to_tridiag(Bi, b, method=chase, **kw) for Bi in bands])
+        T = torch.stack(map_lanes(lambda Bi: band_to_tridiag(Bi, b, method=chase, **kw), bands, A))
         mark("chase")
         return extract_tridiag(T)
-    chased = [band_to_tridiag(Bi, b, method=chase, return_log=True, **kw) for Bi, _ in bands]
+    chased = map_lanes(lambda band: band_to_tridiag(band[0], b, method=chase, return_log=True, **kw), bands, A)
     mark("chase")
     d, e = extract_tridiag(torch.stack([T for T, _ in chased]))
     return d, e, ("two_stage", ([r for _, r in bands], [log for _, log in chased]))
@@ -290,7 +291,7 @@ def _backtransform_bucket(refl, X: torch.Tensor, *, mode: str, group: int, backe
         mark("q2")
         X = apply_q_left_blocked(Q1, X)
     else:
-        X = torch.stack([apply_q2(log, X[i]) for i, log in enumerate(logs)])
+        X = torch.stack(map_lanes(lambda i: apply_q2(logs[i], X[i]), range(len(logs)), X))
         mark("q2")
         X = apply_q_left(Q1, X)
     mark("q1")

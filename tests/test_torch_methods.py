@@ -323,9 +323,9 @@ def test_no_not_implemented_names_queue_1_items_8_or_9():
     assert "item 12" not in (SRC / "solver" / "executor.py").read_text()
     assert not [str(p) for p in SRC.rglob("*.py") if "12(b)" in p.read_text()]
     # Item 12(c) (tensor parallelism of the recurrent mixers) is ported: no
-    # NotImplementedError names it and its refusal helper is gone.  The one
-    # NotImplementedError of the dry-run, the Shampoo option, names item
-    # 13(e) and is raised by launch/dryrun.py alone.
+    # NotImplementedError names it and its refusal helper is gone.  Item
+    # 13(e), the dry-run's Shampoo option, is ported too: no
+    # NotImplementedError names it, and the dry-run names it nowhere.
     raises_c = re.compile(r"NotImplementedError\((?:[^()]|\([^()]*\))*?item 12\(c\)", re.S)
     sites = sorted(str(p.relative_to(SRC)) for p in SRC.rglob("*.py") if raises_c.search(p.read_text()))
     assert sites == [], sites
@@ -333,7 +333,7 @@ def test_no_not_implemented_names_queue_1_items_8_or_9():
     assert callers == [], callers
     raises_e = re.compile(r"raise NotImplementedError\((?:[^()]|\([^()]*\))*?\b(SHAMPOO_ITEM|item 13\(e\))", re.S)
     sites = sorted(str(p.relative_to(SRC)) for p in SRC.rglob("*.py") if raises_e.search(p.read_text()))
-    assert sites == ["launch/dryrun.py"], sites
-    assert "ROADMAP Queue 1 item 13(e)" in (SRC / "launch" / "dryrun.py").read_text()
+    assert sites == [], sites
+    assert "13(e)" not in (SRC / "launch" / "dryrun.py").read_text()
     bare = re.compile(r"item 12\b(?!\([abc]\))")
     assert not [str(p) for p in SRC.rglob("*.py") if bare.search(p.read_text())]

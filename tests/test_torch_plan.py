@@ -117,20 +117,18 @@ def test_registry_ops():
         "trailing_update", "syr2k", "fused_panel_update", "bulge_chase",
         "bulge_wavefront", "panel_qr", "backtransform_wy",
     )
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.bulge import bulge_wavefront_cuda
-    from repro_torch.kernels.panel import panel_qr_cuda
-    from repro_torch.kernels.syr2k import syr2k_cuda, trailing_update_cuda
+    from repro_torch.kernels import library, ref
 
     for op in registry.OPS:
         for backend in registry.BACKENDS:
             assert callable(registry.resolve(op, backend)), (op, backend)
     assert registry.resolve("fused_panel_update", "torch") is ref.fused_panel_update_ref
     assert registry.resolve("syr2k", "torch") is ref.syr2k_ref
-    assert registry.resolve("bulge_wavefront", "cuda") is bulge_wavefront_cuda
-    assert registry.resolve("syr2k", "cuda") is syr2k_cuda
-    assert registry.resolve("trailing_update", "cuda") is trailing_update_cuda
-    assert registry.resolve("panel_qr", "cuda") is panel_qr_cuda
+    # The cuda backend is each kernel's repro_torch operator (kernels/library.py).
+    assert registry.resolve("bulge_wavefront", "cuda") is library.bulge_wavefront
+    assert registry.resolve("syr2k", "cuda") is library.syr2k
+    assert registry.resolve("trailing_update", "cuda") is library.trailing_update
+    assert registry.resolve("panel_qr", "cuda") is library.panel_qr
     with pytest.raises(ValueError):
         registry.resolve("backtransform_wy", "pallas")
 

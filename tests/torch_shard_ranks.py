@@ -304,11 +304,12 @@ def serve_ranks(inp, cases, default_steps):
 
 def dryrun_ranks(cells):
     """Each dry-run cell's step run for real on this world
-    (``launch.dryrun.count_cell``): rank 0's collective bytes and FLOPs."""
+    (``launch.dryrun.count_cell``): rank 0's collective bytes, FLOPs and
+    data-dependent loops."""
     from repro_torch.launch.dryrun import count_cell
 
     out = {}
     for name, cell in cells.items():
         rec = count_cell(cell["arch"], cell["shape"], device="cpu", **cell["kw"])
-        out[name] = dict(collectives=rec["collectives"], flops=rec["flops"])
+        out[name] = {k: rec[k] for k in ("collectives", "flops", "flops_outside_loops", "data_dependent")}
     return out
