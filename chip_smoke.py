@@ -34,12 +34,12 @@ Phases, each printing its own lines:
    beside ``torch.linalg.eigh`` / ``eigvalsh`` (cuSOLVER) and the peak
    memory.  (Its per-stage times, each stage closed by a synchronize and
    the Q2 back-transform split into the ``sweep_major_log`` regroup and
-   kernel C, come from phase 5's unfused run of the executor since PR 23.)
+   kernel C, come from phase 5's unfused run of the same executor.)
 4. ``inverse_pth_root`` at n = 1024, p = 4 on a seeded PSD matrix, against
    V diag(w^-1/4) V^T from ``torch.linalg.eigh`` in float64.
-5. The unfused first stage at n = 2048 (4096 before PR 23): ``plan(2048,
-   float32, EvdConfig(tridiag="unfused"))``'s EVD (the executor ``plan(A)`` runs,
-   its stages timed in the same run since PR 23) and ``.eigvals(A)`` against
+5. The unfused first stage at n = 4096: ``plan(4096, float32,
+   EvdConfig(tridiag="unfused"))``'s EVD (the executor ``plan(A)`` runs, its
+   stages timed in the same run) and ``.eigvals(A)`` against
    the gates of phase 3, each with the counters reset just before and read
    just after (one ``trailing_update`` launch per DBR block, kernel B once,
    one CUDA launch, for the eigvals run), and ``band_reduce(A, 8, 256,
@@ -77,11 +77,11 @@ Phases, each printing its own lines:
    Gates: finite losses, every weight moved, kernels A, B and C launched
    exactly 2 x blocks x one ``plan(128)`` solve's over the run, the step-1
    roots on 64 seeded blocks within 1e-3 of the float64 formula (beside
-   float32 ``torch.linalg.eigh``'s error on them); the refresh's stages
-   timed in step 1 (since PR 23; phase 10 repeats mamba2's step 1 bit for
-   bit).
-   Then the same 3 steps with AdamW, one side's step-1 statistics through
-   batched ``torch.linalg.eigh`` plus the root (the yardstick), the peak
+   float32 ``torch.linalg.eigh``'s error on them), and step 1
+   repeated from the same state bit for bit (its refresh's stages timed).
+   Then the same 3 steps with AdamW, ``YARDSTICK_BLOCKS`` of one side's
+   step-1 statistics through batched ``torch.linalg.eigh`` plus the root
+   (the yardstick, ms a block), the peak
    memory, and ``python -m repro_torch.launch.train --arch llama3.2-3b
    --smoke --steps 2 --optimizer shampoo`` on the card.
 9. Serving on the card through the port's entry points (``get_config``,
@@ -125,9 +125,8 @@ Phases, each printing its own lines:
    8 x 256 (two SSD chunks of 128), 3 steps, step 1 repeated bit for bit
    (1749 blocks a side); recurrentgemma-2b cut to one (rglru, rglru, attn)
    unit, batch 4 x 1024 (two RG-LRU chunks of 512, the checkpointed carry
-   run backward), 2 steps, its refresh's stages timed in the run, its MLP
-   leaves on Adam's fallback (``max_dim_for_shampoo=4096``; 3760 blocks a
-   side); kernels A, B and C launched exactly 2 x blocks x one
+   run backward), 2 steps, its refresh's stages timed in the run (14 560
+   blocks a side); kernels A, B and C launched exactly 2 x blocks x one
    ``plan(128)``'s in each.  (b) is phase 9's (d).  (c) musicgen-large and
    llava-next-mistral-7b at full width cut to 1 layer, 2 AdamW steps on
    ``synthetic_batch``'s embeddings: finite losses, ``frontend_proj``
@@ -209,21 +208,27 @@ Phases, each printing its own lines:
    inputs.  (b) The smoke Shampoo cell of tests/test_torch_dryrun.py
    (llama3.2-3b's smoke config, 1 layer, (2, 2)), ``shampoo_sharded``
    (the tests run it without too), on fake CUDA tensors against the same cell run for
-   real on phase 12's four ranks (``count_cell``): collective bytes, FLOPs
-   outside the data-dependent loops and each operator's FLOPs exactly, the
-   same loops listed, and every rank's kernels A-C launched exactly 2 x its
-   lanes x (4, 1, 1).  (c) The full-width dry-run: llama3.2-3b train_4k on
+   real on phase 12's four ranks (``count_cell``, which walks the real
+   step too): collective bytes, FLOPs and HBM bytes outside the
+   data-dependent loops and each operator's FLOPs exactly, the real step's
+   walk and ``FlopCounterMode`` equal, the same loops listed, and every
+   rank's kernels A-C launched exactly 2 x its lanes x (4, 1, 1).  (c) The full-width dry-run: llama3.2-3b train_4k on
    the 1-pod mesh with the refresh split over all 256 ranks: peak
    estimate, the state's bytes, the refresh's FLOPs by operator,
    collective bytes, roofline terms, ``trace_s``.  (d) A real one-layer
    llama3.2-3b Shampoo step (8 x 128, one process; its refresh runs
    kernels A-C on 2 x 1560 blocks of 256) against its dry-run: the peak
-   estimate over the measured peak within ``TOL_PEAK``, FLOPs outside the
-   loops and operator FLOPs exactly, launches exactly 2 x 1560 x (4, 1,
-   1).  (e) Each operator's host time a call beside its bare launcher's,
+   estimate over the measured peak within ``TOL_PEAK``, FLOPs and HBM
+   bytes outside the loops and operator FLOPs exactly, launches exactly
+   2 x 1560 x (4, 1, 1).  (e) Each operator's host time a call beside its bare launcher's,
    ``HOST_CALLS`` calls back to back behind a spin kernel, at the
    refresh's shapes (n = 128, 256).  (f) Phase 6a's refresh time, which
    runs through the operators.
+
+The launchers' CLIs of phases 8-10 and the production dry-runs of phases
+13 (b) and 14 (c) run one after another in processes of their own while
+the main process waits on phase 12's ranks (``Background``); their lines
+print, and their gates hold, once phase 12 is done.
 
 Then one JSON line with the kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -235,6 +240,7 @@ versions' and the yardsticks', runs in full float32.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import itertools
 import json
@@ -242,13 +248,12 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
 N_MAIN = 4096
-# Phase 5's unfused path (not the main path), cut from 4096 in PR 23 to
-# keep the script in its time: its plain chase and bisection scale as n^2.
-N_UNFUSED = 2048
 N_ROOT = 1024
 SEED = 0
 # One decoder layer of configs/llama32_3b.py (d_model 3072, kv 1024, d_ff
@@ -308,18 +313,14 @@ BF16_GATE_LAYERS = {"mamba2-370m": 8}
 # longer prompts (mixtral's ring wrap, the RG-LRU's chunks).
 SERVE_SHORT_PROMPT = 64
 # Phase 10 Shampoo training cuts: (arch, layers, batch, seq, steps, step 1
-# repeated bit for bit, ShampooOptions.max_dim_for_shampoo or None).
-# mamba2-370m's 4 of 48 layers over 256 positions (two SSD chunks of 128);
-# one (rglru, rglru, attn) unit of recurrentgemma-2b over 1024 (two RG-LRU
-# chunks of 512, the checkpointed carry in the backward; fewer layers leave
-# a stack of none, which the init law cannot draw).  Since PR 23, to keep
-# the script in its time, recurrentgemma-2b's leaves with a dimension above
-# 4096 (its MLP, d_ff 7680) take Adam's fallback (3760 blocks a side where
-# all of them made 14 560), and mamba2's step 1 is the script's one
-# full-width step repeated bit for bit (phase 8's no longer is).
+# repeated bit for bit).  mamba2-370m's 4 of 48 layers over 256 positions
+# (two SSD chunks of 128); one (rglru, rglru, attn) unit of
+# recurrentgemma-2b over 1024 (two RG-LRU chunks of 512, the checkpointed
+# carry in the backward; fewer layers leave a stack of none, which the init
+# law cannot draw), not repeated: its refresh is ~8x mamba2's.
 FAMILY_TRAIN_CELLS = (
-    ("mamba2-370m", 4, 8, 256, 3, True, None),
-    ("recurrentgemma-2b", 3, 4, 1024, 2, False, 4096),
+    ("mamba2-370m", 4, 8, 256, 3, True),
+    ("recurrentgemma-2b", 3, 4, 1024, 2, False),
 )
 # Phase 10 frontend cells: (arch, layers), 2 AdamW steps on embeds.
 FRONTEND_CELLS = (("musicgen-large", 1), ("llava-next-mistral-7b", 1))
@@ -425,6 +426,10 @@ SHAMPOO_SMOKE = dict(mesh_override=(2, 2), smoke=True, overrides=dict(n_layers=1
 # The card runs the cell with the refresh split over the four ranks (its
 # roots gathered); tests/test_torch_dryrun.py runs both modes.
 SMOKE_SHARDED = (True,)
+# Phase 8's yardstick: batched eigh + root on this many step-1 blocks.
+YARDSTICK_BLOCKS = 2048
+# Phase 14 (c): the full-width Shampoo dry-run (arch, shape, multi_pod).
+SHAMPOO_FULL = ("llama3.2-3b", "train_4k", False)
 HOST_SHAPES = (128, 256)
 HOST_CALLS = 20
 
@@ -967,8 +972,8 @@ def phase_main_path(torch, gen):
     require(got == want, f"main-path launches {got}, expected {want}")
     require(got_device == want_device, f"main-path CUDA launches {got_device}, expected {want_device}")
 
-    # Its stages are timed in phase 5's run (the same executor, unfused);
-    # a second fused run for them cost ~21 s (dropped in PR 23).
+    # Its stages are timed in phase 5's run (the same executor, unfused):
+    # a second fused run for them cost ~21 s.
     w_ref = check_evd(torch, "phase 3", A, w, V)
 
     out = {}
@@ -1007,7 +1012,7 @@ def phase_unfused(torch, gen):
     from repro_torch.kernels import cuda_lib
     from repro_torch.solver import EvdConfig, plan
 
-    n = N_UNFUSED
+    n = N_MAIN
     A = torch.randn((n, n), generator=gen, device="cuda")
     A = A + A.T
     pl = plan(n, torch.float32, EvdConfig(tridiag="unfused"))
@@ -1413,11 +1418,10 @@ def _train_run(torch, cfg, opt, params, batch_fn, steps: int, label: str):
 
 
 def shampoo_training(torch, phase: str, cfg, batch: int, seq: int, steps: int, repeat: bool,
-                     precond_mesh=None, max_dim=None):
+                     precond_mesh=None):
     """Shampoo training of ``cfg`` on the card through the port's entry
     points (random weights from the seed, ``shampoo(warmup_cosine(3e-4,
-    ...), ShampooOptions(precond_mesh=precond_mesh[, max_dim_for_shampoo=max_dim]))``,
-    ``make_train_step``,
+    ...), ShampooOptions(precond_mesh=precond_mesh))``, ``make_train_step``,
     ``TrainLoop``, ``synthetic_batch``), with phase 8's gates: finite
     losses, every weight moved, kernels A, B and C launched exactly 2 x
     blocks x one ``plan(128)`` solve's (with ``precond_mesh``, 2 x this
@@ -1437,8 +1441,7 @@ def shampoo_training(torch, phase: str, cfg, batch: int, seq: int, steps: int, r
     from repro_torch.train import make_train_step
     from repro_torch.tree import leaves
 
-    opts = ShampooOptions(precond_mesh=precond_mesh,
-                          **({} if max_dim is None else {"max_dim_for_shampoo": max_dim}))
+    opts = ShampooOptions(precond_mesh=precond_mesh)
     params = model_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
     _, NB = leaf_plans(params, opts)
     share = NB if precond_mesh is None else -(-NB // precond_ranks(precond_mesh))
@@ -1529,7 +1532,7 @@ def phase_training(torch, gen):
 
     cfg = dataclasses.replace(get_config("llama3.2-3b"), n_layers=TRAIN_LAYERS)
     got, got_dev, record, (params, batch_fn, sched, opts, (_, s1, _)) = shampoo_training(
-        torch, "phase 8", cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, repeat=False)
+        torch, "phase 8", cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, repeat=True)
     NB, refresh_s = record["blocks_a_side"], record["refresh_s"]
 
     # The same steps with AdamW.
@@ -1541,41 +1544,107 @@ def phase_training(torch, gen):
     print(f"phase 8 adamw losses {hist_a}; step times s {[round(t, 3) for t in ta]}: steady "
           f"{sum(ta[1:]) / len(ta[1:]) * 1e3:.1f} ms a step; peak memory {peak_a / 2**30:.2f} GiB")
 
-    # The yardstick: one side's step-1 statistics through batched float32
-    # torch.linalg.eigh (cuSOLVER) and the root formula (one side since PR
-    # 23, to keep the script in its time: both sides took 24.4 s).
+    # The yardstick: the first YARDSTICK_BLOCKS of one side's step-1
+    # statistics through batched float32 torch.linalg.eigh (cuSOLVER) and
+    # the root formula, a rate a block (a part keeps the script in its
+    # time: both sides took 24.4 s).
+    nb_lib = min(YARDSTICK_BLOCKS, NB)
+
     def library():
-        w, V = torch.linalg.eigh(s1.stats_l)
+        w, V = torch.linalg.eigh(s1.stats_l[:nb_lib])
         r = opts.eps * w.amax(-1).clamp(min=1e-30)
         (V * (w.clamp(min=0) + r[:, None]).pow(-0.25)[:, None, :]) @ V.mT
 
     lib_s = wall_ms(torch, library) / 1e3
-    print(f"phase 8 one side's step-1 statistics ({NB} blocks) through batched torch.linalg.eigh + root: "
-          f"{lib_s:.2f} s, {lib_s / NB * 1e3:.3f} ms a block, against the refresh's {refresh_s:.2f} s for both "
+    print(f"phase 8 {nb_lib} of one side's {NB} step-1 statistics through batched torch.linalg.eigh + root: "
+          f"{lib_s:.2f} s, {lib_s / nb_lib * 1e3:.3f} ms a block, against the refresh's {refresh_s:.2f} s for both "
           f"sides, {refresh_s / (2 * NB) * 1e3:.3f} ms a block")
 
-    cli_s = run_cli("phase 8", ["repro_torch.launch.train", "--arch", "llama3.2-3b", "--smoke", "--steps", "2",
-                                "--optimizer", "shampoo"], lambda lines: "on NVIDIA" in lines[-1])
-    record.update(library_one_side_s=lib_s, adamw_steady_ms=sum(ta[1:]) / len(ta[1:]) * 1e3, cli_s=cli_s)
+    record.update(library_s=lib_s, library_blocks=nb_lib, adamw_steady_ms=sum(ta[1:]) / len(ta[1:]) * 1e3)
     return got, got_dev, record
 
 
-def run_cli(phase: str, args, ok) -> float:
-    """``python -m <args>`` on the card from the checkout's ``src``: exit 0
-    and ``ok(stdout lines)``.  Returns its wall time in s."""
-    import os
+def background_jobs(out_dir: str):
+    """The jobs of :class:`Background`: ``(key, phase, argv of python -m,
+    check of the stdout lines or None)``.  The launchers' CLIs of phases
+    8-10 on the card, then the production dry-runs of phases 13 (b) and
+    14 (c) (fake CUDA tensors, records written under ``out_dir``)."""
+    def dry(arch, shape, multi_pod, *opt):
+        return ["repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                *(["--multi-pod"] if multi_pod else []), *opt, "--out", out_dir]
 
-    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
-    cmd = [sys.executable, "-m", *args]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
-    cli_s = time.perf_counter() - t0
-    lines = out.stdout.strip().splitlines()
-    print(f"{phase} `{' '.join(args)}`: exit {out.returncode} in {cli_s:.1f} s: "
-          + (" | ".join(lines[-3:]) or out.stderr[-400:]))
-    require(out.returncode == 0 and len(lines) > 0 and ok(lines), f"{phase} the launcher's CLI on the card: "
-            f"{' '.join(args)}")
-    return cli_s
+    jobs = [
+        ("train_llama", "phase 8", ["repro_torch.launch.train", "--arch", "llama3.2-3b", "--smoke", "--steps", "2",
+                                    "--optimizer", "shampoo"], lambda lines: "on NVIDIA" in lines[-1]),
+        ("serve_mixtral", "phase 9", ["repro_torch.launch.serve", "--arch", "mixtral-8x7b", "--smoke"],
+         lambda lines: len(lines) >= 3 and lines[-3].startswith("[serve] mixtral-8x7b")),
+        ("serve_mamba2", "phase 10", ["repro_torch.launch.serve", "--arch", "mamba2-370m", "--smoke"],
+         lambda lines: len(lines) >= 3 and lines[-3].startswith("[serve] mamba2-370m")),
+        ("train_recurrentgemma", "phase 10", ["repro_torch.launch.train", "--arch", "recurrentgemma-2b", "--smoke",
+                                              "--steps", "2", "--optimizer", "shampoo"],
+         lambda lines: "recurrentgemma-2b on NVIDIA" in lines[-1]),
+    ]
+    jobs += [(("dry", *cell, ""), "phase 13 (b)", dry(*cell), None) for cell in DRY_CELLS]
+    jobs.append((("dry", *SHAMPOO_FULL, "_shampoo_sharded"), "phase 14 (c)",
+                 dry(*SHAMPOO_FULL, "--optimizer", "shampoo", "--shampoo-sharded"), None))
+    return jobs
+
+
+class Background:
+    """``python -m <argv>`` of each job (:func:`background_jobs`) from the
+    checkout's ``src``, one after another in a thread of this process, each
+    in a process of its own, while the main thread waits on phase 12's
+    ranks.  None is timed against anything; their lines print when phase 12
+    is done.  A job still running when this process exits is killed."""
+
+    def __init__(self, jobs):
+        self.jobs = {key: (phase, argv, ok) for key, phase, argv, ok in jobs}
+        self.results = {}
+        self.proc = None
+        atexit.register(self.stop)
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        import os
+
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+        for key, (_, argv, _) in self.jobs.items():
+            t0 = time.perf_counter()
+            self.proc = subprocess.Popen([sys.executable, "-m", *argv], stdout=subprocess.PIPE,
+                                         stderr=subprocess.PIPE, text=True, env=env)
+            try:
+                out, err = self.proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                out, err = self.proc.communicate()
+                err = "timed out after 600 s\n" + err
+            self.results[key] = (self.proc.returncode, out.strip().splitlines(), err, time.perf_counter() - t0)
+
+    def stop(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def check(self, key) -> float:
+        """Once every job is done: the job ``key``'s line, exit 0 (and its
+        check) required; its wall time in s."""
+        self.thread.join()
+        phase, argv, ok = self.jobs[key]
+        rc, lines, err, job_s = self.results[key]
+        print(f"{phase} `python -m {' '.join(argv)}`: exit {rc} in {job_s:.1f} s (beside phase 12's ranks): "
+              + (" | ".join(lines[-3:]) or err[-400:]))
+        require(rc == 0 and len(lines) > 0 and (ok is None or ok(lines)), f"{phase} python -m {' '.join(argv)}")
+        return job_s
+
+    def record(self, key, out_dir: str):
+        """The dry-run record the job ``key`` (``("dry", arch, shape,
+        multi_pod, the file name's optimizer suffix)``) wrote under
+        ``out_dir``, its line printed (:meth:`check`)."""
+        self.check(key)
+        _, arch, shape, multi_pod, opt = key
+        with open(Path(out_dir) / f"{arch}_{shape}_{'2pod' if multi_pod else '1pod'}{opt}.json") as f:
+            return json.load(f)
 
 
 def _window(cfg):
@@ -1841,9 +1910,6 @@ def phase_serving(torch, gen):
     got = nonzero(cuda_lib.launch_counts())
     print(f"phase 9 kernel launches over the serve path: {got or 'none'}")
     require(not got, f"phase 9 launched {got}")
-
-    run_cli("phase 9", ["repro_torch.launch.serve", "--arch", "mixtral-8x7b", "--smoke"],
-            lambda lines: len(lines) >= 3 and lines[-3].startswith("[serve] mixtral-8x7b"))
     return cells
 
 
@@ -1865,10 +1931,9 @@ def phase_families(torch, gen):
     torch.cuda.empty_cache()
     launches, device_launches, records = {}, {}, {}
     # (a) Shampoo training of the two recurrent families at full width.
-    for arch, layers, batch, seq, steps, repeat, max_dim in FAMILY_TRAIN_CELLS:
+    for arch, layers, batch, seq, steps, repeat in FAMILY_TRAIN_CELLS:
         cfg = replace(get_config(arch), n_layers=layers)
-        got, got_dev, record, state = shampoo_training(torch, "phase 10", cfg, batch, seq, steps, repeat,
-                                                       max_dim=max_dim)
+        got, got_dev, record, state = shampoo_training(torch, "phase 10", cfg, batch, seq, steps, repeat)
         for total, counts in ((launches, got), (device_launches, got_dev)):
             for op, n in counts.items():
                 total[op] = total.get(op, 0) + n
@@ -1900,14 +1965,7 @@ def phase_families(torch, gen):
         del params, final
         gc.collect()
         torch.cuda.empty_cache()
-
-    # (d) Both launchers on the card.
-    records["serve_cli_s"] = run_cli(
-        "phase 10", ["repro_torch.launch.serve", "--arch", "mamba2-370m", "--smoke"],
-        lambda lines: len(lines) >= 3 and lines[-3].startswith("[serve] mamba2-370m"))
-    records["train_cli_s"] = run_cli(
-        "phase 10", ["repro_torch.launch.train", "--arch", "recurrentgemma-2b", "--smoke", "--steps", "2",
-                     "--optimizer", "shampoo"], lambda lines: "recurrentgemma-2b on NVIDIA" in lines[-1])
+    # (d), both launchers on the card, runs beside phase 12 (Background).
     return launches, device_launches, records
 
 
@@ -2713,9 +2771,10 @@ def _shampoo_rank():
     return _shampoo_counts()
 
 
-def phase_dryrun(torch, mixers, t_world: float):
+def phase_dryrun(torch, mixers, t_world: float, records=None):
     """Phase 13: (a)'s gates from the ranks' records, (b) the dry-runs of
-    the production worlds, (c) the dry-run against real steps."""
+    the production worlds (``records``: each cell's, as ``Background``
+    made it; without, run here), (c) the dry-run against real steps."""
     from repro_torch.launch.dryrun import count_cell, run_cell, summary
     from repro_torch.parallel import comm
 
@@ -2759,7 +2818,8 @@ def phase_dryrun(torch, mixers, t_world: float):
     t_b = time.perf_counter()
     out["dryrun"] = []
     for arch, shape, multi_pod in DRY_CELLS:
-        rec = run_cell(arch, shape, multi_pod=multi_pod, device="cuda", top=0, quiet=True)
+        rec = records[(arch, shape, multi_pod)] if records else run_cell(
+            arch, shape, multi_pod=multi_pod, device="cuda", top=0, quiet=True)
         require(rec["status"] == "ok" and rec["memory"]["peak_estimate_bytes"] > 0, f"phase 13 (b) {arch} {shape}")
         print(f"phase 13 (b) {summary(rec)}")
         out["dryrun"].append({k: rec[k] for k in ("arch", "shape", "mesh", "trace_s", "memory", "roofline")})
@@ -2823,9 +2883,10 @@ def _host_us(torch, calls) -> dict:
     return {k: sum(v) / len(v) for k, v in out.items()}
 
 
-def phase_operators(torch, gen, inputs, shampoo_ranks, phase6a_ms: float):
+def phase_operators(torch, gen, inputs, shampoo_ranks, phase6a_ms: float, full=None):
     """Phase 14: kernels A-E as ``repro_torch`` operators and the dry-run's
-    Shampoo option."""
+    Shampoo option (``full``: (c)'s record, as ``Background`` made it;
+    without, run here)."""
     from repro_torch.core.backtransform import sweep_major_log
     from repro_torch.core.band_reduction import band_reduce
     from repro_torch.kernels import cuda_lib, library
@@ -2864,6 +2925,8 @@ def phase_operators(torch, gen, inputs, shampoo_ranks, phase6a_ms: float):
         sites = {d["site"] for d in rec["walk"]["data_dependent"]}
         ok_coll = rec["collectives"] == real["collectives"]
         ok_flops = rec["walk"]["flops_outside_loops"] == real["flops_outside_loops"] > 0
+        ok_flops = ok_flops and real["walk_flops"] == real["flops"]
+        ok_bytes = rec["walk"]["hbm_bytes_outside_loops"] == real["hbm_bytes_outside_loops"] > 0
         ok_ops = {k: v["flops"] for k, v in rec["walk"]["operators"].items()} == real["operators"]
         ok_loops = sites == {d["site"] for d in real["data_dependent"]} == {"core/jacobi.py:jacobi_eigh",
                                                                           "core/tridiag_eig.py:_qr"}
@@ -2872,20 +2935,27 @@ def phase_operators(torch, gen, inputs, shampoo_ranks, phase6a_ms: float):
         ok_launch = all(r[sharded]["launches"] == want for r in shampoo_ranks)
         print(f"phase 14 (b) smoke Shampoo cell (llama3.2-3b smoke, 1 layer, (2, 2), sharded={sharded}): "
               f"collectives equal the real world's {ok_coll} ({rec['collectives']['total_bytes']} bytes); FLOPs "
-              f"outside the data-dependent loops {rec['walk']['flops_outside_loops']:.6e} equal {ok_flops}; "
+              f"outside the data-dependent loops {rec['walk']['flops_outside_loops']:.6e} equal {ok_flops} (the real "
+              f"step's walk and FlopCounterMode {real['walk_flops']:.6e} / {real['flops']:.6e}); HBM bytes outside "
+              f"the loops {rec['walk']['hbm_bytes_outside_loops']:.6e} equal {ok_bytes} (real "
+              f"{real['hbm_bytes_outside_loops']:.6e}; in the loops fake / real "
+              f"{rec['walk']['hbm_bytes_per_device'] - rec['walk']['hbm_bytes_outside_loops']:.6e} / "
+              f"{real['hbm_bytes'] - real['hbm_bytes_outside_loops']:.6e}); "
               f"operator FLOPs equal {ok_ops} ({real['operators']}); loops {sorted(sites)} equal {ok_loops} "
               f"(real trips {[(d['site'], d['trips']) for d in real['data_dependent']]}, fake "
               f"{[(d['site'], d['trips']) for d in rec['walk']['data_dependent']]}); every rank's launches "
               f"{[r[sharded]['launches'] for r in shampoo_ranks]} = {want}: {ok_launch}; trace {rec['trace_s']} s, "
               f"rank 0's counted step {real['s']:.1f} s")
-        require(ok_coll and ok_flops and ok_ops and ok_loops and ok_launch, f"phase 14 (b) sharded={sharded}")
+        require(ok_coll and ok_flops and ok_bytes and ok_ops and ok_loops and ok_launch,
+                f"phase 14 (b) sharded={sharded}")
         out["smoke"][str(sharded)] = dict(collectives=rec["collectives"]["total_bytes"],
                                           flops_outside_loops=rec["walk"]["flops_outside_loops"],
+                                          hbm_bytes_outside_loops=rec["walk"]["hbm_bytes_outside_loops"],
                                           operators=real["operators"], trace_s=rec["trace_s"])
 
     # (c) the full-width dry-run: llama3.2-3b train_4k, 1-pod mesh, sharded refresh.
-    rec = run_cell("llama3.2-3b", "train_4k", device="cuda", top=0, quiet=True, optimizer_name="shampoo",
-                   shampoo_sharded=True)
+    rec = full or run_cell(*SHAMPOO_FULL[:2], device="cuda", top=0, quiet=True, optimizer_name="shampoo",
+                           shampoo_sharded=True)
     require(rec["status"] == "ok", "phase 14 (c)")
     sh, rf = rec["shampoo"], rec["roofline"]
     print(f"phase 14 (c) {summary(rec)}")
@@ -2911,19 +2981,26 @@ def phase_operators(torch, gen, inputs, shampoo_ranks, phase6a_ms: float):
     launches = nonzero(cuda_lib.launch_counts())
     lanes = prec["shampoo"]["rank0_lanes_per_side"]
     ratio = prec["memory"]["peak_estimate_bytes"] / preal["peak_bytes"]
-    ok_flops = prec["walk"]["flops_outside_loops"] == preal["flops_outside_loops"]
+    ok_flops = prec["walk"]["flops_outside_loops"] == preal["flops_outside_loops"] == preal["flops"] - sum(
+        d["flops"] for d in preal["data_dependent"]) and preal["walk_flops"] == preal["flops"]
+    ok_bytes = prec["walk"]["hbm_bytes_outside_loops"] == preal["hbm_bytes_outside_loops"] > 0
     ok_ops = {k: v["flops"] for k, v in prec["walk"]["operators"].items()} == preal["operators"]
     want = {"fused_panel_update": 2 * lanes * 4, "bulge_wavefront": 2 * lanes, "backtransform_wy": 2 * lanes}
     print(f"phase 14 (d) {arch} ({layers} layer, {batch} x {seq}, one process) Shampoo step: {lanes} blocks of 256 a "
           f"side; peak estimate {prec['memory']['peak_estimate_bytes'] / 2**30:.4f} GiB over the real step's "
           f"{preal['peak_bytes'] / 2**30:.4f} GiB = {ratio:.4f} (gate {TOL_PEAK}); FLOPs outside the loops "
-          f"{prec['walk']['flops_outside_loops']:.6e} equal {ok_flops}; operator FLOPs equal {ok_ops} "
+          f"{prec['walk']['flops_outside_loops']:.6e} equal {ok_flops}; HBM bytes outside the loops "
+          f"{prec['walk']['hbm_bytes_outside_loops']:.6e} equal {ok_bytes} (in the loops fake / real "
+          f"{prec['walk']['hbm_bytes_per_device'] - prec['walk']['hbm_bytes_outside_loops']:.6e} / "
+          f"{preal['hbm_bytes'] - preal['hbm_bytes_outside_loops']:.6e}); operator FLOPs equal {ok_ops} "
           f"({preal['operators']}); loops real {[(d['site'], d['trips'], d['flops']) for d in preal['data_dependent']]} "
           f"fake {[(d['site'], d['trips'], d['flops']) for d in prec['walk']['data_dependent']]}; launches {launches} "
           f"(want {want}); counted step {t_real:.1f} s (FlopCounterMode on); trace {prec['trace_s']} s")
-    require(ok_flops and ok_ops and launches == want, "phase 14 (d) the dry-run's counts differ from the real step's")
+    require(ok_flops and ok_bytes and ok_ops and launches == want,
+            "phase 14 (d) the dry-run's counts differ from the real step's")
     require(TOL_PEAK[0] <= ratio <= TOL_PEAK[1], f"phase 14 (d) peak ratio {ratio}")
     out["real"] = dict(peak_ratio=ratio, peak_bytes=preal["peak_bytes"],
+                       hbm_bytes_outside_loops=preal["hbm_bytes_outside_loops"],
                        peak_estimate_bytes=prec["memory"]["peak_estimate_bytes"], launches=launches,
                        counted_s=t_real, operators=preal["operators"])
 
@@ -3013,19 +3090,31 @@ def main() -> int:
     t11 = time.perf_counter()
     distributed = phase_distributed(torch, shampoo["ms"])
     t12 = time.perf_counter()
+    dry_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_")
+    background = Background(background_jobs(dry_dir.name))
     sharded = phase_sharding(torch)
     mixers = sharded.pop("mixers")
     t13 = time.perf_counter()
-    dryrun = phase_dryrun(torch, mixers, sharded["start_s"])
+    training["cli_s"] = background.check("train_llama")
+    serving["cli_s"] = background.check("serve_mixtral")
+    families["serve_cli_s"] = background.check("serve_mamba2")
+    families["train_cli_s"] = background.check("train_recurrentgemma")
+    dry = {cell: background.record(("dry", *cell, ""), dry_dir.name) for cell in DRY_CELLS}
+    full = background.record(("dry", *SHAMPOO_FULL, "_shampoo_sharded"), dry_dir.name)
+    dry_dir.cleanup()
+    t_bg = time.perf_counter()
+    dryrun = phase_dryrun(torch, mixers, sharded["start_s"], dry)
     t14 = time.perf_counter()
-    operators = phase_operators(torch, gen, kernel_inputs, [m["shampoo"] for m in mixers], shampoo["ms"])
+    operators = phase_operators(torch, gen, kernel_inputs, [m["shampoo"] for m in mixers], shampoo["ms"], full)
     t_end = time.perf_counter()
+    bg_s = sum(r[-1] for r in background.results.values())
     p13_ranks = max(m["s"] for m in mixers)
     p14_ranks = max(max(r["s"] for r in m["shampoo"].values()) for m in mixers)
     print(f"phase 6 took {t7 - t6:.1f} s, phase 7 {t8 - t7:.1f} s, phase 8 {t9 - t8:.1f} s, phase 9 "
           f"{t10 - t9:.1f} s, phase 10 {t11 - t10:.1f} s, phase 11 {t12 - t11:.1f} s, phase 12 "
-          f"{t13 - t12 - p13_ranks - p14_ranks:.1f} s, phase 13 {t14 - t13 + p13_ranks:.1f} s, phase 14 "
-          f"{t_end - t14 + p14_ranks:.1f} s; the script {t_end - t_start:.1f} s in all (kernel build included)")
+          f"{t13 - t12 - p13_ranks - p14_ranks:.1f} s, phase 13 {t14 - t_bg + p13_ranks:.1f} s, phase 14 "
+          f"{t_end - t14 + p14_ranks:.1f} s, the jobs beside phase 12 {bg_s:.1f} s (the main process waited "
+          f"{t_bg - t13:.1f} s more for them); the script {t_end - t_start:.1f} s in all (kernel build included)")
 
     # Kernel D serves two registry ops (syr2k, trailing_update); its launches
     # are the sum of both counters over the unfused plan(A) run.

@@ -20,23 +20,27 @@ Python loops run, so there are no trip counts to resolve.
   indexed write (``index_copy_``, ``index_put_``, ``index_add_``,
   ``scatter_``) counts twice its source, the slice it reads and writes,
   as the HLO walk counts a ``dynamic-update-slice``.  Allocations
-  (``empty``) and collectives (``c10d``; their bytes are the collective
-  term, ``repro_torch.parallel.comm``) count none.
+  (``empty``), host reads of a value (``_local_scalar_dense``) and
+  collectives (``c10d``, and what their backend runs inside them,
+  ``trace.collective``; their bytes are the collective term,
+  ``repro_torch.parallel.comm``) count none.
 * Peak live bytes: the most bytes held at once by storages that the step's
   ops created (its inputs not included), each freed when its last tensor
   goes, saved activations included.
 * The port's own operators (``repro_torch::``, kernels A–E:
-  ``repro_torch.kernels.library``) count as aten ops do: FLOPs by their
-  registered work formula (``kernels/work.py``), bytes each input read
-  once and each output written once, a mutated input once; ``operators``
-  keeps each one's calls, FLOPs and bytes.
+  ``repro_torch.kernels.library``; ``trace.NAMESPACE``) count as aten
+  ops do: FLOPs by their registered work formula (``kernels/work.py``),
+  bytes each input read once and each output written once, a mutated
+  input once; ``operators`` keeps each one's calls, FLOPs and bytes.
 * ``data_dependent``: each loop whose trips depend on values
   (``repro_torch.backend.trace.data_dependent``), by its place in the
-  code: how often it was entered, the trips it ran and the FLOPs of the ops
-  run inside it (innermost loop only), and what it runs on fake tensors;
-  the counterpart of the JAX walk's ``unknown_trip_whiles``.  Its FLOPs
-  are part of ``flops``; ``flops_outside_loops`` is the rest, which a fake
-  step and the same step run for real count alike.
+  code: how often it was entered, the trips it ran, the FLOPs and HBM
+  bytes of the ops run inside it (innermost loop only), and what it runs
+  on fake tensors; the counterpart of the JAX walk's
+  ``unknown_trip_whiles``.  Its FLOPs and bytes are part of ``flops`` and
+  ``hbm_bytes``; ``flops_outside_loops`` and ``hbm_bytes_outside_loops``
+  are the rest, which a fake step and the same step run for real count
+  alike (``launch.dryrun.count_cell`` walks the real step too).
 * On fake tensors a loop of identical trips runs one trip
   (``trace.repeated``, ``trace.map_lanes``), counted once a trip: every
   count above is the full loop's.  Peak live bytes hold a per-lane result
@@ -54,12 +58,10 @@ from typing import Callable, Dict, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 
 from repro_torch.backend import trace
-from repro_torch.kernels import library
 
-__all__ = ["StepWalk", "LoopLog", "analyze_step"]
+__all__ = ["StepWalk", "analyze_step"]
 
 _aten = torch.ops.aten
 # Metadata queries, as FlopCounterMode skips them.
@@ -71,13 +73,40 @@ _QUERIES = {
     torch.ops.prim.layout.default,
 } - {None}
 _ALLOC = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided", "lift_fresh"}
+# A host read of a value: a scalar copied to the host, no pass over HBM.
+_HOST_READS = {"_local_scalar_dense"}
 _INDEXED_WRITES = {"index_copy", "index_copy_", "index_put", "index_put_", "_index_put_impl_", "index_add",
                    "index_add_", "scatter", "scatter_", "scatter_add", "scatter_add_", "slice_scatter",
                    "select_scatter"}
 
 
-def _tensors(tree):
-    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+def _tensors(tree, out=None):
+    """The tensors of an op's arguments or results (nested lists, tuples
+    and dicts), in order."""
+    out = [] if out is None else out
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            _tensors(x, out)
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            _tensors(x, out)
+    return out
+
+
+_DECOMPOSES: Dict = {}
+
+
+def _decomposes(func) -> bool:
+    """Whether ``func.decompose`` has a decomposition to run (cached: the
+    walk asks once an op)."""
+    d = _DECOMPOSES.get(func)
+    if d is None:
+        key = torch._C.DispatchKey.CompositeImplicitAutograd
+        d = _DECOMPOSES[func] = key in func.py_kernels or torch._C._dispatch_has_kernel_for_dispatch_key(
+            func.name(), key)
+    return d
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -93,7 +122,7 @@ def _key(t: torch.Tensor) -> int:
 
 
 def _enter_loop(loops: Dict[str, Dict], site: str, fake: str) -> None:
-    rec = loops.setdefault(site, {"site": site, "entries": 0, "trips": 0, "flops": 0, "on_fake": fake})
+    rec = loops.setdefault(site, {"site": site, "entries": 0, "trips": 0, "flops": 0, "bytes": 0, "on_fake": fake})
     rec["entries"] += 1
 
 
@@ -121,6 +150,7 @@ class StepWalk(TorchDispatchMode):
         self._mult = 1
         self._sizes: Dict[int, int] = {}
         self._holds = []
+        self._muted = 0
 
     def __enter__(self):
         if not self._depth:
@@ -162,6 +192,11 @@ class StepWalk(TorchDispatchMode):
     def loop_exit(self, site: str) -> None:
         self._open.pop()
 
+    def mute(self, d: int) -> None:
+        """Count nothing while muted (``trace.collective``: a collective's
+        own ops)."""
+        self._muted += d
+
     def _free(self, key: int) -> None:
         self._held.discard(key)
         self.live -= self._sizes.pop(key)
@@ -184,7 +219,10 @@ class StepWalk(TorchDispatchMode):
         kwargs = kwargs or {}
         if func in _QUERIES:
             return NotImplemented
-        if func._overloadpacket not in self.registry and func is not torch.ops.prim.device.default:
+        if self._muted:
+            return func(*args, **kwargs)
+        if func._overloadpacket not in self.registry and func is not torch.ops.prim.device.default \
+                and _decomposes(func):
             with self:  # an op without a formula: its decomposition, as FlopCounterMode does
                 r = func.decompose(*args, **kwargs)
                 if r is not NotImplemented:
@@ -196,14 +234,14 @@ class StepWalk(TorchDispatchMode):
         for t in outs:
             if _key(t) not in in_keys:
                 self._track(t)
-        if func.namespace not in ("aten", library.NAMESPACE):
+        if func.namespace not in ("aten", trace.NAMESPACE):
             return out
         name = func._schema.name.split("::")[-1]
         mutates = any(a.alias_info is not None and a.alias_info.is_write for a in func._schema.arguments)
         flops = 0
         if func._overloadpacket in self.registry:
             flops = int(self.registry[func._overloadpacket](*args, **kwargs, out_val=out))
-        if name in _ALLOC:
+        if name in _ALLOC or name in _HOST_READS:
             nbytes = 0
         elif name in _INDEXED_WRITES:
             nbytes = 2 * sum(_nbytes(t) for t in _tensors((args[1:], kwargs)))
@@ -221,7 +259,8 @@ class StepWalk(TorchDispatchMode):
         self.hbm_bytes += nbytes
         if self._open:
             self.loops[self._open[-1]]["flops"] += flops
-        if func.namespace == library.NAMESPACE:
+            self.loops[self._open[-1]]["bytes"] += nbytes
+        if func.namespace == trace.NAMESPACE:
             op = self.operators[name]
             op["count"] += self._mult
             op["flops"] += flops
@@ -244,6 +283,7 @@ class StepWalk(TorchDispatchMode):
             "operators": {k: dict(v) for k, v in sorted(self.operators.items())},
             "data_dependent": [dict(v) for _, v in sorted(self.loops.items())],
             "flops_outside_loops": self.flops - sum(v["flops"] for v in self.loops.values()),
+            "hbm_bytes_outside_loops": self.hbm_bytes - sum(v["bytes"] for v in self.loops.values()),
         }
         if self.top:
             items = list(self.contrib.items())
@@ -253,47 +293,12 @@ class StepWalk(TorchDispatchMode):
         return rec
 
 
-class LoopLog:
-    """The data-dependent loops of a real run counted by ``counter`` (a
-    ``FlopCounterMode``) rather than walked (``launch.dryrun.count_cell``):
-    each loop's entries, trips and the FLOPs the counter counted inside it
-    (innermost loop only), in the walk's ``data_dependent`` form."""
-
-    def __init__(self, counter):
-        self.counter = counter
-        self.loops: Dict[str, Dict] = {}
-        self._open = []
-
-    def __enter__(self):
-        trace.listeners.append(self)
-        return self
-
-    def __exit__(self, *exc):
-        trace.listeners.remove(self)
-
-    def loop_enter(self, site: str, fake: str) -> None:
-        _enter_loop(self.loops, site, fake)
-        self._open.append([site, self.counter.get_total_flops(), 0])
-
-    def loop_trip(self, site: str) -> None:
-        self.loops[site]["trips"] += 1
-
-    def loop_exit(self, site: str) -> None:
-        _, start, inner = self._open.pop()
-        total = self.counter.get_total_flops() - start
-        self.loops[site]["flops"] += total - inner
-        if self._open:
-            self._open[-1][2] += total
-
-    def record(self):
-        return [dict(v) for _, v in sorted(self.loops.items())]
-
-
 def analyze_step(fn: Callable, *args, top: int = 0) -> Tuple[object, Dict]:
     """``(fn(*args), record)``: ``fn`` run under a :class:`StepWalk`
     (``record``: ``flops``, ``hbm_bytes``, ``peak_live_bytes``, ``ops``,
-    ``operators``, ``data_dependent``, ``flops_outside_loops`` and, with
-    ``top``, ``top_bytes`` / ``top_flops``).  Run it inside a
+    ``operators``, ``data_dependent``, ``flops_outside_loops``,
+    ``hbm_bytes_outside_loops`` and, with ``top``, ``top_bytes`` /
+    ``top_flops``).  Run it inside a
     ``FakeTensorMode`` on fake inputs to count without computing."""
     walk = StepWalk(top)
     with walk:

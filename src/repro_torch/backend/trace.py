@@ -3,22 +3,33 @@
 The dry-run runs steps on ``FakeTensorMode`` tensors (shapes, dtypes and
 devices, no values).  Three places on Shampoo's refresh path read a value
 on the host: the refresh branch on the step, the Jacobi sweeps' early exit,
-and the CUDA QR re-factor's choice of matrices.  Each asks :func:`is_fake`,
-and nothing else branches on fakeness, so a real run is bitwise what it
-was.  A loop whose trip count depends on values runs inside
-:func:`data_dependent`, which tells every walk in progress
-(``repro_torch.analysis.walk.StepWalk``) where its trips and their FLOPs
-went: the counterpart of the JAX walk's ``unknown_trip_whiles``.
+and the CUDA QR re-factor's choice of matrices.  Each asks :func:`is_fake`
+for the path it takes on fake tensors.  A loop whose trip count depends on
+values runs inside :func:`data_dependent`, which tells every walk in
+progress (``repro_torch.analysis.walk.StepWalk``) where its trips, their
+FLOPs and their bytes went: the counterpart of the JAX walk's
+``unknown_trip_whiles``.
 
 A fake tensor op costs the host ~0.3 ms, and the refresh's plain stages are
 Python loops of tiny ops (48 bisection steps over every row, the Jacobi
-rounds): ~0.4 M ops a bucket.  A loop whose trips all run the same ops on
-tensors of the same shapes runs one trip on fake tensors, which every walk
-counts as many times as the loop has trips (:func:`repeated`), as the JAX
-walk multiplies a while loop's body by its trip count; the same holds for
-a bucket's per-matrix calls (:func:`map_lanes`), whose one result stands
-for every lane and is held once a lane.  On real tensors both run every
-trip.
+rounds, the plain chase's wavefronts and back-transform's sweeps): ~0.4 M
+ops a bucket.  A loop whose trips all run the same ops on tensors of the
+same shapes runs one trip on fake tensors, which every walk counts as many
+times as the loop has trips (:func:`repeated`), as the JAX walk multiplies
+a while loop's body by its trip count; the same holds for a bucket's
+per-matrix calls (:func:`map_lanes`), whose one result stands for every
+lane and is held once a lane.  These two also branch on :func:`is_fake`:
+on real tensors they run every trip, so a real run is bitwise what it was,
+and a fake run counts what running every trip counts
+(tests/test_torch_library.py holds the two against each other).
+
+A collective (``repro_torch.parallel.comm``) runs inside
+:func:`collective`: what its backend does to the step's tensors (gloo
+copies a reduce-scatter's result into place; NCCL runs no op) is the
+collective's, which the walk counts in the collective term, not as ops.
+
+``NAMESPACE`` is the namespace of the port's operators (kernels A-E,
+``repro_torch.kernels.library``), which the walk counts.
 """
 from __future__ import annotations
 
@@ -27,7 +38,9 @@ from typing import Callable, Iterable, Iterator, List
 
 import torch
 
-__all__ = ["is_fake", "data_dependent", "Loop", "repeated", "map_lanes"]
+__all__ = ["NAMESPACE", "is_fake", "data_dependent", "Loop", "repeated", "map_lanes", "collective"]
+
+NAMESPACE = "repro_torch"
 
 # The walks in progress (analysis.walk.StepWalk), innermost last.
 listeners: List = []
@@ -99,3 +112,16 @@ def map_lanes(fn: Callable, items: Iterable, like: torch.Tensor) -> list:
         for walk in listeners:
             walk.unscale(k, hold=True)
     return [out] * k
+
+
+@contextlib.contextmanager
+def collective() -> Iterator[None]:
+    """A collective in progress: every walk in progress counts none of the
+    ops run inside it."""
+    for walk in listeners:
+        walk.mute(1)
+    try:
+        yield
+    finally:
+        for walk in listeners:
+            walk.mute(-1)

@@ -28,6 +28,8 @@ from __future__ import annotations
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.backend.trace import NAMESPACE
+
 from . import work
 from .backtransform import backtransform_wy_cuda
 from .bulge import bulge_wavefront_cuda
@@ -47,7 +49,6 @@ __all__ = [
     "panel_qr",
 ]
 
-NAMESPACE = "repro_torch"
 _lib = torch.library.Library(NAMESPACE, "DEF")
 
 

@@ -350,6 +350,7 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False, overrides=None, 
             "operators": walk["operators"],
             "data_dependent": walk["data_dependent"],
             "flops_outside_loops": float(walk["flops_outside_loops"]),
+            "hbm_bytes_outside_loops": float(walk["hbm_bytes_outside_loops"]),
         },
     }
     if optimizer_name == "shampoo" and info["kind"] == "train":
@@ -364,24 +365,27 @@ def count_cell(arch: str, shape: str, *, mesh_override, device=None, optimizer_n
                shampoo_sharded: bool = False, timed: bool = True, **kw) -> Dict:
     """The cell's step run for real by this rank of the initialized world
     (every rank calls it with the same arguments; the mesh's size is the
-    world's), twice: the first run under ``FlopCounterMode`` gives
-    ``collectives`` (``analysis.collective_bytes``), ``flops``,
-    ``operators`` (the FLOPs of each ``repro_torch`` operator),
-    ``data_dependent`` (``analysis.walk.LoopLog``: the loops whose trips
-    depend on values, with the FLOPs counted inside them) and
-    ``flops_outside_loops``, the second ``step_s`` (without ``timed``, no
-    second run).  On CUDA ``peak_bytes`` is the inputs' bytes plus the most
-    ``torch.cuda.max_memory_allocated`` rose over what was held before the
-    last run.  A dry-run record of the same cell holds its rank 0's counts
-    against these.  ``optimizer_name`` / ``shampoo_sharded`` and ``kw`` as
-    :func:`run_cell`'s."""
+    world's), twice: the first run under ``FlopCounterMode`` and the walk
+    (``analysis.walk.StepWalk``, on real tensors) gives ``collectives``
+    (``analysis.collective_bytes``), ``flops`` and ``operators`` (the
+    FLOPs of each ``repro_torch`` operator) as ``FlopCounterMode`` counts
+    them, and from the walk ``walk_flops``, ``hbm_bytes``,
+    ``data_dependent`` (the loops whose trips depend on values, with the
+    FLOPs and bytes counted inside them), ``flops_outside_loops`` and
+    ``hbm_bytes_outside_loops``; the second ``step_s`` (without ``timed``,
+    no second run).  On CUDA ``peak_bytes`` is the inputs' bytes plus the
+    most ``torch.cuda.max_memory_allocated`` rose over what was held before
+    the last run.  A dry-run record of the same cell holds its rank 0's
+    counts against these.  ``optimizer_name`` / ``shampoo_sharded`` and
+    ``kw`` as :func:`run_cell`'s."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.analysis import collective_bytes
-    from repro_torch.analysis.walk import LoopLog
+    from repro_torch.analysis.walk import StepWalk
     from repro_torch.backend.probe import resolve_device
-    from repro_torch.kernels.library import NAMESPACE
+    from repro_torch.backend.trace import NAMESPACE
+    from repro_torch.kernels import library  # noqa: F401  (the operators' formulas, before FlopCounterMode copies them)
     from repro_torch.parallel import comm
 
     dev = resolve_device(device)
@@ -403,16 +407,18 @@ def count_cell(arch: str, shape: str, *, mesh_override, device=None, optimizer_n
 
     comm.reset_traffic()
     before = held()
-    with FlopCounterMode(display=False) as fc, LoopLog(fc) as loops:
+    with FlopCounterMode(display=False) as fc, StepWalk() as walk:
         out = fn(*args)
     colls = collective_bytes()
     comm.reset_traffic()
     del out
-    flops, dd = fc.get_total_flops(), loops.record()
+    w = walk.record()
     ops = {str(k).split(".")[-1]: v for k, v in fc.get_flop_counts()["Global"].items()
            if str(k).startswith(NAMESPACE + ".")}
-    rec = {"collectives": colls, "flops": float(flops), "operators": ops, "data_dependent": dd,
-           "flops_outside_loops": float(flops - sum(d["flops"] for d in dd))}
+    rec = {"collectives": colls, "flops": float(fc.get_total_flops()), "operators": ops,
+           "walk_flops": float(w["flops"]), "hbm_bytes": float(w["hbm_bytes"]),
+           "data_dependent": w["data_dependent"], "flops_outside_loops": float(w["flops_outside_loops"]),
+           "hbm_bytes_outside_loops": float(w["hbm_bytes_outside_loops"])}
     if not timed:
         peak(before)
         return rec

@@ -64,6 +64,8 @@ import torch
 import torch.distributed as dist
 from torch.utils._python_dispatch import _disable_current_modes
 
+from repro_torch.backend import trace
+
 __all__ = [
     "axes_group",
     "all_gather_rows",
@@ -152,7 +154,8 @@ def all_gather_rows(x: torch.Tensor, group, tag: str = "rows") -> torch.Tensor:
     x = x.detach().contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     _count(tag, x, "all_gather", group)
-    dist.all_gather(parts, x, group=group)
+    with trace.collective():
+        dist.all_gather(parts, x, group=group)
     return torch.cat(parts)
 
 
@@ -160,7 +163,8 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of every rank's ``x`` over ``group``, as a new tensor (the
     same bits on every rank)."""
     out = x.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    with trace.collective():
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
 
 
@@ -229,7 +233,8 @@ def _sum(x: torch.Tensor, group, tag: str) -> torch.Tensor:
     ``x``'s dtype."""
     out = x.detach().to(_wide(x), memory_format=torch.contiguous_format, copy=True)
     _count(tag, out, "all_reduce", group)
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    with trace.collective():
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out.to(x.dtype)
 
 
@@ -246,7 +251,8 @@ def _gather(x: torch.Tensor, dim: int, group, k: int, length, tag: str) -> torch
     src = src.contiguous()
     out = src.new_empty((k * c,) + tuple(src.shape[1:]))
     _count(tag, src, "all_gather", group)
-    dist.all_gather_into_tensor(out, src, group=group)
+    with trace.collective():
+        dist.all_gather_into_tensor(out, src, group=group)
     # Contiguous, as a concatenation is: a permuted weight would send its
     # products to other GEMM kernels, which round bf16 otherwise.
     out = out.movedim(0, dim).contiguous()
@@ -270,7 +276,8 @@ def _reduce_scatter(x: torch.Tensor, dim: int, group, k: int, index: int, tag: s
     src = src.contiguous()
     out = src.new_empty((c,) + tuple(src.shape[1:]))
     _count(tag, src, "reduce_scatter", group)
-    dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group)
+    with trace.collective():
+        dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group)
     lo, hi = chunk_bounds(n, k, index)
     return out[:hi - lo].movedim(0, dim).to(x.dtype).contiguous()
 
@@ -382,7 +389,8 @@ def all_reduce_max(x: torch.Tensor, mesh, axes: Axes, *, tag: str = "act") -> to
     out = x.detach().to(_wide(x), memory_format=torch.contiguous_format, copy=True)
     group = _grp(mesh, axes)[0]
     _count(tag, out, "all_reduce_max", group)
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    with trace.collective():
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out.to(x.dtype)
 
 

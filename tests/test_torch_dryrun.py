@@ -21,21 +21,26 @@ as tests/test_torch_sharding.py runs its world:
   prefill): the fake world's per-kind collective bytes equal exactly, and
   its walked FLOPs equal exactly ``FlopCounterMode``'s, those of rank 0 of
   a real world of four gloo ranks running the same cell
-  (``count_cell``);
+  (``count_cell``), and so do its walked HBM bytes, the real step's walk
+  (``FlopCounterMode`` and the walk agree exactly on the real step);
 * the Shampoo option (``optimizer_name="shampoo"``) on llama3.2-3b's smoke
   config cut to 1 layer (11 blocks of 256 a side), with and without
   ``shampoo_sharded``, in the same comparison with the real world: the
   collective bytes equal exactly (the sharded refresh gathers rank 0's
   roots, 2 sides x its lanes x 256 x 256 x 4 bytes more), and so do the
-  FLOPs outside the data-dependent loops, which both list (the real run's
-  Rayleigh-Ritz Jacobi stops early, the fake one runs its 8 sweeps);
+  FLOPs and HBM bytes outside the data-dependent loops, which both list
+  (the real run's Rayleigh-Ritz Jacobi stops early, the fake one runs its
+  8 sweeps);
 * the Shampoo option on the reduced cell (mamba2-370m cut to 1 layer,
   train_4k, (2, 4)) against JAX's ``run_cell(optimizer_name="shampoo")``
-  (replicated statistics: JAX cannot split 143 blocks over 8 devices):
+  (replicated statistics: its 143 blocks do not split over 8 devices):
   equal mesh, ``model_flops_per_device`` and statistics' shape, and
   argument bytes that differ exactly by what the port keeps whole (``mu``
   and ``nu`` whole on every rank, against JAX's, which mirror the
-  parameters' shardings);
+  parameters' shardings); and with ``shampoo_sharded`` on llama3.2-3b cut
+  to 1 layer (1560 blocks, 195 a device), against a second JAX subprocess
+  run in parallel: the same, the statistics and roots whole on every rank
+  against JAX's 1/8 of them (``P(("data", "model"), None, None)``);
 * ``long_500k`` on llama is skipped with JAX's reason; full-size
   llama3.2-3b train_4k with Shampoo traces (one lane a side on fake
   tensors) with its ``shampoo`` record; an unknown optimizer raises
@@ -61,6 +66,7 @@ from repro_torch.parallel import run_ranks  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REDUCED = dict(arch="mamba2-370m", shape="decode_32k", mesh=(2, 4), overrides={"n_layers": 2})
 SHAMPOO_REDUCED = dict(arch="mamba2-370m", shape="train_4k", mesh=(2, 4), overrides={"n_layers": 1})
+SHAMPOO_SHARDED = dict(arch="llama3.2-3b", shape="train_4k", mesh=(2, 4), overrides={"n_layers": 1})
 _SHAMPOO_SMOKE = dict(mesh_override=(2, 2), smoke=True, overrides=dict(n_layers=1),
                       shape_overrides=dict(batch=4, seq=32), optimizer_name="shampoo")
 CELLS = {
@@ -92,6 +98,10 @@ for name, cell in cells.items():
 sr = json.loads(sys.argv[4])
 out["shampoo_reduced"] = dr.run_cell(sr["arch"], sr["shape"], mesh_override=tuple(sr["mesh"]),
                                      overrides=sr["overrides"], optimizer_name="shampoo", device="cpu")
+ss = json.loads(sys.argv[5])
+out["shampoo_sharded"] = dr.run_cell(ss["arch"], ss["shape"], mesh_override=tuple(ss["mesh"]),
+                                     overrides=ss["overrides"], optimizer_name="shampoo", shampoo_sharded=True,
+                                     device="cpu", top=0)
 out["shampoo"] = dr.run_cell("llama3.2-3b", "train_4k", optimizer_name="shampoo", device="cpu", top=0)
 try:
     dr.run_cell("llama3.2-3b", "train_4k", optimizer_name="sgd", device="cpu")
@@ -140,6 +150,28 @@ print(json.dumps({"reduced": {k: rec[k] for k in ("mesh", "memory", "walk", "roo
                   "stats_shape": list(specs["opt_state"].stats_l.shape)}))
 """
 
+JAX_SHARDED_SIDE = r"""
+import os, json, sys
+os.environ["REPRO_DRYRUN_XLA"] = "--xla_force_host_platform_device_count=8"
+import repro.launch.dryrun as dr
+
+ss = json.loads(sys.argv[1])
+rec = dr.run_cell(ss["arch"], ss["shape"], mesh_override=tuple(ss["mesh"]), overrides=ss["overrides"],
+                  optimizer_name="shampoo", shampoo_sharded=True)
+import dataclasses
+from repro.configs import get_config
+from repro.launch.specs import input_specs
+from repro.optim import ShampooOptions, shampoo
+from repro.solver import EvdConfig
+
+opt = shampoo(3e-4, opts=ShampooOptions(block_size=256, update_interval=20, evd=EvdConfig(b=8, nb=64)))
+cfg = dataclasses.replace(get_config(ss["arch"]), **ss["overrides"])
+specs = input_specs(ss["arch"], ss["shape"], optimizer=opt, model_axis=ss["mesh"][-1], cfg=cfg)
+print("JAX_SHARDED_SIDE_OK")
+print(json.dumps({"shampoo": {k: rec[k] for k in ("status", "mesh", "memory", "roofline")},
+                  "stats_shape": list(specs["opt_state"].stats_l.shape)}))
+"""
+
 
 def _last_json(stdout):
     return json.loads(stdout.strip().splitlines()[-1])
@@ -171,8 +203,12 @@ def _runs(tmp_path_factory):
         "jax": subprocess.Popen([sys.executable, "-c", textwrap.dedent(JAX_SIDE), json.dumps(REDUCED),
                                  json.dumps(SHAMPOO_REDUCED)],
                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env),
+        "jax_sharded": subprocess.Popen([sys.executable, "-c", textwrap.dedent(JAX_SHARDED_SIDE),
+                                         json.dumps(SHAMPOO_SHARDED)],
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env),
         "port": subprocess.Popen([sys.executable, "-c", textwrap.dedent(PORT_SIDE), json.dumps(REDUCED),
-                                  json.dumps(CELLS), str(tmp), json.dumps(SHAMPOO_REDUCED)],
+                                  json.dumps(CELLS), str(tmp), json.dumps(SHAMPOO_REDUCED),
+                                  json.dumps(SHAMPOO_SHARDED)],
                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env),
     }
     out = {}
@@ -220,8 +256,11 @@ def test_fake_world_counts_equal_a_real_world(runs, name):
     loops = {d["site"] for d in rec["walk"]["data_dependent"]}
     assert loops == {d["site"] for d in real["data_dependent"]}, name
     assert rec["walk"]["flops_outside_loops"] == real["flops_outside_loops"] > 0, name
+    assert rec["walk"]["hbm_bytes_outside_loops"] == real["hbm_bytes_outside_loops"] > 0, name
+    assert real["walk_flops"] == real["flops"], name  # the walk and FlopCounterMode on the real step
     if not loops:
         assert rec["walk"]["flops_per_device"] == real["flops"], name
+        assert rec["walk"]["hbm_bytes_per_device"] == real["hbm_bytes"], name
     else:  # Shampoo: the Rayleigh-Ritz Jacobi of each side, on fake tensors at its bound
         assert CELLS[name]["kw"].get("optimizer_name") == "shampoo"
         assert loops == {"core/jacobi.py:jacobi_eigh"}
@@ -255,6 +294,24 @@ def test_shampoo_reduced_cell_against_jax(runs):
     state, by_input = got["shampoo"]["state_bytes"], got["argument_bytes_by_input"]
     kept_whole = state["mu"] + state["nu"] - 2 * by_input["params"]
     assert kept_whole > 0
+    assert got["memory"]["argument_bytes"] - want["memory"]["argument_bytes"] == kept_whole
+
+
+def test_shampoo_sharded_cell_against_jax(runs):
+    got, want = runs["port"]["shampoo_sharded"], runs["jax_sharded"]["shampoo"]
+    assert got["status"] == want["status"] == "ok"
+    assert got["mesh"] == want["mesh"] == {"data": 2, "model": 4}
+    assert got["roofline"]["model_flops_per_device"] == want["roofline"]["model_flops_per_device"]
+    sh = got["shampoo"]
+    assert [sh["blocks_per_side"], 256, 256] == runs["jax_sharded"]["stats_shape"] == [1560, 256, 256]
+    assert sh["sharded"] and (sh["refresh_ranks"], sh["rank0_lanes_per_side"]) == (8, 195)
+    # The port keeps mu and nu whole, and the statistics and roots whole, on
+    # every rank; JAX's mu and nu mirror the parameters' shardings and its
+    # statistics and roots are split over the 8 devices.
+    state, by_input = sh["state_bytes"], got["argument_bytes_by_input"]
+    stacks = sum(state[k] for k in ("stats_l", "stats_r", "pre_l", "pre_r"))
+    kept_whole = state["mu"] + state["nu"] - 2 * by_input["params"] + stacks - stacks // 8
+    assert stacks == 4 * 1560 * 256 * 256 * 4 and kept_whole > stacks // 2
     assert got["memory"]["argument_bytes"] - want["memory"]["argument_bytes"] == kept_whole
 
 

@@ -23,7 +23,15 @@ and their work formulas (``repro_torch.kernels.work``), on the CPU.
   128, on fake CUDA tensors (``tests/torch_fake_cuda.py``: the device probe
   and Python indexing, a test seam) calls 2 A + 1 B + 1 C a matrix and
   lists its data-dependent loops.
+* On fake tensors a loop of identical trips runs one trip counted once a
+  trip (``trace.repeated`` / ``trace.map_lanes``): a refresh of 2 matrices
+  of 16, on fake CPU tensors (the plain chase, back-transform, bisection,
+  inverse iteration and Jacobi) and on fake CUDA tensors (the operators),
+  counts exactly what the same refresh counts with every trip and every
+  lane run: FLOPs, HBM bytes, peak live bytes, ops and the loops.
 """
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -260,3 +268,42 @@ def test_refresh_on_fake_cuda_calls_the_operators():
     assert set(loops) == {"core/jacobi.py:jacobi_eigh", "core/tridiag_eig.py:_qr"}
     assert loops["core/jacobi.py:jacobi_eigh"]["trips"] == 8  # _RITZ_SWEEPS, every matrix
     assert loops["core/tridiag_eig.py:_qr"]["trips"] == 0
+
+
+@contextlib.contextmanager
+def _every_trip(n, like):
+    yield range(n)
+
+
+def _every_lane(fn, items, like):
+    return [fn(x) for x in items]
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_compressed_loops_count_every_trip(monkeypatch, device):
+    import repro_torch.core.backtransform as bt
+    import repro_torch.core.bulge_chasing as bc
+    import repro_torch.core.jacobi as jc
+    import repro_torch.core.tridiag_eig as te
+    import repro_torch.solver.plan as pl
+    from repro_torch.solver import EvdConfig, solve_many
+
+    def refresh():
+        seams = (torch_fake_cuda.card_probe(), FakeTensorMode(), torch_fake_cuda.FakeCudaIndexing()) \
+            if device == "cuda" else (FakeTensorMode(),)
+        with contextlib.ExitStack() as stack:
+            for seam in seams:
+                stack.enter_context(seam)
+            x = torch.empty((2, 16, 16), device=device)
+            kw = {"device": "cpu"} if device == "cpu" else {}
+            return analyze_step(lambda: solve_many(x, EvdConfig(b=4, nb=8), op="inverse_pth_root", **kw))[1]
+
+    compressed = refresh()
+    for mod in (te, bc, jc, bt, pl):
+        for name, every in (("repeated", _every_trip), ("map_lanes", _every_lane)):
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, every)
+    full = refresh()
+    keys = ("flops", "hbm_bytes", "peak_live_bytes", "ops", "operators", "data_dependent")
+    assert {k: compressed[k] for k in keys} == {k: full[k] for k in keys}
+    assert compressed["flops"] > 0 and compressed["data_dependent"][0]["trips"] == 8

@@ -311,5 +311,6 @@ def dryrun_ranks(cells):
     out = {}
     for name, cell in cells.items():
         rec = count_cell(cell["arch"], cell["shape"], device="cpu", **cell["kw"])
-        out[name] = {k: rec[k] for k in ("collectives", "flops", "flops_outside_loops", "data_dependent")}
+        out[name] = {k: rec[k] for k in ("collectives", "flops", "walk_flops", "flops_outside_loops", "hbm_bytes",
+                                        "hbm_bytes_outside_loops", "data_dependent")}
     return out
