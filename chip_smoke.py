@@ -52,8 +52,11 @@ Phases, each printing its own lines:
    llama3.2-3b gives under ``ShampooOptions()``, seeded PSD G Gᵀ/256 +
    1e-3 I through ``solve_many(..., EvdConfig(b=8, nb=64),
    op="inverse_pth_root", p=4)``, against the float64 ``torch.linalg.eigh``
-   formula; kernels A, B and C must launch exactly 1536 x one
-   ``plan(128)`` solve's calls.  Its wall time beside batched
+   formula; kernels A, B and C must launch exactly one ``plan(128)``
+   solve's calls for the bucket (each kernel takes the bucket as a grid
+   axis, as ``jax.vmap`` gives each Pallas kernel one; a bucket over
+   ``kernels.limits.bucket_chunk`` would take one solve's a chunk).  Its
+   wall time beside batched
    ``torch.linalg.eigh`` plus the root formula, the peak memory, the stage
    times of an eigh run of the same bucket beside the kernels' device
    time, kernel A and ``plan(128)`` bitwise repeatable, and its first 8
@@ -61,7 +64,14 @@ Phases, each printing its own lines:
    (b) Heterogeneous stacks (n = 128, 96, 127) with exact buckets (n = 127
    runs ``method="direct"``) and padded into one bucket of 128, every leaf
    through phase 3's gates.  (c) A medium bucket, (8, 1024, 1024), beside
-   batched ``torch.linalg.eigh``.
+   batched ``torch.linalg.eigh``.  (d) Each batched kernel on a bucket of
+   64 blocks of 128 (A over a solve's DBR blocks; B with and without its
+   log, on random bands and on A's; C; D in float32 and bf16) bitwise
+   equal to one launch a matrix and held against its batched plain
+   version (B by T's eigenvalues); B's T no farther from a float64 chase
+   than twice the plain float32 chase's T (median and 99th percentile of
+   1536 Shampoo and 1536 random bands); then A's, B's and C's device time
+   a block at buckets of 1, 64 and 1536.
 7. The other methods on the card (plain torch): ``plan(1021)`` (odd n, the
    direct method), ``method="jacobi"`` at n = 512, ``chase="sequential",
    backtransform="scan"`` at n = 256, and the ``repro_torch.core``
@@ -75,7 +85,7 @@ Phases, each printing its own lines:
    ``synthetic_batch`` (batch 8 x 128), 3 steps; step 1 refreshes the
    preconditioners, two ``solve_many`` buckets of every block of 128.
    Gates: finite losses, every weight moved, kernels A, B and C launched
-   exactly 2 x blocks x one ``plan(128)`` solve's over the run, the step-1
+   exactly 2 buckets x one ``plan(128)`` solve's over the run, the step-1
    roots on 64 seeded blocks within 1e-3 of the float64 formula (beside
    float32 ``torch.linalg.eigh``'s error on them), and step 1
    repeated from the same state bit for bit (its refresh's stages timed).
@@ -126,7 +136,7 @@ Phases, each printing its own lines:
    (1749 blocks a side); recurrentgemma-2b cut to one (rglru, rglru, attn)
    unit, batch 4 x 1024 (two RG-LRU chunks of 512, the checkpointed carry
    run backward), 2 steps, its refresh's stages timed in the run (14 560
-   blocks a side); kernels A, B and C launched exactly 2 x blocks x one
+   blocks a side); kernels A, B and C launched exactly 2 buckets x one
    ``plan(128)``'s in each.  (b) is phase 9's (d).  (c) musicgen-large and
    llava-next-mistral-7b at full width cut to 1 layer, 2 AdamW steps on
    ``synthetic_batch``'s embeddings: finite losses, ``frontend_proj``
@@ -146,12 +156,12 @@ Phases, each printing its own lines:
    ``solve_many(..., op="inverse_pth_root", devices=make_local_mesh())``
    on phase 6a's synthetic statistics at 1538 blocks (385 a rank, two
    identity lanes): roots on 64 seeded blocks within 1e-3 of float64,
-   kernels A, B and C launched exactly 385 x one ``plan(128)`` solve's on
-   each rank, an eigh run's eigenvalues within 3e-4 of the one-process
+   kernels A, B and C launched exactly one ``plan(128)`` solve's (for its
+   bucket of 385) on each rank, an eigh run's eigenvalues within 3e-4 of the one-process
    bucket's, beside phase 6a's time.  (c) Shampoo with ``precond_mesh=
    (make_local_mesh(), ("data", "model"))`` on phase 10's mamba2-370m cell
    (4 layers, 8 x 256, 2 steps) with phase 8's gates per rank (A, B and C
-   launched 2 x ceil(1749 / 4) x one solve's), step-1 and steady times and
+   launched 2 buckets of ceil(1749 / 4) x one solve's), step-1 and steady times and
    each rank's peak memory.  (d) ``compressed_psum`` of a replicated (16,
    64) input and of one input a rank: every entry within 1e-6 (relative)
    of the int8 algorithm's value computed in plain PyTorch from every
@@ -179,8 +189,8 @@ Phases, each printing its own lines:
    one-process loss's change under a one-ulp
    move of the embedding;
    kernels A-E launched no time in the AdamW steps; in (d) each rank's
-   A, B and C launches exactly 2 x ceil(blocks / 4) x one ``plan(128)``
-   solve's and its roots within 1e-3 of float64.  Prints each rank's step
+   A, B and C launches exactly 2 buckets (of ceil(blocks / 4)) x one
+   ``plan(128)`` solve's and its roots within 1e-3 of float64.  Prints each rank's step
    ms and peak memory, the bytes a step moved (parameter gathers, gradient
    sums, activations) and whether gloo sums bfloat16 CUDA tensors.
 13. Tensor parallelism of the mixers, sharded serving and the dry-run.
@@ -212,7 +222,8 @@ Phases, each printing its own lines:
    step too): collective bytes, FLOPs and HBM bytes outside the
    data-dependent loops and each operator's FLOPs exactly, the real step's
    walk and ``FlopCounterMode`` equal, the same loops listed, and every
-   rank's kernels A-C launched exactly 2 x its lanes x (4, 1, 1).  (c) The full-width dry-run: llama3.2-3b train_4k on
+   rank's kernels A-C launched exactly (4, 1, 1) a side's bucket of its
+   lanes.  (c) The full-width dry-run: llama3.2-3b train_4k on
    the 1-pod mesh with the refresh split over all 256 ranks: peak
    estimate, the state's bytes, the refresh's FLOPs by operator,
    collective bytes, roofline terms, ``trace_s``.  (d) A real one-layer
@@ -220,7 +231,7 @@ Phases, each printing its own lines:
    kernels A-C on 2 x 1560 blocks of 256) against its dry-run: the peak
    estimate over the measured peak within ``TOL_PEAK``, FLOPs and HBM
    bytes outside the loops and operator FLOPs exactly, launches exactly
-   2 x 1560 x (4, 1, 1).  (e) Each operator's host time a call beside its bare launcher's,
+   (4, 1, 1) a side's bucket of 1560.  (e) Each operator's host time a call beside its bare launcher's,
    ``HOST_CALLS`` calls back to back behind a spin kernel, at the
    refresh's shapes (n = 128, 256).  (f) Phase 6a's refresh time, which
    runs through the operators.
@@ -262,6 +273,9 @@ SEED = 0
 SHAMPOO_BLOCKS = {"wq": 576, "wo": 576, "wk": 192, "wv": 192, "gate": 1536, "up": 1536, "down": 1536}
 # Phase 6a runs a quarter of that layer (phase 8 refreshes a whole layer).
 SHAMPOO_6A_BLOCKS = 1536
+# Phase 6d: the bucket the batched kernels are held against one launch a
+# matrix on.
+BUCKET_KERNELS = 64
 N_BLOCK = 128
 # Phase 8: llama3.2-3b at full width with its depth cut to 1 layer (so
 # that the script, phase 9 included, stays near half its time limit), the
@@ -431,6 +445,8 @@ YARDSTICK_BLOCKS = 2048
 # Phase 14 (c): the full-width Shampoo dry-run (arch, shape, multi_pod).
 SHAMPOO_FULL = ("llama3.2-3b", "train_4k", False)
 HOST_SHAPES = (128, 256)
+# Kernel calls of one solve of a Shampoo block of 256 (4 DBR blocks).
+SOLVE_256 = {"fused_panel_update": 4, "bulge_wavefront": 1, "backtransform_wy": 1}
 HOST_CALLS = 20
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, the
@@ -451,6 +467,11 @@ SPIN_CYCLES = 50_000_000  # ~25 ms at the H100's ~2 GHz clock
 # reduction length.
 TOL_A = 1e-5 * max(8.0, N_MAIN ** 0.5)
 TOL_B = 5e-4  # ~3n/b dependent window updates per entry in fp32
+# Phase 6d holds kernel B's T at n = 128 against a float64 chase: at most
+# this multiple of the plain float32 chase's distance from it, at the
+# median band and the 99th percentile (the largest band's distance is a
+# coin toss between the two: printed, not gated).
+B_F64_RATIO = 2.0
 TOL_C = 1e-5 * max(8.0, N_MAIN ** 0.5)
 # Kernels D and E: the JAX package's own kernel tolerances
 # (tests/test_kernels.py): 2e-5 max|ref| for syr2k, and 5e-5 max(|ref|, 1)
@@ -1113,6 +1134,17 @@ def solve_launches(pl) -> dict:
     return {"fused_panel_update": blocks, "bulge_wavefront": 1, "backtransform_wy": 1}
 
 
+def bucket_launches(per_solve: dict, batch: int, n: int, buckets: int = 1) -> dict:
+    """Launches of ``buckets`` ``solve_many`` buckets of ``batch`` (n, n)
+    matrices, given one solve's ``per_solve``: one solve's a bucket, as
+    ``jax.vmap`` gives each Pallas kernel one call with a grid axis, or one
+    a chunk where ``kernels.limits.bucket_calls`` splits the bucket."""
+    from repro_torch.kernels.limits import bucket_calls
+
+    k = buckets * bucket_calls(batch, n)
+    return {op: k * c for op, c in per_solve.items()}
+
+
 def nonzero(counts) -> dict:
     return {op: c for op, c in counts.items() if c}
 
@@ -1149,10 +1181,10 @@ def phase_shampoo(torch, gen):
     ms = wall_ms(torch, lambda: out.setdefault("X", solve_many(S, cfg, op="inverse_pth_root", p=p, eps=eps)))
     peak = torch.cuda.max_memory_allocated()
     got, got_dev = nonzero(cuda_lib.launch_counts()), nonzero(cuda_lib.device_launch_counts())
-    print(f"phase 6 Shampoo launches: one plan({n}) solve {one} (CUDA {one_dev}); the bucket {got} "
-          f"(CUDA {got_dev})")
-    require(got == {op: B * c for op, c in one.items()}, f"phase 6 bucket launches {got} != {B} x {one}")
-    require(got_dev == {op: B * c for op, c in one_dev.items()}, f"phase 6 bucket CUDA launches {got_dev}")
+    print(f"phase 6 Shampoo launches: one plan({n}) solve {one} (CUDA {one_dev}); the bucket of {B} {got} "
+          f"(CUDA {got_dev}): one solve's a bucket")
+    require(got == bucket_launches(one, B, n), f"phase 6 bucket launches {got} != one solve's {one}")
+    require(got_dev == bucket_launches(one_dev, B, n), f"phase 6 bucket CUDA launches {got_dev}")
     X = out["X"]
     w, V = torch.linalg.eigh(S.double())
     ridge = eps * w.amax(-1).clamp(min=1e-30)
@@ -1230,6 +1262,156 @@ def phase_shampoo(torch, gen):
     return got, got_dev, dict(ms=ms, library_ms=lib_ms, blocks=B, peak_mib=peak / 2**20)
 
 
+def phase_bucket_kernels(torch, gen):
+    """Phase 6d: the bucket form of kernels A–D, as ``jax.vmap`` gives the
+    Pallas kernels a leading grid axis.  On a bucket of BUCKET_KERNELS
+    Shampoo blocks of 128 (``EvdConfig(b=8, nb=64)``), each batched launch
+    (A over the solve's DBR blocks, B with and without the log on random
+    bands and on A's bands, C, D in float32 and bf16 at the unfused path's
+    first trailing update) equals one launch a matrix bit for bit and its
+    batched plain version within phase 2's tolerance (B: its T's
+    eigenvalues against the plain T's, phase 3's tolerance); kernel B's
+    T no farther from a float64 chase than B_F64_RATIO x the plain
+    float32 T, on SHAMPOO_6A_BLOCKS Shampoo and random bands; then the
+    device time a block (CUDA events behind the spin) at buckets of 1,
+    BUCKET_KERNELS and SHAMPOO_6A_BLOCKS."""
+    from repro_torch.core.backtransform import backtransform_wy_xla, sweep_major_log
+    from repro_torch.core.band_reduction import build_stage_schedule
+    from repro_torch.core.bulge_chasing import chase_wavefront
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.backtransform import backtransform_wy_cuda
+    from repro_torch.kernels.bulge import bulge_wavefront_cuda
+    from repro_torch.kernels.fused_panel import fused_panel_update_cuda
+    from repro_torch.kernels.syr2k import syr2k_cuda, trailing_update_cuda
+
+    n, b, nb, k = N_BLOCK, 8, 64, BUCKET_KERNELS
+    entries = build_stage_schedule(n, b, nb).entries
+    G = torch.randn((SHAMPOO_6A_BLOCKS, n, 2 * n), generator=gen, device="cuda")
+    S = G @ G.mT / (2 * n) + 1e-3 * torch.eye(n, device="cuda")
+    del G
+    S = 0.5 * (S + S.mT)
+
+    def kernel_a(M):  # the solve's DBR blocks on a bucket (B, n, n) or a matrix (n, n), in place
+        out = [fused_panel_update_cuda(M[..., e.ci:, e.ci:], b, e.w)[1:] for e in entries]
+        return M, [v for v, _ in out], [t for _, t in out]
+
+    same, errs = {}, {}
+    Ak, Vk, Tk = kernel_a(S[:k].clone())
+    ones = [kernel_a(S[i].clone()) for i in range(k)]
+    same["A"] = all(torch.equal(Ak[i], o[0]) and all(torch.equal(v[i], vo) for v, vo in zip(Vk, o[1]))
+                    and all(torch.equal(t[i], to) for t, to in zip(Tk, o[2])) for i, o in enumerate(ones))
+    Ap = S[:k].clone()
+    plain = [ref.fused_panel_update_ref(Ap[:, e.ci:, e.ci:], b, e.w)[1:] for e in entries]
+    errs["A"] = max([rel_err(Ak, Ap)] + [rel_err(v, vp) for v, (vp, _) in zip(Vk, plain)]
+                    + [rel_err(t, tp) for t, (_, tp) in zip(Tk, plain)])
+    # Kernel B on random bands and on the Shampoo bands kernel A just made.
+    # At n = 128 the chase's T is sensitive to rounding entry by entry: on
+    # some bands one float32 ulp of the input moves the float64 chase's T
+    # by ~1e-2 of max|T|.  So B is held against its plain version by T's
+    # spectrum (phase 3's eigenvalue tolerance, in float64), and entry by
+    # entry against a float64 witness below.
+    R = torch.randn((k, n, n), generator=gen, device="cuda")
+    i = torch.arange(n, device="cuda")
+    rand_band = torch.where((i[:, None] - i[None, :]).abs() <= b, R + R.mT, 0.0)
+
+    def kernel_b_same(band):
+        T, lg = bulge_wavefront_cuda(band, b, return_log=True)
+        ones = [bulge_wavefront_cuda(band[j], b, return_log=True) for j in range(k)]
+        ok = torch.equal(T, bulge_wavefront_cuda(band, b)) and all(
+            torch.equal(T[j], Tj) and torch.equal(lg.vs[j], lj.vs) and torch.equal(lg.taus[j], lj.taus)
+            and torch.equal(lg.row0[j], lj.row0) for j, (Tj, lj) in enumerate(ones))
+        return T, lg, ok
+
+    def spectrum_err(T, Tref):
+        w, wr = torch.linalg.eigvalsh(T.double()), torch.linalg.eigvalsh(Tref.double())
+        return float(((w - wr).abs().amax(-1) / wr.abs().amax(-1)).max())
+
+    entrywise = {}
+    Tr, lr, same["B"] = kernel_b_same(rand_band)
+    Tp, lp = chase_wavefront(rand_band, b, True)
+    errs["B"] = spectrum_err(Tr, Tp)
+    entrywise["random"] = rel_err(Tr, Tp)
+    require(torch.equal(lr.row0, lp.row0), "phase 6d kernel B log rows vs plain")
+    band = Ak
+    Tb, log, same["B Shampoo"] = kernel_b_same(band)
+    Tbp = chase_wavefront(band, b)
+    errs["B Shampoo"] = spectrum_err(Tb, Tbp)
+    entrywise["Shampoo"] = rel_err(Tb, Tbp)
+    del Tbp
+    vs, taus = sweep_major_log(log)
+    X = torch.randn((k, n, n), generator=gen, device="cuda")
+    Y = backtransform_wy_cuda(X, vs, taus, b=b)
+    same["C"] = all(torch.equal(Y[i], backtransform_wy_cuda(X[i], vs[i], taus[i], b=b)) for i in range(k))
+    errs["C"] = rel_err(Y, backtransform_wy_xla(X, vs, taus, b=b))
+    w = entries[0].w
+    C = S[:k, w:, w:]
+    Yd = torch.randn((k, n - w, w), generator=gen, device="cuda")
+    Zd = torch.randn((k, n - w, w), generator=gen, device="cuda")
+    D = trailing_update_cuda(C, Yd, Zd)
+    same["D"] = all(torch.equal(D[i], trailing_update_cuda(C[i], Yd[i], Zd[i])) for i in range(k))
+    errs["D"] = rel_err(D, ref.syr2k_ref(Zd, Yd, C, alpha=-1.0))
+    Cb, Yb, Zb = (t.to(torch.bfloat16) for t in (C, Yd, Zd))
+    Db = syr2k_cuda(Zb, Yb, Cb, alpha=-1.0)
+    same["D bf16"] = all(torch.equal(Db[i], syr2k_cuda(Zb[i], Yb[i], Cb[i], alpha=-1.0)) for i in range(k))
+    errs["D bf16"] = rel_err(Db.float(), ref.syr2k_ref(Zb.float(), Yb.float(), Cb.float(), alpha=-1.0))
+    tols = {"A": TOL_A, "B": TOL_EIG, "B Shampoo": TOL_EIG, "C": TOL_C, "D": TOL_D, "D bf16": TOL_D_BF16}
+    print(f"phase 6d bucket of {k} blocks of {n} (b={b}, nb={nb}): each batched launch bitwise equal to one launch "
+          f"a matrix {same}; against its batched plain version, max rel err "
+          + ", ".join(f"{name} {e:.3e} (tol {tols[name]:.1e})" for name, e in errs.items())
+          + f" (B: T's eigenvalues against the plain T's); kernel B's T against the plain chase's entry by entry "
+          f"{entrywise} of max|T| (not gated)")
+    require(all(same.values()), f"phase 6d batched launches vs one launch a matrix: {same}")
+    require(all(errs[name] < tols[name] for name in errs), f"phase 6d batched kernels vs plain: {errs}")
+
+    # Kernel B and the plain float32 chase, each against a float64 chase,
+    # on SHAMPOO_6A_BLOCKS Shampoo bands and as many random ones: per band
+    # max|T - T64| / max|T64|, its median, 99th percentile and largest, and
+    # the share of bands on which B's T lies farther than the plain's.
+    bands = kernel_a(S.clone())[0]
+
+    def f64_witness(band):
+        T64 = chase_wavefront(band.double(), b)
+        scale = T64.abs().amax((-2, -1))
+        e = {who: (T.double() - T64).abs().amax((-2, -1)) / scale
+             for who, T in (("kernel", bulge_wavefront_cuda(band, b)), ("plain", chase_wavefront(band, b)))}
+        out = {who: dict(median=float(x.median()), p99=float(torch.quantile(x, 0.99)), max=float(x.max()))
+               for who, x in e.items()}
+        out["kernel farther"] = float((e["kernel"] > e["plain"]).double().mean())
+        return out
+
+    # (A generator of its own, so that later phases draw what they drew.)
+    R = torch.randn((SHAMPOO_6A_BLOCKS, n, n), generator=torch.Generator(device="cuda").manual_seed(SEED + 6),
+                    device="cuda")
+    witness = {"random": f64_witness(torch.where((i[:, None] - i[None, :]).abs() <= b, R + R.mT, 0.0)),
+               "Shampoo": f64_witness(bands)}
+    del R
+    print(f"phase 6d kernel B and the plain float32 chase, each against a float64 chase on {SHAMPOO_6A_BLOCKS} "
+          "bands, max|T - T64|/max|T64| a band: " + "; ".join(
+              f"{name}: " + ", ".join(f"{who} median {wt[who]['median']:.3e} p99 {wt[who]['p99']:.3e} "
+                                      f"max {wt[who]['max']:.3e}" for who in ("kernel", "plain"))
+              + f", kernel farther on {wt['kernel farther']:.1%} of the bands" for name, wt in witness.items())
+          + f" (kernel's median and p99 within {B_F64_RATIO:g}x the plain's)")
+    require(all(wt["kernel"][stat] <= B_F64_RATIO * wt["plain"][stat] for wt in witness.values()
+                for stat in ("median", "p99")), f"phase 6d kernel B farther from float64 than the plain chase: {witness}")
+
+    # Device time a block at buckets of 1, k and 1536.
+    lg = bulge_wavefront_cuda(bands, b, return_log=True)[1]
+    vs, taus = sweep_major_log(lg)
+    X = torch.randn((SHAMPOO_6A_BLOCKS, n, n), generator=gen, device="cuda")
+    per_block = {}
+    for size in (1, k, SHAMPOO_6A_BLOCKS):
+        reps = 20 if size == 1 else 3
+        per_block[size] = dict(
+            A=cuda_ms(torch, kernel_a, reps, lambda: (S[:size].clone(),)) / size,
+            B=cuda_ms(torch, lambda: bulge_wavefront_cuda(bands[:size], b, return_log=True), reps) / size,
+            C=cuda_ms(torch, lambda: backtransform_wy_cuda(X[:size], vs[:size], taus[:size], b=b), reps) / size,
+        )
+    print("phase 6d device ms a block (one call a bucket; A over the solve's " + str(len(entries))
+          + " DBR blocks): " + "; ".join(f"bucket {size}: " + ", ".join(f"{kk} {v:.5f}" for kk, v in r.items())
+                                        for size, r in per_block.items()))
+    return dict(bitwise=same, rel_err=errs, f64_witness=witness, ms_per_block=per_block)
+
+
 def phase_buckets(torch, gen):
     """Phase 6b-c: heterogeneous and padded buckets, and a medium bucket."""
     from repro_torch.kernels import cuda_lib
@@ -1248,9 +1430,10 @@ def phase_buckets(torch, gen):
             per_bucket[pad.bucket_for(n)] = per_bucket.get(pad.bucket_for(n), 0) + count
         for N, count in per_bucket.items():
             pl = plan(N, torch.float32, EvdConfig())
-            if pl.method == "two_stage":  # with the identity matrices that pad the batch
-                for op, c in solve_launches(pl).items():
-                    want[op] = want.get(op, 0) + -(-count // pad.batch_multiple) * pad.batch_multiple * c
+            if pl.method == "two_stage":  # one bucket (with the identity matrices that pad its batch)
+                padded = -(-count // pad.batch_multiple) * pad.batch_multiple
+                for op, c in bucket_launches(solve_launches(pl), padded, N).items():
+                    want[op] = want.get(op, 0) + c
         cuda_lib.reset_launch_counts()
         out = {}
         ms = wall_ms(torch, lambda: out.setdefault("r", solve_many(leaves, EvdConfig(), pad=pad)))
@@ -1270,7 +1453,7 @@ def phase_buckets(torch, gen):
     out = {}
     ms = wall_ms(torch, lambda: out.setdefault("r", solve_many(A, EvdConfig())))
     got = nonzero(cuda_lib.launch_counts())
-    want = {op: B * c for op, c in solve_launches(pl).items()}
+    want = bucket_launches(solve_launches(pl), B, n)
     require(got == want, f"phase 6 medium bucket launches {got}, expected {want}")
     check_bucket(torch, f"phase 6 medium bucket ({B}, {n}, {n})", A, *out["r"])
     torch.linalg.eigh(A)
@@ -1423,8 +1606,8 @@ def shampoo_training(torch, phase: str, cfg, batch: int, seq: int, steps: int, r
     points (random weights from the seed, ``shampoo(warmup_cosine(3e-4,
     ...), ShampooOptions(precond_mesh=precond_mesh))``, ``make_train_step``,
     ``TrainLoop``, ``synthetic_batch``), with phase 8's gates: finite
-    losses, every weight moved, kernels A, B and C launched exactly 2 x
-    blocks x one ``plan(128)`` solve's (with ``precond_mesh``, 2 x this
+    losses, every weight moved, kernels A, B and C launched exactly one
+    ``plan(128)`` solve's a side's bucket (with ``precond_mesh``, this
     rank's share, ceil(blocks / ranks)), the step-1 roots on
     ``ROOT_BLOCKS`` seeded blocks within ``TOL_ROOT`` of the float64
     formula (beside float32 ``torch.linalg.eigh``'s error), and with
@@ -1473,9 +1656,10 @@ def shampoo_training(torch, phase: str, cfg, batch: int, seq: int, steps: int, r
           f"(refresh{'' if repeat else ', its stages timed'}) {times[0]:.2f} s, steady {steady_ms:.1f} ms a step; "
           f"peak memory {peak / 2**30:.2f} GiB")
     print(f"{phase} {cfg.name} launches over the {steps} steps: {got} (CUDA {got_dev}); one plan({N_BLOCK}) "
-          f"solve {one} (CUDA {one_dev}), x 2 sides x {share} blocks" + (f" (this rank's of {NB})" if share != NB else ""))
-    require(got == {op: 2 * share * c for op, c in one.items()}, f"{phase} {cfg.name} launches {got}")
-    require(got_dev == {op: 2 * share * c for op, c in one_dev.items()}, f"{phase} {cfg.name} CUDA launches {got_dev}")
+          f"solve {one} (CUDA {one_dev}) a bucket of {share} blocks" + (f" (this rank's of {NB})" if share != NB else "")
+          + ", 2 sides")
+    require(got == bucket_launches(one, share, N_BLOCK, 2), f"{phase} {cfg.name} launches {got}")
+    require(got_dev == bucket_launches(one_dev, share, N_BLOCK, 2), f"{phase} {cfg.name} CUDA launches {got_dev}")
     require(len(hist) == steps and all(math.isfinite(h) for h in hist), f"{phase} {cfg.name} losses {hist}")
     moved = [bool((a != b).any()) for a, b in zip(leaves(final), leaves(params))]
     require(all(moved), f"{phase} {cfg.name} weights moved: {moved}")
@@ -2009,8 +2193,8 @@ def _psum_input(torch):
 
 def _dist_refresh(torch, tag: str, devices, blocks: int):
     """``solve_many(op="inverse_pth_root", devices=devices)`` on the synthetic
-    statistics: this rank's kernels A, B and C launched exactly its share
-    x one ``plan(128)`` solve's, its roots on ``ROOT_BLOCKS`` seeded blocks
+    statistics: this rank's kernels A, B and C launched exactly one
+    ``plan(128)`` solve's for its share, its roots on ``ROOT_BLOCKS`` seeded blocks
     within ``TOL_ROOT`` of float64; then an eigh run.  Returns the record,
     the eigh run's eigenvalues and digests of both results."""
     import torch.distributed as dist
@@ -2033,10 +2217,10 @@ def _dist_refresh(torch, tag: str, devices, blocks: int):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     got, got_dev = nonzero(cuda_lib.launch_counts()), nonzero(cuda_lib.device_launch_counts())
-    print(f"{tag} (b) solve_many(inverse_pth_root, devices=) of {blocks} blocks: {secs:.2f} s; this rank "
-          f"launched {got} (CUDA {got_dev}) = {share} x one plan({N_BLOCK}) solve's {one} (CUDA {one_dev})")
-    require(got == {op: share * c for op, c in one.items()}, f"{tag} (b) launches {got}")
-    require(got_dev == {op: share * c for op, c in one_dev.items()}, f"{tag} (b) CUDA launches {got_dev}")
+    print(f"{tag} (b) solve_many(inverse_pth_root, devices=) of {blocks} blocks: {secs:.2f} s; this rank's "
+          f"bucket of {share} launched {got} (CUDA {got_dev}) = one plan({N_BLOCK}) solve's {one} (CUDA {one_dev})")
+    require(got == bucket_launches(one, share, N_BLOCK), f"{tag} (b) launches {got}")
+    require(got_dev == bucket_launches(one_dev, share, N_BLOCK), f"{tag} (b) CUDA launches {got_dev}")
     require(tuple(X.shape) == (blocks, N_BLOCK, N_BLOCK) and bool(torch.isfinite(X).all()), f"{tag} (b) roots")
     idx = torch.randperm(blocks, generator=torch.Generator().manual_seed(SEED))[:ROOT_BLOCKS].cuda()
     err, _, lib_err = root_errors(torch, S, X, idx, eps)
@@ -2613,13 +2797,13 @@ def phase_sharding(torch):
     ref = summary["c_" + res[0]["c_mode"]]["ref_losses"][0]
     d_rel = abs(d[0]["losses"][0] - ref) / abs(ref)
     print(f"phase 12 (d) Shampoo with precond_mesh over both axes: {d[0]['blocks']} blocks a side, {share} a rank; "
-          f"launches per rank {[r['launches'] for r in d]} (CUDA {[r['device_launches'] for r in d]}) against 2 x "
-          f"{share} x one plan({N_BLOCK}) solve's {one} (CUDA {one_dev}); roots vs float64 on {ROOT_BLOCKS} seeded "
+          f"launches per rank {[r['launches'] for r in d]} (CUDA {[r['device_launches'] for r in d]}) against 2 "
+          f"buckets of one plan({N_BLOCK}) solve's {one} (CUDA {one_dev}); roots vs float64 on {ROOT_BLOCKS} seeded "
           f"blocks {[r['root_err'] for r in d]} (tol {TOL_ROOT:.0e}); step-1 loss vs (c)'s float32 one-process loss "
           f"(the same weights and batch) rel {d_rel:.3e} (tol {TOL_SHARD_LOSS:.0e}); rank 0's case {d[0]['case_s']:.1f} s")
     for r in d:
-        require(r["launches"] == {op: 2 * share * c for op, c in one.items()}, f"phase 12 (d) launches {r['launches']}")
-        require(r["device_launches"] == {op: 2 * share * c for op, c in one_dev.items()},
+        require(r["launches"] == bucket_launches(one, share, N_BLOCK, 2), f"phase 12 (d) launches {r['launches']}")
+        require(r["device_launches"] == bucket_launches(one_dev, share, N_BLOCK, 2),
                 f"phase 12 (d) CUDA launches {r['device_launches']}")
         require(all(e < TOL_ROOT for e in r["root_err"].values()), f"phase 12 (d) roots {r['root_err']}")
     require(d_rel < TOL_SHARD_LOSS, "phase 12 (d) loss vs one process")
@@ -2931,7 +3115,7 @@ def phase_operators(torch, gen, inputs, shampoo_ranks, phase6a_ms: float, full=N
         ok_loops = sites == {d["site"] for d in real["data_dependent"]} == {"core/jacobi.py:jacobi_eigh",
                                                                           "core/tridiag_eig.py:_qr"}
         lanes = rec["shampoo"]["rank0_lanes_per_side"]
-        want = {"fused_panel_update": 2 * lanes * 4, "bulge_wavefront": 2 * lanes, "backtransform_wy": 2 * lanes}
+        want = bucket_launches(SOLVE_256, lanes, 256, 2)
         ok_launch = all(r[sharded]["launches"] == want for r in shampoo_ranks)
         print(f"phase 14 (b) smoke Shampoo cell (llama3.2-3b smoke, 1 layer, (2, 2), sharded={sharded}): "
               f"collectives equal the real world's {ok_coll} ({rec['collectives']['total_bytes']} bytes); FLOPs "
@@ -2985,7 +3169,7 @@ def phase_operators(torch, gen, inputs, shampoo_ranks, phase6a_ms: float, full=N
         d["flops"] for d in preal["data_dependent"]) and preal["walk_flops"] == preal["flops"]
     ok_bytes = prec["walk"]["hbm_bytes_outside_loops"] == preal["hbm_bytes_outside_loops"] > 0
     ok_ops = {k: v["flops"] for k, v in prec["walk"]["operators"].items()} == preal["operators"]
-    want = {"fused_panel_update": 2 * lanes * 4, "bulge_wavefront": 2 * lanes, "backtransform_wy": 2 * lanes}
+    want = bucket_launches(SOLVE_256, lanes, 256, 2)
     print(f"phase 14 (d) {arch} ({layers} layer, {batch} x {seq}, one process) Shampoo step: {lanes} blocks of 256 a "
           f"side; peak estimate {prec['memory']['peak_estimate_bytes'] / 2**30:.4f} GiB over the real step's "
           f"{preal['peak_bytes'] / 2**30:.4f} GiB = {ratio:.4f} (gate {TOL_PEAK}); FLOPs outside the loops "
@@ -3078,6 +3262,7 @@ def main() -> int:
     device_launches.update(unfused_device)
     t6 = time.perf_counter()
     batched, batched_device, shampoo = phase_shampoo(torch, gen)
+    shampoo["bucket_kernels"] = phase_bucket_kernels(torch, gen)
     phase_buckets(torch, gen)
     t7 = time.perf_counter()
     phase_methods(torch, gen)

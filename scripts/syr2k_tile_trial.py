@@ -169,8 +169,8 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
 
     def call(v):
-        err = fns[v](Z.data_ptr(), Y.data_ptr(), k, n, k, -1.0, C.data_ptr(), C.stride(0),
-                     out.data_ptr(), 0, stream)
+        err = fns[v](Z.data_ptr(), Y.data_ptr(), k, 0, n, k, -1.0, C.data_ptr(), C.stride(0), 0,
+                     out.data_ptr(), 0, 1, stream)
         if err:
             raise RuntimeError(f"{v}: cudaError {err}")
 

@@ -16,9 +16,12 @@ rounds, the plain chase's wavefronts and back-transform's sweeps): ~0.4 M
 ops a bucket.  A loop whose trips all run the same ops on tensors of the
 same shapes runs one trip on fake tensors, which every walk counts as many
 times as the loop has trips (:func:`repeated`), as the JAX walk multiplies
-a while loop's body by its trip count; the same holds for a bucket's
-per-matrix calls (:func:`map_lanes`), whose one result stands for every
-lane and is held once a lane.  These two also branch on :func:`is_fake`:
+a while loop's body by its trip count; the same holds for the lanes of a
+loop over a bucket (:func:`map_lanes`: the chunks of a bucket over
+``kernels.limits.bucket_chunk``, and the oracles ``chase="sequential"`` and
+``backtransform="scan"``, which run a matrix at a time), whose one result
+stands for every lane and is held once a lane.  The kernels' operators take
+a whole bucket a call.  These two also branch on :func:`is_fake`:
 on real tensors they run every trip, so a real run is bitwise what it was,
 and a fake run counts what running every trip counts
 (tests/test_torch_library.py holds the two against each other).

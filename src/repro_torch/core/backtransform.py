@@ -12,20 +12,20 @@ Port of ``repro.core.backtransform``.
   ``csrc/backtransform.cu`` its kernel.
 
 The reflector structure is static (it depends on n, b and nb only), so the
-Q1 merge and apply and the Q2 regroup also take tensors with leading batch
-dimensions: a bucket of matrices is merged, regrouped and applied in one
-pass (:func:`apply_q2_blocked_many`), with one ``backtransform_wy`` call per
-matrix.
+Q1 merge and apply, the Q2 regroup and the ``backtransform_wy`` op also take
+tensors with leading batch dimensions: a bucket of matrices is merged,
+regrouped and applied in one pass (:func:`apply_q2_blocked_many`), with one
+``backtransform_wy`` call for the bucket.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.backend import registry
-from repro_torch.backend.trace import map_lanes, repeated
+from repro_torch.backend.trace import repeated
 
 from .band_reduction import BandReflectors, apply_q_left
 from .bulge_chasing import ChaseLog, _kmax_table
@@ -147,25 +147,26 @@ def backtransform_wy_xla(
     transpose: bool = False,
 ) -> torch.Tensor:
     """Plain ``backtransform_wy``: Q2 @ X (or Q2^T @ X) from the sweep-major
-    log, one batched (K, b)-row update per sweep.
+    log, one batched (K, b)-row update per sweep; X (..., n, m) with vs
+    (..., S, K, b) and taus (..., S, K) applies each matrix's log to its X.
 
     ``group`` is accepted for the op's signature: the JAX reference applies
     each sweep in groups of ``group`` reflectors, which does not change the
     arithmetic (the supports are disjoint), so the whole sweep goes at once.
     """
-    S, K, _ = vs.shape
-    n, m = X.shape
-    Xp = torch.zeros((n + K * b, m), dtype=X.dtype, device=X.device)
-    Xp[:n] = X
+    S, K, _ = vs.shape[-3:]
+    n, m = X.shape[-2:]
+    Xp = torch.zeros(X.shape[:-2] + (n + K * b, m), dtype=X.dtype, device=X.device)
+    Xp[..., :n, :] = X
     order = range(S) if transpose else range(S - 1, -1, -1)
     with repeated(S, X) as sweeps:
         for j in sweeps:
             s = order[j]
-            P = Xp[s + 1 : s + 1 + K * b].view(K, b, m)
-            V = vs[s]
-            proj = torch.einsum("kb,kbm->km", V, P)
-            P -= taus[s][:, None, None] * V[:, :, None] * proj[:, None, :]
-    return Xp[:n].clone()
+            P = Xp[..., s + 1 : s + 1 + K * b, :].unflatten(-2, (K, b))
+            V = vs[..., s, :, :]
+            proj = torch.einsum("...kb,...kbm->...km", V, P)
+            P -= taus[..., s, :, None, None] * V[..., :, :, None] * proj[..., :, None, :]
+    return Xp[..., :n, :].clone()
 
 
 def apply_q2_blocked(
@@ -180,13 +181,14 @@ def apply_q2_blocked(
     """Q2 @ X (or Q2^T @ X) through the ``backtransform_wy`` registry op.
     ``on_stage("q2_regroup")``, when given, is called once the log is
     regrouped sweep-major, before the op runs."""
+    bucket = ChaseLog(vs=log.vs[None], taus=log.taus[None], row0=log.row0[None], n=log.n, b=log.b)
     return apply_q2_blocked_many(
-        [log], X[None], transpose, group=group, backend=backend, on_stage=on_stage
+        bucket, X[None], transpose, group=group, backend=backend, on_stage=on_stage
     )[0]
 
 
 def apply_q2_blocked_many(
-    logs: Sequence[ChaseLog],
+    log: ChaseLog,
     X: torch.Tensor,
     transpose: bool = False,
     *,
@@ -194,20 +196,17 @@ def apply_q2_blocked_many(
     backend: Optional[str] = None,
     on_stage: Optional[Callable[[str], None]] = None,
 ) -> torch.Tensor:
-    """:func:`apply_q2_blocked` for a bucket: ``logs[i]`` applied to
-    ``X[i]`` (X is (B, n, m)).  The logs (all of one kind and one (n, b))
-    are stacked and regrouped sweep-major in one pass; the op runs once
-    per matrix."""
-    n, b = logs[0].n, logs[0].b
+    """:func:`apply_q2_blocked` for a bucket: matrix i's log applied to
+    ``X[i]`` (X is (B, n, m)); ``log`` is the bucket's (leading dimension
+    B, as ``band_to_tridiag`` returns it for a bucket).  The log is
+    regrouped sweep-major in one pass, and the op runs once for the bucket."""
+    n, b = log.n, log.b
     S, K = _sweep_shape(n, b)
     if S == 0 or K == 0:
         return X.clone()  # n < 3: the chase made no reflectors, Q2 == I
-    vs, taus = _sweep_major(
-        torch.stack([lg.vs for lg in logs]), torch.stack([lg.taus for lg in logs]),
-        n, b, logs[0].vs.ndim == 2,
-    )
+    # A sequential log is (B, L, b), a wavefront log (B, W, A, b).
+    vs, taus = _sweep_major(log.vs, log.taus, n, b, log.vs.ndim == X.ndim)
     if on_stage is not None:
         on_stage("q2_regroup")
     fn = registry.resolve("backtransform_wy", backend or registry.default_backend(X.device))
-    return torch.stack(map_lanes(
-        lambda i: fn(X[i], vs[i], taus[i], b=b, group=group, transpose=transpose), range(len(logs)), X))
+    return fn(X, vs, taus, b=b, group=group, transpose=transpose)

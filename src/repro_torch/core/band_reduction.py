@@ -99,47 +99,50 @@ def build_stage_schedule(n: int, b: int, nb: int) -> StageSchedule:
 def _reduce_block(
     Bv: torch.Tensor, b: int, w: int, panel_qr_fn: Callable, syr2k_update: Callable
 ):
-    """Reduce the first ``w`` columns of the trailing view ``Bv`` (m, m) to
-    bandwidth ``b`` and apply one rank-2w trailing update.
+    """Reduce the first ``w`` columns of the trailing view ``Bv`` ([B,] m, m)
+    to bandwidth ``b`` and apply one rank-2w trailing update.
 
-    Returns ``(new_view, Vbuf (m, w), Ts (w//b, b, b))``; ``Bv`` is not
-    modified.
+    Returns ``(new_view, Vbuf ([B,] m, w), Ts ([B,] w//b, b, b))``; ``Bv``
+    is not modified.
     """
-    m = Bv.shape[0]
+    m = Bv.shape[-1]
+    lead = tuple(Bv.shape[:-2])
     q = w // b
     dtype, dev = Bv.dtype, Bv.device
-    Vbuf = torch.zeros((m, w), dtype=dtype, device=dev)
-    Zbuf = torch.zeros((m, w), dtype=dtype, device=dev)
-    F = torch.zeros((m, w), dtype=dtype, device=dev)
+    Vbuf = torch.zeros(lead + (m, w), dtype=dtype, device=dev)
+    Zbuf = torch.zeros(lead + (m, w), dtype=dtype, device=dev)
+    F = torch.zeros(lead + (m, w), dtype=dtype, device=dev)
     Ts = []
     rows = torch.arange(m, device=dev)[:, None]
     for j in range(q):
         c0 = j * b
         r0 = c0 + b
-        P = Bv[:, c0 : c0 + b]
+        P = Bv[..., :, c0 : c0 + b]
         if j > 0:
-            P = P - Zbuf[:, :c0] @ Vbuf[c0 : c0 + b, :c0].T - Vbuf[:, :c0] @ Zbuf[c0 : c0 + b, :c0].T
-        V_j, T_j, _taus, R_j = panel_qr_fn(P[r0:, :])
-        Vhat = torch.zeros((m, b), dtype=dtype, device=dev)
-        Vhat[r0:] = V_j
-        fcol = torch.zeros((m, b), dtype=dtype, device=dev)
-        fcol[:r0] = P[:r0]
-        fcol[r0 : r0 + b] = R_j
+            P = (P - Zbuf[..., :, :c0] @ Vbuf[..., c0 : c0 + b, :c0].mT
+                 - Vbuf[..., :, :c0] @ Zbuf[..., c0 : c0 + b, :c0].mT)
+        V_j, T_j, _taus, R_j = panel_qr_fn(P[..., r0:, :])
+        Vhat = torch.zeros(lead + (m, b), dtype=dtype, device=dev)
+        Vhat[..., r0:, :] = V_j
+        fcol = torch.zeros(lead + (m, b), dtype=dtype, device=dev)
+        fcol[..., :r0, :] = P[..., :r0, :]
+        fcol[..., r0 : r0 + b, :] = R_j
         in_band = rows >= (c0 + torch.arange(b, device=dev)[None, :]) - b
-        F[:, c0 : c0 + b] = torch.where(in_band, fcol, 0.0)
+        F[..., :, c0 : c0 + b] = torch.where(in_band, fcol, 0.0)
         M = Bv @ Vhat
         if j > 0:
-            M = M - Zbuf[:, :c0] @ (Vbuf[:, :c0].T @ Vhat) - Vbuf[:, :c0] @ (Zbuf[:, :c0].T @ Vhat)
+            M = (M - Zbuf[..., :, :c0] @ (Vbuf[..., :, :c0].mT @ Vhat)
+                 - Vbuf[..., :, :c0] @ (Zbuf[..., :, :c0].mT @ Vhat))
         MT = M @ T_j
-        Z_j = MT - 0.5 * Vhat @ (T_j.T @ (Vhat.T @ MT))
-        Vbuf[:, c0 : c0 + b] = Vhat
-        Zbuf[:, c0 : c0 + b] = Z_j
+        Z_j = MT - 0.5 * Vhat @ (T_j.mT @ (Vhat.mT @ MT))
+        Vbuf[..., :, c0 : c0 + b] = Vhat
+        Zbuf[..., :, c0 : c0 + b] = Z_j
         Ts.append(T_j)
     new_view = Bv.clone()
-    new_view[w:, w:] = syr2k_update(Bv[w:, w:], Vbuf[w:, :], Zbuf[w:, :])
-    new_view[:, :w] = F
-    new_view[:w, w:] = F[w:, :].T
-    return new_view, Vbuf, torch.stack(Ts)
+    new_view[..., w:, w:] = syr2k_update(Bv[..., w:, w:], Vbuf[..., w:, :], Zbuf[..., w:, :])
+    new_view[..., :, :w] = F
+    new_view[..., :w, w:] = F[..., w:, :].mT
+    return new_view, Vbuf, torch.stack(Ts, dim=-3)
 
 
 def band_reduce(
@@ -154,8 +157,11 @@ def band_reduce(
     mode: Optional[str] = None,
     backend: Optional[str] = None,
 ):
-    """Reduce a symmetric (n, n) matrix to band form with bandwidth ``b``.
+    """Reduce a symmetric (n, n) matrix, or a bucket of them (B, n, n), to
+    band form with bandwidth ``b``.
 
+    A bucket walks the static schedule once: one op call per DBR block for
+    the whole bucket (the calls ``jax.vmap`` makes of the Pallas kernels).
     ``nb`` (a multiple of ``b``, default ``b``) is the DBR update block.
     ``backend`` picks the registry ops' implementations (default: ``cuda``
     for a CUDA tensor, ``torch`` on the CPU).
@@ -170,12 +176,15 @@ def band_reduce(
     C - Z Y^T - Y Z^T`` (default: the ``trailing_update`` op on
     ``backend``).  Injecting either implies ``"unfused"``, and asking for
     ``"fused"`` beside them raises ``ValueError``, as in the JAX package.
+    Kernel E factors one panel a call, so a bucket with ``"kernel"`` raises
+    ``ValueError`` too (no batched solve reaches it).
 
     ``A`` is not modified.  Returns ``Bband`` and, with
     ``return_reflectors``, the :class:`BandReflectors` of Q1 (``merge_ts``
-    also fills ``Tm``).
+    also fills ``Tm``), with A's leading dimension.
     """
-    n = A.shape[0]
+    n = A.shape[-1]
+    lead = tuple(A.shape[:-2])
     nb = b if nb is None else nb
     if n % b != 0:
         raise ValueError(f"n={n} must be a multiple of b={b}")
@@ -191,6 +200,8 @@ def band_reduce(
             "mode='fused' executes panel QR and the trailing update as one "
             "op; syr2k_update/panel_method injection requires mode='unfused'"
         )
+    if panel_method == "kernel" and lead:
+        raise ValueError("panel_method='kernel' (kernel E) takes one matrix, not a bucket")
     backend = backend or registry.default_backend(A.device)
     if mode == "fused":
         fused_update = registry.resolve("fused_panel_update", backend)
@@ -201,17 +212,17 @@ def band_reduce(
     B = A.contiguous().clone()
     schedule = build_stage_schedule(n, b, nb)
     p = schedule.num_panels
-    Vall = torch.zeros((n, p * b), dtype=A.dtype, device=A.device)
-    Tall = torch.zeros((p, b, b), dtype=A.dtype, device=A.device)
+    Vall = torch.zeros(lead + (n, p * b), dtype=A.dtype, device=A.device)
+    Tall = torch.zeros(lead + (p, b, b), dtype=A.dtype, device=A.device)
     for e in schedule.entries:
-        view = B[e.ci :, e.ci :]
+        view = B[..., e.ci :, e.ci :]
         if mode == "fused":
             _, Vbuf, Ts = fused_update(view, b, e.w)
         else:
             new_view, Vbuf, Ts = _reduce_block(view, b, e.w, panel_qr_fn, syr2k_update)
             view.copy_(new_view)
-        Vall[e.ci :, e.panel0 * b : (e.panel0 + e.q) * b] = Vbuf
-        Tall[e.panel0 : e.panel0 + e.q] = Ts
+        Vall[..., e.ci :, e.panel0 * b : (e.panel0 + e.q) * b] = Vbuf
+        Tall[..., e.panel0 : e.panel0 + e.q, :, :] = Ts
     if not return_reflectors:
         return B
     refl = BandReflectors(V=Vall, T=Tall, b=b, blocks=schedule.blocks)

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.backend import registry
-from repro_torch.backend.trace import repeated
+from repro_torch.backend.trace import map_lanes, repeated
 
 from .householder import house
 
@@ -50,7 +50,8 @@ class ChaseLog:
     logs are ``vs`` (W, A, b), ``taus`` (W, A), ``row0`` (W, A) int32: the
     global start row of each reflector's support, sentinel ``n`` for an
     inactive slot (whose ``tau`` is 0 and ``v`` is e_0).  Sequential logs
-    are (L, b), (L,) and (L,), one entry per op in execution order.
+    are (L, b), (L,) and (L,), one entry per op in execution order.  A
+    bucket's log carries the bucket's leading dimension B on all three.
     """
 
     vs: torch.Tensor
@@ -128,12 +129,14 @@ def _window_op(W: torch.Tensor, k: torch.Tensor, b: int):
 
 
 def _trivial_log(B: torch.Tensor, b: int) -> ChaseLog:
-    n = B.shape[0]
+    """The log of a chase with no op, one a matrix of ``B`` (..., n, n)."""
+    n = B.shape[-1]
     bb = max(b, 1)
+    lead = tuple(B.shape[:-2]) + (1,)
     return ChaseLog(
-        vs=torch.zeros((1, bb), dtype=B.dtype, device=B.device),
-        taus=torch.zeros((1,), dtype=B.dtype, device=B.device),
-        row0=torch.full((1,), n, dtype=torch.int32, device=B.device),
+        vs=torch.zeros(lead + (bb,), dtype=B.dtype, device=B.device),
+        taus=torch.zeros(lead, dtype=B.dtype, device=B.device),
+        row0=torch.full(lead, n, dtype=torch.int32, device=B.device),
         n=n,
         b=bb,
     )
@@ -175,38 +178,46 @@ def chase_wavefront(B: torch.Tensor, b: int, return_log: bool = False):
     A = ``max_active_sweeps`` slots are gathered from a zero-padded copy of
     ``B``, updated by one batched :func:`_window_op` and scattered back
     (the windows are disjoint; inactive slots all target one zero scratch
-    block and write zeros).  Returns ``T`` or ``(T, ChaseLog)`` with the log
-    in (W, A, b) layout."""
-    n = B.shape[0]
+    block and write zeros).  ``B`` is a band (n, n) or a bucket (B, n, n),
+    whose windows a wavefront updates together.  Returns ``T`` or
+    ``(T, ChaseLog)`` with the log in ([B,] W, A, b) layout."""
+    n = B.shape[-1]
     if n < 3 or b <= 1:
         out = B.clone()
         return (out, _trivial_log(B, b)) if return_log else out
     dev, dtype = B.device, B.dtype
+    lead = tuple(B.shape[:-2])
+    Bs = B.reshape(-1, n, n)
+    nz = Bs.shape[0]
     off, _, total = _pad_sizes(n, b)
     w3 = 3 * b
     k_np, _, r0_np, row0_np = wavefront_schedule(n, b)
     W_total, A = k_np.shape
     ks = torch.as_tensor(k_np, device=dev)
     rows_all = torch.as_tensor(r0_np, device=dev)[:, :, None] + torch.arange(w3, device=dev)
-    Bp = torch.zeros((total, total), dtype=dtype, device=dev)
-    Bp[off : off + n, off : off + n] = B
+    Bp = torch.zeros((nz, total, total), dtype=dtype, device=dev)
+    Bp[:, off : off + n, off : off + n] = Bs
     if return_log:
-        vs = torch.empty((W_total, A, b), dtype=dtype, device=dev)
-        taus = torch.empty((W_total, A), dtype=dtype, device=dev)
+        vs = torch.empty((nz, W_total, A, b), dtype=dtype, device=dev)
+        taus = torch.empty((nz, W_total, A), dtype=dtype, device=dev)
     with repeated(W_total, B) as wavefronts:
         for w in wavefronts:
             rows = rows_all[w]
             ri, ci = rows[:, :, None], rows[:, None, :]
-            Wn, v, tau = _window_op(Bp[ri, ci], ks[w], b)
-            Bp[ri, ci] = Wn
+            Wn, v, tau = _window_op(Bp[:, ri, ci].reshape(nz * A, w3, w3), ks[w].repeat(nz), b)
+            Bp[:, ri, ci] = Wn.view(nz, A, w3, w3)
             if return_log:
-                vs[w] = v
-                taus[w] = tau
-    out = Bp[off : off + n, off : off + n].clone()
+                vs[:, w] = v.view(nz, A, b)
+                taus[:, w] = tau.view(nz, A)
+            # Free this trip's windows before the next: every trip then
+            # holds what one trip holds (as the fake walk's one trip does).
+            del Wn, v, tau
+    out = Bp[:, off : off + n, off : off + n].reshape(lead + (n, n)).clone()
     if not return_log:
         return out
-    row0 = torch.as_tensor(row0_np, device=dev)
-    return out, ChaseLog(vs=vs, taus=taus, row0=row0, n=n, b=b)
+    row0 = torch.as_tensor(row0_np, device=dev).expand(lead + row0_np.shape).clone()
+    return out, ChaseLog(vs=vs.view(lead + vs.shape[1:]), taus=taus.view(lead + taus.shape[1:]),
+                         row0=row0, n=n, b=b)
 
 
 def chase_wavefront_slices(B: torch.Tensor, b: int, return_log: bool = False):
@@ -231,10 +242,11 @@ def band_to_tridiag(
     mode: Optional[str] = None,
     backend: Optional[str] = None,
 ):
-    """Reduce a symmetric band matrix (dense storage) to tridiagonal form.
+    """Reduce a symmetric band matrix (dense storage), or a bucket of them
+    (B, n, n), to tridiagonal form; a bucket is one op call.
 
     ``method="sequential"`` runs the oracle :func:`chase_sequential` (plain
-    tensor code on any device).  ``mode`` (default: the process-wide
+    tensor code on any device), a matrix at a time.  ``mode`` (default: the process-wide
     ``registry.default_tridiag()``) picks the wavefront generation.
     ``mode="fused"`` runs the ``bulge_wavefront`` registry op (kernel B on
     the ``cuda`` backend, log included).  ``mode="unfused"`` is the legacy
@@ -244,7 +256,15 @@ def band_to_tridiag(
     defaults to ``cuda`` for a CUDA tensor and ``torch`` on the CPU.
     """
     if method == "sequential":
-        return chase_sequential(B, b, return_log)
+        if B.ndim == 2:
+            return chase_sequential(B, b, return_log)
+        outs = map_lanes(lambda Bi: chase_sequential(Bi, b, return_log), B, B)
+        if not return_log:
+            return torch.stack(outs)
+        logs = [log for _, log in outs]
+        return torch.stack([T for T, _ in outs]), ChaseLog(
+            vs=torch.stack([lg.vs for lg in logs]), taus=torch.stack([lg.taus for lg in logs]),
+            row0=torch.stack([lg.row0 for lg in logs]), n=logs[0].n, b=logs[0].b)
     if method != "wavefront":
         raise ValueError(f"unknown bulge chasing method: {method!r}")
     mode = mode or registry.default_tridiag()

@@ -82,14 +82,14 @@ def apply_house_both(M: torch.Tensor, v: torch.Tensor, tau) -> torch.Tensor:
 
 def larft(V: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
     """Upper-triangular block-reflector factor T (LAPACK ``larft``):
-    H_1 H_2 ... H_k = I - V T V^T for unit lower-trapezoidal ``V`` (m, k)."""
-    k = V.shape[1]
-    VtV = V.T @ V
-    T = torch.zeros((k, k), dtype=V.dtype, device=V.device)
+    H_1 H_2 ... H_k = I - V T V^T for unit lower-trapezoidal ``V`` (..., m, k)."""
+    k = V.shape[-1]
+    VtV = V.mT @ V
+    T = torch.zeros(V.shape[:-2] + (k, k), dtype=V.dtype, device=V.device)
     for j in range(k):
         if j:
-            T[:j, j] = -taus[j] * (T[:j, :j] @ VtV[:j, j])
-        T[j, j] = taus[j]
+            T[..., :j, j] = -taus[..., j, None] * (T[..., :j, :j] @ VtV[..., :j, j : j + 1])[..., 0]
+        T[..., j, j] = taus[..., j]
     return T
 
 

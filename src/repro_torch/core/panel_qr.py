@@ -29,34 +29,37 @@ __all__ = ["panel_qr", "panel_qr_geqrf", "panel_qr_householder"]
 
 
 def panel_qr_geqrf(panel: torch.Tensor):
-    """QR of a (m, b) panel.  Returns ``(V, T, taus, R)``."""
-    m, b = panel.shape
+    """QR of a (m, b) panel, or of a stack of them (..., m, b).  Returns
+    ``(V, T, taus, R)``."""
+    m, b = panel.shape[-2:]
     a_fact, taus = torch.geqrf(panel)
     rows = torch.arange(m, device=panel.device)[:, None]
     cols = torch.arange(b, device=panel.device)[None, :]
-    R = torch.where(rows <= cols, a_fact, 0.0)[:b, :]
+    R = torch.where(rows <= cols, a_fact, 0.0)[..., :b, :]
     V = torch.where(rows > cols, a_fact, 0.0)
     V = torch.where(rows == cols, 1.0, V)
     return V, larft(V, taus), taus, R
 
 
 def panel_qr_householder(panel: torch.Tensor):
-    """Column-by-column Householder QR of a (m, b) panel with :func:`house`
-    (beta = +|x|).  Returns ``(V, T, taus, R)``."""
-    m, b = panel.shape
+    """Column-by-column Householder QR of a (m, b) panel, or of a stack of
+    them (..., m, b), with :func:`house` (beta = +|x|).  Returns
+    ``(V, T, taus, R)``."""
+    m, b = panel.shape[-2:]
     A = panel.clone()
     V = torch.zeros_like(A)
-    taus = torch.zeros((b,), dtype=A.dtype, device=A.device)
+    taus = torch.zeros(panel.shape[:-2] + (b,), dtype=A.dtype, device=A.device)
     for j in range(b):
-        v_tail, tau, beta = house(A[j:, j])
+        v_tail, tau, beta = house(A[..., j:, j])
         # Apply H = I - tau v v^T to columns j.. of rows j..; column j is
         # then exactly (beta, 0, ..., 0).
-        A[j:, j:] -= tau * torch.outer(v_tail, v_tail @ A[j:, j:])
-        A[j, j] = beta
-        A[j + 1 :, j] = 0.0
-        V[j:, j] = v_tail
-        taus[j] = tau
-    return V, larft(V, taus), taus, A[:b, :].clone()
+        vA = (v_tail[..., None, :] @ A[..., j:, j:])[..., 0, :]
+        A[..., j:, j:] -= tau[..., None, None] * (v_tail[..., :, None] * vA[..., None, :])
+        A[..., j, j] = beta
+        A[..., j + 1 :, j] = 0.0
+        V[..., j:, j] = v_tail
+        taus[..., j] = tau
+    return V, larft(V, taus), taus, A[..., :b, :].clone()
 
 
 def resolve_panel_qr(method: str, backend: str) -> Callable:

@@ -34,7 +34,10 @@
 // the exact reverse (anti-diagonals descending, sweeps descending inside a
 // block).  Blocks whose first row is at or past n are skipped; reflectors
 // with tau == 0 (masked slots, and sweeps past S in a short last group,
-// staged as zeros) leave the strip as it is.
+// staged as zeros) leave the strip as it is.  A bucket (the counterpart of
+// the batching rule that jax.vmap gives the Pallas kernel): one call applies
+// the logs of `batch` matrices to their X, both launches taking the matrix
+// from blockIdx.y, each matrix with its own regrouped log.
 #include <type_traits>
 
 #include "common.cuh"
@@ -190,10 +193,13 @@ __device__ __forceinline__ void stage_log(float* buf, const float* __restrict__ 
 // One CTA per anti-diagonal t: its blocks' v and tau, regrouped (see above).
 template <int BB>
 __global__ void regroup_log(const float* __restrict__ vs, const float* __restrict__ taus,
-                            int n, int S, int K, int b, float* __restrict__ lg) {
+                            int n, int S, int K, int b, float* __restrict__ lg, long long lg_floats) {
   __shared__ long long part[kRegroupThreads];
   constexpr int G = kGroup;
   constexpr int kPer = Stage<BB>::kPer;
+  vs += blockIdx.y * (long long)S * K * b;
+  taus += blockIdx.y * (long long)S * K;
+  lg += blockIdx.y * lg_floats;
   const int ngroups = (S + G - 1) / G;
   const int T = ngroups + K - 1;
   const int t = blockIdx.x;
@@ -235,6 +241,8 @@ __global__ void backtransform_blocked(float* __restrict__ X, int n, int m,
                                       int K, int b, int cw) {
   REPRO_DYNAMIC_SMEM(sm);
   constexpr int kPer = Stage<BB>::kPer;
+  X += blockIdx.y * (long long)n * m;
+  lgr += blockIdx.y * total * kPer;
   const int c0 = blockIdx.x * cw;
   const int nc = min(cw, m - c0);
   // Blocks per stage: about one (block, column) item per thread.
@@ -297,11 +305,12 @@ __global__ void backtransform_blocked(float* __restrict__ X, int n, int m,
 
 template <int BB>
 int run(float* X, int n, int m, const float* vs, const float* taus, int S, int K, int b,
-        int transpose, int cw, int use_smem, float* work, cudaStream_t st) {
+        int transpose, int cw, int use_smem, float* work, int batch, cudaStream_t st) {
   const int ngroups = (S + kGroup - 1) / kGroup;
-  REPRO_LAUNCH(regroup_log<BB>, (unsigned)(ngroups + K - 1), kRegroupThreads, 0, st)(vs, taus, n, S, K, b, work);
-  REPRO_CHECK_LAUNCH();
   const long long total = log_blocks(n, S, K, b);
+  REPRO_LAUNCH(regroup_log<BB>, dim3(ngroups + K - 1, batch), kRegroupThreads, 0, st)
+  (vs, taus, n, S, K, b, work, total * Stage<BB>::kPer);
+  REPRO_CHECK_LAUNCH();
   auto kern = transpose ? (use_smem ? backtransform_blocked<BB, true, true>
                                     : backtransform_blocked<BB, true, false>)
                         : (use_smem ? backtransform_blocked<BB, false, true>
@@ -312,14 +321,15 @@ int run(float* X, int n, int m, const float* vs, const float* taus, int S, int K
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((m + cw - 1) / cw);
-  REPRO_LAUNCH(kern, blocks, kThreads, smem, st)(X, n, m, work, total, S, K, b, cw);
+  REPRO_LAUNCH(kern, dim3(blocks, batch), kThreads, smem, st)(X, n, m, work, total, S, K, b, cw);
   REPRO_CHECK_LAUNCH();
   return 0;
 }
 
 }  // namespace
 
-// Floats of the launcher's workspace `work` (the regrouped log).
+// Floats of the launcher's workspace `work` (the regrouped log) a matrix;
+// a call on a bucket takes `batch` times as many.
 extern "C" long long backtransform_wy_workspace(int n, int S, int K, int b) {
   if (n < 1 || S < 1 || K < 1 || b < 1 || b > 32) return 0;
   const int per = b <= 4 ? Stage<4>::kPer : b <= 8 ? Stage<8>::kPer : b <= 16 ? Stage<16>::kPer
@@ -327,17 +337,20 @@ extern "C" long long backtransform_wy_workspace(int n, int S, int K, int b) {
   return log_blocks(n, S, K, b) * per;
 }
 
-// Two launches per call (regroup_log, backtransform_blocked).  b <= 32;
-// cw * n * 4 bytes of strip in shared memory (use_smem) plus the staged log
-// must fit the H100's 227 KB per block.
+// Two launches per call (regroup_log, backtransform_blocked), whatever its
+// batch.  X (batch, n, m), vs (batch, S, K, b), taus (batch, S, K), all
+// contiguous; batch <= 65535 (gridDim.y); b <= 32; cw * n * 4 bytes of
+// strip in shared memory (use_smem) plus the staged log must fit the
+// H100's 227 KB per block.
 extern "C" int backtransform_wy_launch(float* X, int n, int m, const float* vs,
                                        const float* taus, int S, int K, int b, int transpose,
-                                       int cw, int use_smem, float* work, void* stream) {
-  if (n < 1 || m < 1 || cw < 1 || b < 1 || S < 1 || K < 1) return (int)cudaErrorInvalidValue;
+                                       int cw, int use_smem, float* work, int batch, void* stream) {
+  if (n < 1 || m < 1 || cw < 1 || b < 1 || S < 1 || K < 1 || batch < 1 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (b <= 4) return run<4>(X, n, m, vs, taus, S, K, b, transpose, cw, use_smem, work, st);
-  if (b <= 8) return run<8>(X, n, m, vs, taus, S, K, b, transpose, cw, use_smem, work, st);
-  if (b <= 16) return run<16>(X, n, m, vs, taus, S, K, b, transpose, cw, use_smem, work, st);
-  if (b <= 32) return run<32>(X, n, m, vs, taus, S, K, b, transpose, cw, use_smem, work, st);
+  if (b <= 4) return run<4>(X, n, m, vs, taus, S, K, b, transpose, cw, use_smem, work, batch, st);
+  if (b <= 8) return run<8>(X, n, m, vs, taus, S, K, b, transpose, cw, use_smem, work, batch, st);
+  if (b <= 16) return run<16>(X, n, m, vs, taus, S, K, b, transpose, cw, use_smem, work, batch, st);
+  if (b <= 32) return run<32>(X, n, m, vs, taus, S, K, b, transpose, cw, use_smem, work, batch, st);
   return (int)cudaErrorInvalidValue;
 }

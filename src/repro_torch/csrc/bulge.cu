@@ -17,11 +17,20 @@
 // and the hand-off to the next sweep.
 //
 // Design: a persistent grid, the paper's sweeps pipelined across CTAs.
-// Each CTA takes sweeps in order from a ticket (an atomic counter) and runs
-// all ops of its sweep; sweep s publishes its count of finished ops in
-// done[s].  Before op k, sweep s waits until done[s-1] >= min(k+3,
-// kmax(s-1)+1), i.e. until op (s-1, k+2) has finished, or all of sweep s-1
-// where it has fewer ops.  Why that is enough:
+// One call chases a bucket of `batch` bands (the counterpart of the
+// batching rule that jax.vmap gives the Pallas kernel), each with its own
+// progress counters.  Each CTA takes (matrix, sweep) pairs in order from one
+// ticket (an atomic counter) and runs all ops of its sweep; sweep s of
+// matrix z publishes its count of finished ops in done[z][s].  The tickets
+// walk the bucket matrix-major by groups: the matrices in groups of G, and
+// within a group sweep-major (sweep s of each of its matrices, then sweep
+// s+1).  A matrix keeps about min(A, n-2) sweeps in flight, so G =
+// ceil(CTAs / min(A, n-2)) gives every CTA a sweep to run; plain
+// matrix-major order (G = 1 on a full grid) leaves most of the card idle
+// while one band's few sweeps run.  Before op k, sweep s waits until
+// done[z][s-1] >= min(k+3, kmax(s-1)+1), i.e. until op (s-1, k+2) of its
+// own matrix has finished, or all of sweep s-1 where it has fewer ops.  Why
+// that is enough:
 //  - Every op that precedes (s, k) in the wavefront order and overlaps its
 //    window has finished.  Op (s-j, k') runs at wavefront 3(s-j)+k', before
 //    (s, k) when k' < k+3j.  The waits chain: (s-j, k+2j) finished before
@@ -31,17 +40,21 @@
 //    (j-1)(2b-1): for j >= 2 past the window's last row s+(k+2)b, for
 //    j = 1 (k' = k+3 is the only one) exactly at it.
 //  - An op that may run beside (s, k) does not touch what (s, k) reads or
-//    writes.  The only candidates are (s-1, k') with k' >= k+3 (and,
-//    mirrored, (s+1, k') with k' <= k-3): (s-1, k+3)'s window shares one
-//    element with (s, k)'s, the corner (s+(k+2)b, s+(k+2)b), which is local
-//    (3b-1, 3b-1) of one window and (0, 0) of the other, and neither op
-//    changes it: an op writes back only window rows and columns [b, 2b).
-//    Later ops of sweep s-1 lie past the window.
-//  - The sweeps before s were taken earlier, by CTAs that are running, and
-//    sweep 0 waits for nothing, so the grid cannot deadlock whether or not
-//    all its CTAs are resident.  The last ops of a sweep may reach past n
-//    (reads there are zeros, nothing is written), and a wait never asks
-//    more of done[s-1] than kmax(s-1)+1, what sweep s-1 publishes last.
+//    writes.  Of its own matrix the only candidates are (s-1, k') with
+//    k' >= k+3 (and, mirrored, (s+1, k') with k' <= k-3): (s-1, k+3)'s
+//    window shares one element with (s, k)'s, the corner (s+(k+2)b,
+//    s+(k+2)b), which is local (3b-1, 3b-1) of one window and (0, 0) of
+//    the other, and neither op changes it: an op writes back only window
+//    rows and columns [b, 2b).  Later ops of sweep s-1 lie past the window.
+//    Ops of other matrices touch other memory.
+//  - A sweep waits only on the previous sweep of its own matrix, whose
+//    ticket is G (or the last group's size) smaller, so it was taken
+//    earlier, by a CTA that is running; sweep 0 waits for nothing.  So the
+//    grid cannot deadlock whether or not all its CTAs are resident, and
+//    whatever their number against the bucket's sweeps.  The last ops of
+//    a sweep may reach past n (reads there are zeros, nothing is written),
+//    and a wait never asks more of done[z][s-1] than kmax(s-1)+1, what
+//    sweep s-1 publishes last.
 // The window's loads after a wait go through L2 (__ldcg), since L1 is not
 // coherent across SMs.  Windows of consecutive ops of a sweep overlap by
 // 2b rows and columns, but each op loads its whole window, in one round
@@ -173,44 +186,59 @@ __device__ __forceinline__ void chase_op(float* __restrict__ T, int n, int b_in,
   __syncthreads();
 }
 
-// done[0 .. n-3]: finished ops per sweep; done[n-2]: the ticket.  Zero
-// before the launch.  Thread 0 waits on sweep s-1 while thread 32 publishes
-// the op before, so the two round trips to L2 overlap.
+// done[z * (n-2) + s]: finished ops of sweep s of matrix z;
+// done[batch * (n-2)]: the ticket.  Zero before the launch.  Thread 0 waits
+// on sweep s-1 while thread 32 publishes the op before, so the two round
+// trips to L2 overlap.  T (batch, n, n), the log (batch, W, A, b | -).
 template <int kB>
 __global__ void __launch_bounds__(kThreads)
     bulge_chase_kernel(float* __restrict__ T, int n, int b_in, int A, float* __restrict__ vs,
                        float* __restrict__ taus, int* __restrict__ row0, int with_log,
-                       int* __restrict__ done) {
+                       int* __restrict__ done, int batch, int group) {
   const int b = kB > 0 ? kB : b_in;
   REPRO_DYNAMIC_SMEM(sm);
   int* s_sweep = reinterpret_cast<int*>(sm + smem_floats(b) - 1);
   const int tid = threadIdx.x;
-  const int last = n - 3;
+  const int sweeps = n - 2;
+  const long long tickets = (long long)batch * sweeps;
+  const long long slots = (long long)(3 * (n - 3) + 1) * A;  // log slots a matrix
   for (;;) {
-    if (tid == 0) *s_sweep = atomicAdd(done + n - 2, 1);
+    if (tid == 0) *s_sweep = atomicAdd(done + tickets, 1);
     __syncthreads();
-    const int s = *s_sweep;
+    const long long t = *s_sweep;
     __syncthreads();
-    if (s > last) break;
+    if (t >= tickets) break;
+    // Ticket t: group g of `group` matrices (the last may have fewer),
+    // sweep-major inside it.
+    const long long per_group = (long long)group * sweeps;
+    const int g = (int)(t / per_group);
+    const int r = (int)(t - g * per_group);
+    const int gsize = min(group, batch - g * group);
+    const int s = r / gsize;
+    const long long z = (long long)g * group + r % gsize;
+    float* Tz = T + z * n * n;
+    int* dz = done + z * sweeps;
     const int ops = (n - 3 - s) / b + 1;
     const int prev_ops = (n - 2 - s) / b + 1;  // kmax(s-1) + 1
-    int seen = 0;                              // thread 0: done[s-1] as last read
+    int seen = 0;                              // thread 0: done[z][s-1] as last read
     for (int k = 0; k < ops; ++k) {
       const int target = min(k + 3, prev_ops);
-      if (s > 0 && tid == 0 && seen < target) seen = repro::flag_wait(done + s - 1, target);
-      if (k > 0 && tid == 32) repro::flag_publish(done + s, k);
+      if (s > 0 && tid == 0 && seen < target) seen = repro::flag_wait(dz + s - 1, target);
+      if (k > 0 && tid == 32) repro::flag_publish(dz + s, k);
       __syncthreads();
-      chase_op<kB>(T, n, b, s, k, A, sm, vs, taus, row0, with_log);
+      chase_op<kB>(Tz, n, b, s, k, A, sm, vs + z * slots * b, taus + z * slots, row0 + z * slots,
+                   with_log);
     }
-    if (tid == 32) repro::flag_publish(done + s, ops);
+    if (tid == 32) repro::flag_publish(dz + s, ops);
   }
   if (!with_log) return;
   // Inactive slots: slot (wf, a) holds op (s, k) = (wf/3 - a, wf - 3s).
-  const long long slots = (long long)(3 * (n - 3) + 1) * A;
-  for (long long i = (long long)blockIdx.x * blockDim.x + tid; i < slots;
+  const int last = n - 3;
+  for (long long i = (long long)blockIdx.x * blockDim.x + tid; i < batch * slots;
        i += (long long)gridDim.x * blockDim.x) {
-    const int wf = (int)(i / A);
-    const int a = (int)(i % A);
+    const long long j = i % slots;
+    const int wf = (int)(j / A);
+    const int a = (int)(j % A);
     const int s = wf / 3 - a;
     const int k = wf - 3 * s;
     if (s >= 0 && s <= last && k <= (n - 3 - s) / b) continue;
@@ -222,7 +250,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int kB>
 int launch(float* T, int n, int b, int A, int ctas, float* vs, float* taus, int* row0,
-           int with_log, int* work, void* stream) {
+           int with_log, int* work, int batch, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int smem = smem_floats(b) * (int)sizeof(float);
   cudaError_t err;
@@ -239,31 +267,39 @@ int launch(float* T, int n, int b, int A, int ctas, float* vs, float* taus, int*
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bulge_chase_kernel<kB>,
                                                         kThreads, (size_t)smem);
     if (err != cudaSuccess) return (int)err;
-    ctas = std::min(per_sm * sms, std::min(A, n - 2));
+    ctas = (int)std::min<long long>(per_sm * sms, (long long)batch * std::min(A, n - 2));
     if (ctas < 1) return (int)cudaErrorInvalidValue;
   }
+  // Enough matrices a group for the grid's CTAs, a matrix keeping about
+  // min(A, n-2) sweeps in flight.
+  const int inflight = std::min(A, n - 2);
+  const int group = std::max(1, std::min(batch, (ctas + inflight - 1) / inflight));
   REPRO_LAUNCH_PERSISTENT(bulge_chase_kernel<kB>, (unsigned)ctas, kThreads, smem, st)
-  (T, n, b, A, vs, taus, row0, with_log, work);
+  (T, n, b, A, vs, taus, row0, with_log, work, batch, group);
   REPRO_CHECK_LAUNCH();
   return 0;
 }
 
 }  // namespace
 
-// Bytes of the zeroed workspace the launcher needs: n-2 progress counters
-// and the ticket.
-extern "C" long long bulge_wavefront_workspace(int n) {
-  return (long long)(n - 1) * (long long)sizeof(int);
+// Bytes of the zeroed workspace the launcher needs for a bucket of `batch`
+// bands: n-2 progress counters a matrix and the ticket.
+extern "C" long long bulge_wavefront_workspace(int n, int batch) {
+  return ((long long)batch * (n - 2) + 1) * (long long)sizeof(int);
 }
 
-// One launch for the whole chase.  T: (n, n) row-major, chased in place;
-// A: slots per wavefront of the log; ctas: CTAs of the persistent grid, or
-// 0 for as many as the card keeps resident, at most min(A, n-2), the sweeps
-// that can be in flight; work: bulge_wavefront_workspace(n) zeroed bytes.
+// One launch for the whole chase of a bucket.  T: (batch, n, n) row-major,
+// chased in place; A: slots per wavefront of the log, (batch, W, A, b);
+// ctas: CTAs of the persistent grid, or 0 for as many as the card keeps
+// resident, at most batch x min(A, n-2), the sweeps that can be in flight
+// (the ticket groups follow from it, see above);
+// work: bulge_wavefront_workspace(n, batch) zeroed bytes.
 extern "C" int bulge_wavefront_launch(float* T, int n, int b, int A, int ctas, float* vs,
-                                      float* taus, int* row0, int with_log, int* work,
+                                      float* taus, int* row0, int with_log, int* work, int batch,
                                       void* stream) {
-  if (n < 3 || b < 2 || A < 1 || ctas < 0) return (int)cudaErrorInvalidValue;
-  return b == 8 ? launch<8>(T, n, b, A, ctas, vs, taus, row0, with_log, work, stream)
-                : launch<0>(T, n, b, A, ctas, vs, taus, row0, with_log, work, stream);
+  if (n < 3 || b < 2 || A < 1 || ctas < 0 || batch < 1 ||
+      (long long)batch * (n - 2) > (1LL << 30))
+    return (int)cudaErrorInvalidValue;
+  return b == 8 ? launch<8>(T, n, b, A, ctas, vs, taus, row0, with_log, work, batch, stream)
+                : launch<0>(T, n, b, A, ctas, vs, taus, row0, with_log, work, batch, stream);
 }

@@ -55,6 +55,13 @@
 //                      in 3xTF32; writes the tile and its mirror
 //   K6 write_f         the exact banded values F into Bv[:, :w] and F^T into
 //                      Bv[:w, w:]
+// A bucket.  One call runs the block on ``batch`` views Bv + z * sbv at once
+// (the counterpart of the batching rule that jax.vmap gives the Pallas
+// kernel): every launch above takes the matrix z from blockIdx.y, and each
+// matrix has its own copy of every buffer and ticket (see Bucket), so a
+// last-arrival sum never mixes matrices.  K1's cluster stays one cluster a
+// matrix, along x.  The arithmetic of each matrix is that of a call on it
+// alone, bit for bit.
 // No float atomics: every reduction adds its terms in an order fixed by the
 // shapes, so two calls on one input give the same bits.  Every product of
 // the TPU kernel's body stays inside these kernels (no cuBLAS).  Only K5 runs on the tensor cores; TMA and wgmma are later work.
@@ -75,18 +82,50 @@ constexpr int kGemvVh = 32768;    // floats of Vhat staged per chunk of the GEMV
 constexpr int kGemvUnroll = 16;   // loads of Bv in flight per row and lane
 constexpr int kGemvThreads = 512;
 
+inline __host__ __device__ long long blocks_for(long long n, int per) { return (n + per - 1) / per; }
+
+// Column chunks of panel_xred over c < c0, and the floats of its partials
+// over every panel of a call (slots of 2 * kXredCols * 32 floats).
+inline __host__ __device__ int xred_chunks(int c0) { return (int)blocks_for(c0, kXredCols); }
+inline __host__ __device__ long long xred_part_floats(int m, int w, int b) {
+  return blocks_for(m, kXredRows) * xred_chunks(w) * 2 * kXredCols * 32;
+}
+
+// Floats (ints for the tickets) of one matrix's copy of each buffer of a
+// call: a buffer holds the bucket's copies back to back, matrix z at
+// z times its size.
+struct Bucket {
+  long long mw, ts, mb, x, y, r;
+  int tickets;
+  __host__ __device__ Bucket(int m, int w, int b)
+      : mw((long long)m * w), ts((long long)w * b), mb((long long)m * b), x(2LL * w * b),
+        y((long long)b * b),
+        r(xred_part_floats(m, w, b) + blocks_for(m, kGemvThreads / 32) * 32 * 32),
+        tickets(xred_chunks(w) + 1) {}
+};
+
 // Panel j as one cluster: the compensated panel's QR, T_j and the
 // write-out of V, Vh and F (see above).  gridDim.x is the cluster size;
 // kSmem: the slices are in shared memory.
 template <int BM, bool kSmem>
-__global__ void panel_qr_cluster(const float* __restrict__ Bv, long long ldb, int m, int w,
-                                 int b, int c0, int jpanel,
+__global__ void panel_qr_cluster(const float* __restrict__ Bv, long long ldb, long long sbv, int m,
+                                 int w, int b, int c0, int jpanel,
                                  float* __restrict__ V, float* __restrict__ Vh, float* __restrict__ F,
                                  float* __restrict__ Ts, float* __restrict__ P,
-                                 int* __restrict__ tickets, int ntickets) {
+                                 int* __restrict__ tickets) {
   REPRO_DYNAMIC_SMEM(sm);
   using L = repro::ClusterQrSmem<BM>;
   const int cs = gridDim.x;
+  const long long z = blockIdx.y;
+  const Bucket bk(m, w, b);
+  const int ntickets = bk.tickets;
+  Bv += z * sbv;
+  V += z * bk.mw;
+  F += z * bk.mw;
+  Vh += z * bk.mb;
+  Ts += z * bk.ts;
+  P += z * (long long)(m + cs) * b;
+  tickets += z * bk.tickets;
   const int rank = (int)repro::cluster_rank();
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -177,6 +216,16 @@ __global__ void __launch_bounds__(kXredCols * kXredGroups)
     panel_xred(const float* __restrict__ V, const float* __restrict__ Z,
                const float* __restrict__ Vh, int m, int w, int b, int r0, int c0, int nrc,
                float* __restrict__ part, int* __restrict__ tickets, float* __restrict__ X) {
+  {
+    const long long z = blockIdx.y;
+    const Bucket bk(m, w, b);
+    V += z * bk.mw;
+    Z += z * bk.mw;
+    Vh += z * bk.mb;
+    part += z * bk.r;
+    tickets += z * bk.tickets;
+    X += z * bk.x;
+  }
   __shared__ float sVh[kXredRows * BM];
   __shared__ float sx[2 * kXredCols * BM];
   __shared__ int s_last;
@@ -254,13 +303,27 @@ struct Gemv {
 // sum to its slot of ``part``; the last CTA to arrive adds the slots in
 // order into Y.
 template <int BM, bool kXSmem>
-__global__ void panel_gemv(const float* __restrict__ Bv, long long ldb, int m, int w,
+__global__ void panel_gemv(const float* __restrict__ Bv, long long ldb, long long sbv, int m, int w,
                            int b, int r0, int c0, const float* __restrict__ V,
                            const float* __restrict__ Z, const float* __restrict__ Vh,
                            const float* __restrict__ X,
                            const float* __restrict__ T, float* __restrict__ MT,
                            float* __restrict__ part, int* __restrict__ ticket,
                            float* __restrict__ Y) {
+  {
+    const long long z = blockIdx.y;
+    const Bucket bk(m, w, b);
+    Bv += z * sbv;
+    V += z * bk.mw;
+    Z += z * bk.mw;
+    Vh += z * bk.mb;
+    X += z * bk.x;
+    T += z * bk.ts;
+    MT += z * bk.mb;
+    part += z * bk.r;
+    ticket += z * bk.tickets;
+    Y += z * bk.y;
+  }
   constexpr int R = Gemv<BM>::kRows;
   constexpr int KC = Gemv<BM>::kChunk;
   constexpr int U = kGemvUnroll;
@@ -410,9 +473,21 @@ __global__ void panel_gemv(const float* __restrict__ Bv, long long ldb, int m, i
 template <int BM>
 __global__ void panel_zfinal(const float* __restrict__ MT, const float* __restrict__ Vh,
                              const float* __restrict__ T, const float* __restrict__ Y,
-                             const float* __restrict__ Bv, long long ldb, int m, int w,
-                             int b, int r0, int c0, const float* __restrict__ V,
+                             const float* __restrict__ Bv, long long ldb, long long sbv, int m,
+                             int w, int b, int r0, int c0, const float* __restrict__ V,
                              float* __restrict__ Z, float* __restrict__ F) {
+  {
+    const long long z = blockIdx.y;
+    const Bucket bk(m, w, b);
+    MT += z * bk.mb;
+    Vh += z * bk.mb;
+    T += z * bk.ts;
+    Y += z * bk.y;
+    Bv += z * sbv;
+    V += z * bk.mw;
+    Z += z * bk.mw;
+    F += z * bk.mw;
+  }
   __shared__ float sG[BM * BM];
   __shared__ float sZi[kZRows * BM];  // Z_j of this CTA's rows
   __shared__ float sVi[kZRows * BM];  // V[i, c0:c0+b] of this CTA's rows
@@ -486,18 +561,23 @@ __global__ void panel_zfinal(const float* __restrict__ MT, const float* __restri
 // Lower tiles of C = Bv[w:, w:]: C -= Z V^T + V Z^T (k = w), in place, each
 // tile written with its mirror (the float32 walk of csrc/syr2k_tile.cuh).
 __global__ void __launch_bounds__(repro::Syr2kF32::kThreads)
-    trailing_lower(float* __restrict__ Bv, long long ldb, int m, int w,
+    trailing_lower(float* __restrict__ Bv, long long ldb, long long sbv, int m, int w,
                    const float* __restrict__ V, const float* __restrict__ Z) {
   REPRO_DYNAMIC_SMEM(sm);
-  float* C = Bv + (long long)w * ldb + w;
+  const long long mw = (long long)m * w;
+  V += blockIdx.y * mw;
+  Z += blockIdx.y * mw;
+  float* C = Bv + blockIdx.y * sbv + (long long)w * ldb + w;
   repro::syr2k_tf32_tile(Z + (long long)w * w, V + (long long)w * w, w, m - w, w, -1.f, C, ldb, C,
                          ldb, sm);
 }
 
-__global__ void write_f(float* __restrict__ Bv, long long ldb, int m, int w,
+__global__ void write_f(float* __restrict__ Bv, long long ldb, long long sbv, int m, int w,
                         const float* __restrict__ F) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)m * w) return;
+  Bv += blockIdx.y * sbv;
+  F += blockIdx.y * (long long)m * w;
   const int i = (int)(idx / w);
   const int c = (int)(idx % w);
   const float f = F[idx];
@@ -505,19 +585,10 @@ __global__ void write_f(float* __restrict__ Bv, long long ldb, int m, int w,
   if (i >= w) Bv[(long long)c * ldb + i] = f;
 }
 
-inline unsigned blocks_for(long long n, int per) { return (unsigned)((n + per - 1) / per); }
-
-// Column chunks of panel_xred over c < c0, and the floats of its partials
-// over every panel of a call (slots of 2 * kXredCols * 32 floats).
-inline int xred_chunks(int c0) { return (int)blocks_for(c0, kXredCols); }
-inline long long xred_part_floats(int m, int w, int b) {
-  return (long long)blocks_for(m, kXredRows) * xred_chunks(w) * 2 * kXredCols * 32;
-}
-
 template <int BM>
-int run(float* Bv, long long ldb, int m, int w, int b, float* V, float* Ts, float* Z,
-        float* F, float* P, float* Vh, float* MT, float* X, float* Y, float* R, int* tickets,
-        int qr_smem_max, int cluster, cudaStream_t st) {
+int run(float* Bv, long long ldb, long long sbv, int batch, int m, int w, int b, float* V,
+        float* Ts, float* Z, float* F, float* P, float* Vh, float* MT, float* X, float* Y,
+        float* R, int* tickets, int qr_smem_max, int cluster, cudaStream_t st) {
   using L = repro::ClusterQrSmem<BM>;
   const int vh_bytes = BM * Gemv<BM>::kChunk * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -553,71 +624,82 @@ int run(float* Bv, long long ldb, int m, int w, int b, float* V, float* Ts, floa
   // last ticket is panel_gemv's.
   const int ntickets = xred_chunks(w) + 1;
   float* gemv_part = R + xred_part_floats(m, w, b);
+  const unsigned nz = (unsigned)batch;
   for (int j = 0; j < q; ++j) {
     const int c0 = j * b;
     const int r0 = c0 + b;
-    err = REPRO_LAUNCH_CLUSTER(qr, dim3(cs), dim3(repro::kQrThreads), (size_t)qr_smem, st,
-                               (unsigned)cs, (const float*)Bv, ldb, m, w, b, c0, j, V, Vh, F,
-                               Ts, P, tickets, ntickets);
+    err = REPRO_LAUNCH_CLUSTER(qr, dim3(cs, nz), dim3(repro::kQrThreads), (size_t)qr_smem, st,
+                               (unsigned)cs, (const float*)Bv, ldb, sbv, m, w, b, c0, j, V, Vh, F,
+                               Ts, P, tickets);
     if (err != cudaSuccess) return (int)err;
     REPRO_CHECK_LAUNCH();
     if (j > 0) {
       const int nrc = (int)blocks_for(m - r0, kXredRows);
-      REPRO_LAUNCH(panel_xred<BM>, (unsigned)(nrc * xred_chunks(c0)), kXredCols * kXredGroups, 0, st)
+      REPRO_LAUNCH(panel_xred<BM>, dim3(nrc * xred_chunks(c0), nz), kXredCols * kXredGroups, 0, st)
       (V, Z, Vh, m, w, b, r0, c0, nrc, R, tickets, X);
       REPRO_CHECK_LAUNCH();
     }
     const int x_bytes = 2 * c0 * b * (int)sizeof(float);
     const bool x_in_smem = x_bytes <= kGemvSmemMax;
     auto gemv = x_in_smem ? panel_gemv<BM, true> : panel_gemv<BM, false>;
-    REPRO_LAUNCH(gemv, blocks_for(m, gemv_rows), kGemvThreads, vh_bytes + (x_in_smem ? x_bytes : 0), st)
-    (Bv, ldb, m, w, b, r0, c0, V, Z, Vh, X, Ts + (long long)j * b * b, MT, gemv_part,
+    REPRO_LAUNCH(gemv, dim3(blocks_for(m, gemv_rows), nz), kGemvThreads,
+                 vh_bytes + (x_in_smem ? x_bytes : 0), st)
+    (Bv, ldb, sbv, m, w, b, r0, c0, V, Z, Vh, X, Ts + (long long)j * b * b, MT, gemv_part,
      tickets + ntickets - 1, Y);
     REPRO_CHECK_LAUNCH();
-    REPRO_LAUNCH(panel_zfinal<BM>, blocks_for(m, kZRows), kThreads, 0, st)
-    (MT, Vh, Ts + (long long)j * b * b, Y, Bv, ldb, m, w, b, r0, c0, V, Z, F);
+    REPRO_LAUNCH(panel_zfinal<BM>, dim3(blocks_for(m, kZRows), nz), kThreads, 0, st)
+    (MT, Vh, Ts + (long long)j * b * b, Y, Bv, ldb, sbv, m, w, b, r0, c0, V, Z, F);
     REPRO_CHECK_LAUNCH();
   }
   using S = repro::Syr2kF32;
   err = cudaFuncSetAttribute(trailing_lower, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
   if (err != cudaSuccess) return (int)err;
   const long long nt = (m - w + kTile - 1) / kTile;
-  REPRO_LAUNCH(trailing_lower, (unsigned)(nt * (nt + 1) / 2), S::kThreads, S::kSmem, st)
-  (Bv, ldb, m, w, V, Z);
+  REPRO_LAUNCH(trailing_lower, dim3(nt * (nt + 1) / 2, nz), S::kThreads, S::kSmem, st)
+  (Bv, ldb, sbv, m, w, V, Z);
   REPRO_CHECK_LAUNCH();
-  REPRO_LAUNCH(write_f, blocks_for((long long)m * w, kThreads), kThreads, 0, st)
-  (Bv, ldb, m, w, F);
+  REPRO_LAUNCH(write_f, dim3(blocks_for((long long)m * w, kThreads), nz), kThreads, 0, st)
+  (Bv, ldb, sbv, m, w, F);
   REPRO_CHECK_LAUNCH();
   return 0;
 }
 
 }  // namespace
 
-// The workspace of one call: floats of R (the reductions' partials) and
-// ints of the tickets (no initial value needed).
+// The workspace of one matrix: floats of R (the reductions' partials) and
+// ints of the tickets (no initial value needed); a call on a bucket takes
+// `batch` times both.
 extern "C" long long fused_panel_update_workspace(int m, int w, int b, int* ntickets) {
-  *ntickets = xred_chunks(w) + 1;
-  return xred_part_floats(m, w, b) + (long long)blocks_for(m, kGemvThreads / 32) * 32 * 32;
+  const Bucket bk(m, w, b);
+  *ntickets = bk.tickets;
+  return bk.r;
 }
 
-// Launch count of one call: 4 per panel (3 for the first) + 2.  cluster:
-// CTAs of the panel QR's cluster, 1 to 16 (8 where the card cannot
-// co-schedule more).  P, (m + cluster) * b floats, holds the panel slices
-// when a slice exceeds qr_smem_max bytes.  R and tickets: the workspace
-// that fused_panel_update_workspace sizes.
-extern "C" int fused_panel_update_launch(float* Bv, long long ldb, int m, int w, int b,
-                                         float* V, float* Ts, float* Z, float* F, float* P,
-                                         float* Vh, float* MT, float* X, float* Y, float* R,
-                                         int* tickets, int qr_smem_max, int cluster,
+// Launch count of one call, whatever its batch: 4 per panel (3 for the
+// first) + 2.  Bv: `batch` views (m, m) with leading dimension ldb, view z
+// at Bv + z * sbv; batch <= 65535 (gridDim.y).  cluster: CTAs of the panel
+// QR's cluster, 1 to 16 (8 where the card cannot co-schedule more).  Every
+// other buffer holds `batch` copies back to back: V, Z, F (m, w); Ts
+// (w/b, b, b); P, (m + cluster, b), which holds the panel slices when a
+// slice exceeds qr_smem_max bytes; Vh, MT (m, b); X (2 w b); Y (b, b); R
+// and tickets the workspace that fused_panel_update_workspace sizes.
+extern "C" int fused_panel_update_launch(float* Bv, long long ldb, long long sbv, int batch, int m,
+                                         int w, int b, float* V, float* Ts, float* Z, float* F,
+                                         float* P, float* Vh, float* MT, float* X, float* Y,
+                                         float* R, int* tickets, int qr_smem_max, int cluster,
                                          void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (b < 1 || w % b != 0 || w < b || m - w < b || cluster < 1 || cluster > 16)
+  if (b < 1 || w % b != 0 || w < b || m - w < b || cluster < 1 || cluster > 16 || batch < 1 ||
+      batch > 65535)
     return (int)cudaErrorInvalidValue;
   if (b <= 8)
-    return run<8>(Bv, ldb, m, w, b, V, Ts, Z, F, P, Vh, MT, X, Y, R, tickets, qr_smem_max, cluster, st);
+    return run<8>(Bv, ldb, sbv, batch, m, w, b, V, Ts, Z, F, P, Vh, MT, X, Y, R, tickets,
+                  qr_smem_max, cluster, st);
   if (b <= 16)
-    return run<16>(Bv, ldb, m, w, b, V, Ts, Z, F, P, Vh, MT, X, Y, R, tickets, qr_smem_max, cluster, st);
+    return run<16>(Bv, ldb, sbv, batch, m, w, b, V, Ts, Z, F, P, Vh, MT, X, Y, R, tickets,
+                   qr_smem_max, cluster, st);
   if (b <= 32)
-    return run<32>(Bv, ldb, m, w, b, V, Ts, Z, F, P, Vh, MT, X, Y, R, tickets, qr_smem_max, cluster, st);
+    return run<32>(Bv, ldb, sbv, batch, m, w, b, V, Ts, Z, F, P, Vh, MT, X, Y, R, tickets,
+                   qr_smem_max, cluster, st);
   return (int)cudaErrorInvalidValue;
 }

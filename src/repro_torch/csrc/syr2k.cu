@@ -19,6 +19,9 @@
 // triangle only, as ops.syr2k's tril(low) + tril(low, -1).T is.  Ragged
 // edges are masked, not padded; C may be absent (zeros) and may be a
 // strided view (leading dimension ldc).  Out of place: out is a new matrix.
+// A bucket of `batch` updates (the counterpart of the batching rule that
+// jax.vmap gives the Pallas kernel) is one launch, the matrix taken from
+// blockIdx.y.
 // Both walks stage k in strips with 16-byte cp.async (zero-filled past k
 // and n, element by element where a 16-byte copy does not fit or is
 // misaligned) through the pipeline of syr2k_tile.cuh, and share its
@@ -42,11 +45,13 @@ namespace {
 using repro::bf16_bits;
 
 __global__ void __launch_bounds__(repro::Syr2kF32::kThreads)
-    syr2k_lower(const float* __restrict__ A, const float* __restrict__ B, long long ldab, int n,
-                int k, float alpha, const float* __restrict__ C, long long ldc,
-                float* __restrict__ out) {
+    syr2k_lower(const float* __restrict__ A, const float* __restrict__ B, long long ldab,
+                long long sab, int n, int k, float alpha, const float* __restrict__ C,
+                long long ldc, long long sc, float* __restrict__ out) {
   REPRO_DYNAMIC_SMEM(sm);
-  repro::syr2k_tf32_tile(A, B, ldab, n, k, alpha, C, ldc, out, n, sm);
+  const long long z = blockIdx.y;
+  repro::syr2k_tf32_tile(A + z * sab, B + z * sab, ldab, n, k, alpha, C ? C + z * sc : C, ldc,
+                         out + z * n * n, n, sm);
 }
 
 // ---- bf16 on the tensor cores --------------------------------------------
@@ -67,9 +72,17 @@ __device__ __forceinline__ unsigned word(const bf16_bits* s, int row, int col) {
 
 __global__ void __launch_bounds__(kMmaThreads)
     syr2k_lower_bf16(const bf16_bits* __restrict__ A, const bf16_bits* __restrict__ B,
-                     long long ldab, int n, int k, float alpha, const bf16_bits* __restrict__ C,
-                     long long ldc, bf16_bits* __restrict__ out) {
+                     long long ldab, long long sab, int n, int k, float alpha,
+                     const bf16_bits* __restrict__ C, long long ldc, long long sc,
+                     bf16_bits* __restrict__ out) {
   REPRO_DYNAMIC_SMEM(sm_f);
+  {
+    const long long z = blockIdx.y;
+    A += z * sab;
+    B += z * sab;
+    if (C) C += z * sc;
+    out += z * n * n;
+  }
   bf16_bits* sm = reinterpret_cast<bf16_bits*>(sm_f);
   int ti, tj;
   repro::lower_tile(blockIdx.x, ti, tj);
@@ -151,21 +164,23 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 }  // namespace
 
-// One launch.  A, B: (n, k) row-major with leading dimension ldab; C: (n, n)
-// with leading dimension ldc, or null for zeros; out: (n, n) contiguous.
-// bf16: 0 for float32 operands, 1 for bf16.
-extern "C" int syr2k_launch(const void* A, const void* B, long long ldab, int n, int k,
-                            float alpha, const void* C, long long ldc, void* out, int bf16,
-                            void* stream) {
-  if (n < 1 || k < 0) return (int)cudaErrorInvalidValue;
+// One launch, whatever its batch.  A, B: `batch` (n, k) row-major with
+// leading dimension ldab, matrix z at z * sab; C: `batch` (n, n) with
+// leading dimension ldc, matrix z at z * sc, or null for zeros; out:
+// (batch, n, n) contiguous.  batch <= 65535 (gridDim.y).  bf16: 0 for
+// float32 operands, 1 for bf16.
+extern "C" int syr2k_launch(const void* A, const void* B, long long ldab, long long sab, int n,
+                            int k, float alpha, const void* C, long long ldc, long long sc,
+                            void* out, int bf16, int batch, void* stream) {
+  if (n < 1 || k < 0 || batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  auto tiles = [n](int tile) {
+  auto tiles = [n, batch](int tile) {
     const long long nt = (n + tile - 1) / tile;
-    return (unsigned)(nt * (nt + 1) / 2);
+    return dim3((unsigned)(nt * (nt + 1) / 2), (unsigned)batch);
   };
   if (bf16) {
     REPRO_LAUNCH(syr2k_lower_bf16, tiles(kTile), kMmaThreads, kMmaSmem, st)
-    ((const bf16_bits*)A, (const bf16_bits*)B, ldab, n, k, alpha, (const bf16_bits*)C, ldc,
+    ((const bf16_bits*)A, (const bf16_bits*)B, ldab, sab, n, k, alpha, (const bf16_bits*)C, ldc, sc,
      (bf16_bits*)out);
   } else {
     using W = repro::Syr2kF32;
@@ -173,7 +188,7 @@ extern "C" int syr2k_launch(const void* A, const void* B, long long ldab, int n,
                                            W::kSmem);
     if (err != cudaSuccess) return (int)err;
     REPRO_LAUNCH(syr2k_lower, tiles(W::kTile), W::kThreads, W::kSmem, st)
-    ((const float*)A, (const float*)B, ldab, n, k, alpha, (const float*)C, ldc, (float*)out);
+    ((const float*)A, (const float*)B, ldab, sab, n, k, alpha, (const float*)C, ldc, sc, (float*)out);
   }
   REPRO_CHECK_LAUNCH();
   return 0;

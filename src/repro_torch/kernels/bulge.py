@@ -3,8 +3,10 @@
 Replaces ``repro.kernels.bulge.bulge_wavefront_pallas`` and its wrapper
 ``repro.kernels.ops.bulge_wavefront`` (minus the fallback).  One call is
 one CUDA launch: a persistent grid whose CTAs take the sweeps in order and
-hand them on through flags.  The log comes out in the plain version's
-(W, A, b) layout with A = ``max_active_sweeps``.
+hand them on through flags.  A bucket of bands (B, n, n) is one launch too
+(one grid over every matrix's sweeps), as ``jax.vmap`` makes the Pallas
+kernel one call.  The log comes out in the plain version's (W, A, b)
+layout with A = ``max_active_sweeps``, one a matrix.
 """
 from __future__ import annotations
 
@@ -19,8 +21,8 @@ __all__ = ["bulge_wavefront_cuda"]
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             _P, _P, _P, ctypes.c_int, _P, _P]
-_WORKSPACE_ARGTYPES = [ctypes.c_int]
+             _P, _P, _P, ctypes.c_int, _P, ctypes.c_int, _P]
+_WORKSPACE_ARGTYPES = [ctypes.c_int, ctypes.c_int]
 
 
 def _lib():
@@ -32,10 +34,11 @@ def _lib():
 
 
 def bulge_wavefront_cuda(B: torch.Tensor, b: int, *, return_log: bool = False):
-    """Kernel B: band (dense (n, n) float32 CUDA tensor, bandwidth ``b``) ->
-    tridiagonal.  Returns ``T`` or ``(T, ChaseLog)``; ``B`` is not modified.
-    The persistent grid has as many CTAs as the card keeps resident, at
-    most the sweeps that can be in flight."""
+    """Kernel B: band (dense (n, n) float32 CUDA tensor, bandwidth ``b``),
+    or a bucket of bands (B, n, n), -> tridiagonal.  Returns ``T`` or
+    ``(T, ChaseLog)`` with leading dimensions as ``B``'s; ``B`` is not
+    modified.  The persistent grid has as many CTAs as the card keeps
+    resident, at most the sweeps that can be in flight."""
     from repro_torch.core.bulge_chasing import (
         ChaseLog, _trivial_log, max_active_sweeps, num_wavefronts,
     )
@@ -44,9 +47,11 @@ def bulge_wavefront_cuda(B: torch.Tensor, b: int, *, return_log: bool = False):
         raise ValueError(f"bulge_wavefront_cuda needs a CUDA tensor, got {B.device}")
     if B.dtype != torch.float32:
         raise ValueError(f"bulge_wavefront_cuda takes float32, got {B.dtype}")
-    if B.ndim != 2 or B.shape[0] != B.shape[1]:
-        raise ValueError(f"expected a square matrix, got {tuple(B.shape)}")
-    n = B.shape[0]
+    if B.ndim not in (2, 3) or B.shape[-1] != B.shape[-2]:
+        raise ValueError(f"expected a square matrix (n, n) or a bucket (B, n, n), got {tuple(B.shape)}")
+    n = B.shape[-1]
+    lead = tuple(B.shape[:-2])
+    batch = B.shape[0] if lead else 1
     if n < 3 or b <= 1:  # no chase op exists: T == B
         T = B.clone()
         return (T, _trivial_log(B, b)) if return_log else T
@@ -56,23 +61,23 @@ def bulge_wavefront_cuda(B: torch.Tensor, b: int, *, return_log: bool = False):
                          f"{limit('SMEM_PER_BLOCK_MAX')}")
     A = max_active_sweeps(n, b)
     W = num_wavefronts(n, b)
-    T = torch.empty((n, n), dtype=torch.float32, device=B.device)
+    T = torch.empty(lead + (n, n), dtype=torch.float32, device=B.device)
     T.copy_(B)
     kw = dict(device=B.device)
     if return_log:
-        vs = torch.empty((W, A, b), dtype=torch.float32, **kw)
-        taus = torch.empty((W, A), dtype=torch.float32, **kw)
-        row0 = torch.empty((W, A), dtype=torch.int32, **kw)
+        vs = torch.empty(lead + (W, A, b), dtype=torch.float32, **kw)
+        taus = torch.empty(lead + (W, A), dtype=torch.float32, **kw)
+        row0 = torch.empty(lead + (W, A), dtype=torch.int32, **kw)
     else:
         vs = taus = torch.empty((1,), dtype=torch.float32, **kw)
         row0 = torch.empty((1,), dtype=torch.int32, **kw)
     fn, ws = _lib()
-    # Scratch: the sweeps' progress counters and the ticket, zeroed.
-    work = torch.zeros((ws(n) // 4,), dtype=torch.int32, **kw)
+    # Scratch: every matrix's sweep progress counters and the ticket, zeroed.
+    work = torch.zeros((ws(n, batch) // 4,), dtype=torch.int32, **kw)
     with torch.cuda.device(B.device):
         err = fn(
             T.data_ptr(), n, b, A, 0, vs.data_ptr(), taus.data_ptr(),
-            row0.data_ptr(), int(return_log), work.data_ptr(),
+            row0.data_ptr(), int(return_log), work.data_ptr(), batch,
             torch.cuda.current_stream().cuda_stream,
         )
     cuda_lib.check(err, "bulge_wavefront")

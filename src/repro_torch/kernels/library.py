@@ -9,6 +9,9 @@ per call than ``torch.library.custom_op``).  Each operator also has
 * a fake implementation (``register_fake``): its outputs' shapes, dtypes
   and strides from the input shapes, with no work, so the refresh runs on
   ``FakeTensorMode`` tensors (the dry-run);
+* a bucket form (kernels A–D): the inputs may carry a leading dimension
+  B, and one call then runs the kernel on every matrix of the bucket, as
+  ``jax.vmap``'s batching rule gives the Pallas kernel a leading grid axis;
 * a work formula registered with ``torch.utils.flop_counter``
   (``kernels/work.py``), so ``FlopCounterMode`` and
   ``repro_torch.analysis`` count the FLOPs of the kernel's function,
@@ -24,6 +27,8 @@ below restore the launchers' return values (``(Bv, V, Ts)``, a
 they always were, inside the launchers, so a fake call counts nothing.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
@@ -57,9 +62,19 @@ def _cuda_fused_panel_update(Bv, b, w):
     return V, Ts
 
 
+def _lead(t):
+    """A call's leading (bucket) dimensions: () for one matrix, (B,)."""
+    return tuple(t.shape[:-2])
+
+
+def _batch(shape) -> int:
+    """Matrices of a call, from an input's shape as the FLOP counter passes it."""
+    return math.prod(shape[:-2])
+
+
 def _fake_fused_panel_update(Bv, b, w):
-    m = Bv.shape[0]
-    return Bv.new_empty((m, w)), Bv.new_empty((w // b, b, b))
+    m = Bv.shape[-1]
+    return Bv.new_empty(_lead(Bv) + (m, w)), Bv.new_empty(_lead(Bv) + (w // b, b, b))
 
 
 def _cuda_bulge_wavefront(B, b):
@@ -75,10 +90,10 @@ def _log_shape(n: int, b: int):
 
 
 def _fake_bulge_wavefront(B, b):
-    n = B.shape[0]
+    n = B.shape[-1]
     W, A, bb = _log_shape(n, b)
-    lead = (W,) if A is None else (W, A)
-    return (B.new_empty((n, n)), B.new_empty(lead + (bb,)), B.new_empty(lead),
+    lead = _lead(B) + ((W,) if A is None else (W, A))
+    return (B.new_empty(B.shape), B.new_empty(lead + (bb,)), B.new_empty(lead),
             B.new_empty(lead, dtype=torch.int32))
 
 
@@ -103,13 +118,13 @@ def _cuda_syr2k(A, B, C, alpha):
 
 
 def _fake_syr2k(A, B, C, alpha):
-    n = A.shape[0]
-    return A.new_empty((n, n))
+    n = A.shape[-2]
+    return A.new_empty(_lead(A) + (n, n))
 
 
 def _fake_trailing_update(C, Y, Z):
-    n = Z.shape[0]
-    return Z.new_empty((n, n))
+    n = Z.shape[-2]
+    return Z.new_empty(_lead(Z) + (n, n))
 
 
 def _fake_panel_qr(panel):
@@ -122,25 +137,28 @@ def _flops(w: work.Work) -> int:
 
 
 # operator -> (schema, CUDA implementation, fake implementation, FLOPs from
-# input shapes, as ``torch.utils.flop_counter`` passes them)
+# input shapes, as ``torch.utils.flop_counter`` passes them).  Kernels A–D
+# take one matrix or a bucket (a leading dimension B): B times the work.
 _OPS = {
     "fused_panel_update": ("fused_panel_update(Tensor(a!) Bv, int b, int w) -> (Tensor, Tensor)",
                            _cuda_fused_panel_update, _fake_fused_panel_update,
-                           lambda Bv, b, w, out_shape=None: _flops(work.fused_panel_update(Bv[0], w, b))),
+                           lambda Bv, b, w, out_shape=None: _flops(
+                               work.fused_panel_update(Bv[-1], w, b, batch=_batch(Bv)))),
     "bulge_wavefront": ("bulge_wavefront(Tensor B, int b) -> (Tensor, Tensor, Tensor, Tensor)",
                         _cuda_bulge_wavefront, _fake_bulge_wavefront,
-                        lambda B, b, out_shape=None: _flops(work.bulge_wavefront(B[0], b))),
+                        lambda B, b, out_shape=None: _flops(work.bulge_wavefront(B[-1], b, batch=_batch(B)))),
     "bulge_chase": ("bulge_chase(Tensor B, int b) -> Tensor", _cuda_bulge_chase, _fake_bulge_chase,
-                    lambda B, b, out_shape=None: _flops(work.bulge_wavefront(B[0], b, log=False))),
+                    lambda B, b, out_shape=None: _flops(work.bulge_wavefront(B[-1], b, log=False, batch=_batch(B)))),
     "backtransform_wy": ("backtransform_wy(Tensor X, Tensor vs, Tensor taus, int b, bool transpose) -> Tensor",
                          _cuda_backtransform_wy, _fake_backtransform_wy,
                          lambda X, vs, taus, b, transpose, out_shape=None: _flops(
-                             work.backtransform_wy(X[0], X[1], vs[0], vs[1], b))),
+                             work.backtransform_wy(X[-2], X[-1], vs[-3], vs[-2], b, batch=_batch(X)))),
     "syr2k": ("syr2k(Tensor A, Tensor B, Tensor? C, float alpha) -> Tensor", _cuda_syr2k, _fake_syr2k,
-              lambda A, B, C, alpha, out_shape=None: _flops(work.syr2k(A[0], A[1], with_c=C is not None))),
+              lambda A, B, C, alpha, out_shape=None: _flops(
+                  work.syr2k(A[-2], A[-1], with_c=C is not None, batch=_batch(A)))),
     "trailing_update": ("trailing_update(Tensor C, Tensor Y, Tensor Z) -> Tensor", trailing_update_cuda,
                         _fake_trailing_update,
-                        lambda C, Y, Z, out_shape=None: _flops(work.syr2k(Z[0], Z[1]))),
+                        lambda C, Y, Z, out_shape=None: _flops(work.syr2k(Z[-2], Z[-1], batch=_batch(Z)))),
     "panel_qr": ("panel_qr(Tensor panel) -> (Tensor, Tensor, Tensor, Tensor)", panel_qr_cuda, _fake_panel_qr,
                  lambda panel, out_shape=None: _flops(work.panel_qr(panel[0], panel[1]))),
 }
@@ -168,7 +186,7 @@ def bulge_wavefront(B: torch.Tensor, b: int, *, return_log: bool = False):
     from repro_torch.core.bulge_chasing import ChaseLog
 
     T, vs, taus, row0 = _ops.bulge_wavefront(B, b)
-    return T, ChaseLog(vs=vs, taus=taus, row0=row0, n=B.shape[0], b=vs.shape[-1])
+    return T, ChaseLog(vs=vs, taus=taus, row0=row0, n=B.shape[-1], b=vs.shape[-1])
 
 
 def bulge_chase(B: torch.Tensor, b: int) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 Each is the transparent version of its kernel: the CPU path, and what
 ``chip_smoke.py`` and the ``cuda``-marked tests hold the kernel against on
-the card.  Port of the matching ``repro.kernels.ref`` oracles.
+the card.  Port of the matching ``repro.kernels.ref`` oracles.  Like their
+kernels, each takes one matrix or a bucket (a leading dimension B).
 """
 from __future__ import annotations
 
@@ -20,23 +21,23 @@ def syr2k_ref(
     its mirror, as ``repro.kernels.ops.syr2k`` assembles the lower-tile
     kernel's output (``tril(low) + tril(low, -1).T``).  ``C`` absent is
     zeros.  The plain version of kernel D (``csrc/syr2k.cu``)."""
-    S = alpha * (A @ B.T + B @ A.T)
+    S = alpha * (A @ B.mT + B @ A.mT)
     if C is not None:
         S = C + S
-    return torch.tril(S) + torch.tril(S, -1).T
+    return torch.tril(S) + torch.tril(S, -1).mT
 
 
 def trailing_update_ref(C: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
     """The DBR trailing update: C - Z Y^T - Y Z^T."""
-    return C - Z @ Y.T - Y @ Z.T
+    return C - Z @ Y.mT - Y @ Z.mT
 
 
 def fused_panel_update_ref(Bv: torch.Tensor, b: int, w: int):
     """Plain ``fused_panel_update``: the geqrf panel QRs plus the trailing
     update of ``repro_torch.core.band_reduction._reduce_block``.
 
-    Like the kernel, it updates the trailing view ``Bv`` in place and
-    returns ``(Bv, Vbuf (m, w), Ts (w//b, b, b))``.
+    Like the kernel, it updates the trailing view ``Bv`` ([B,] m, m) in
+    place and returns ``(Bv, Vbuf ([B,] m, w), Ts ([B,] w//b, b, b))``.
     """
     from repro_torch.core.band_reduction import _reduce_block
     from repro_torch.core.panel_qr import panel_qr_geqrf

@@ -14,6 +14,9 @@ back-transform's live reflectors), it is taken from the static schedule:
 by the parity contract an inactive slot of the chase log has ``tau == 0``,
 so the live reflectors are exactly the schedule's chase ops.
 
+A call on a bucket of ``batch`` matrices (kernels A–D) does ``batch``
+times one matrix's work and moves ``batch`` times its bytes.
+
 Rates: ``"fp32"`` (float32 outside the tensor cores), ``"tf32x3"``
 (float32 on the tensor cores as three TF32 products a product: kernel D in
 float32 and kernel A's trailing update) and ``"bf16"`` (tensor cores).
@@ -45,6 +48,10 @@ class Work:
     def total_flops(self) -> float:
         return sum(f for f, _ in self.flops)
 
+    def times(self, batch: int) -> "Work":
+        """The work of ``batch`` such calls in one."""
+        return Work(self.bytes * batch, tuple((f * batch, rate) for f, rate in self.flops))
+
 
 def chase_ops(n: int, b: int) -> int:
     """The bulge chase's ops (one reflector each) on an (n, n) band of
@@ -54,7 +61,7 @@ def chase_ops(n: int, b: int) -> int:
     return sum((n - 3 - s) // b + 1 for s in range(n - 2))
 
 
-def fused_panel_update(m: int, w: int, b: int) -> Work:
+def fused_panel_update(m: int, w: int, b: int, *, batch: int = 1) -> Work:
     """Kernel A on an (m, m) trailing view, ``w`` columns in panels of
     ``b``: the q = w/b panel QRs with their GEMVs against the view (fp32),
     then the rank-2w trailing update of the (m - w) block (3xTF32).  Bytes:
@@ -62,10 +69,10 @@ def fused_panel_update(m: int, w: int, b: int) -> Work:
     q = w // b
     panels = sum(2.0 * m * (m - (j + 1) * b) * b + 12.0 * m * j * b * b for j in range(q))
     trailing = 2.0 * (m - w) * (m - w) * w
-    return Work((2.0 * m * m + m * w + q * b * b) * 4, ((panels, "fp32"), (trailing, "tf32x3")))
+    return Work((2.0 * m * m + m * w + q * b * b) * 4, ((panels, "fp32"), (trailing, "tf32x3"))).times(batch)
 
 
-def bulge_wavefront(n: int, b: int, *, log: bool = True) -> Work:
+def bulge_wavefront(n: int, b: int, *, log: bool = True, batch: int = 1) -> Work:
     """Kernel B on an (n, n) band: 26 b^2 operations a chase op; bytes the
     band read and T written, plus the (W, A) log of b + 2 words a slot."""
     nbytes = 2.0 * n * n * 4
@@ -73,24 +80,24 @@ def bulge_wavefront(n: int, b: int, *, log: bool = True) -> Work:
         W = 3 * (n - 3) + 1
         A = ((n - 3) // b + 3) // 3 + 1
         nbytes += W * A * (b + 2) * 4.0
-    return Work(nbytes, ((26.0 * b * b * chase_ops(n, b), "fp32"),))
+    return Work(nbytes, ((26.0 * b * b * chase_ops(n, b), "fp32"),)).times(batch)
 
 
-def backtransform_wy(n: int, m: int, S: int, K: int, b: int) -> Work:
+def backtransform_wy(n: int, m: int, S: int, K: int, b: int, *, batch: int = 1) -> Work:
     """Kernel C: each of the chase's reflectors (length b) applied to the m
     columns of X (n, m), 4 b m operations each; bytes X read, the result
     written and the (S, K) sweep-major log."""
-    return Work((2.0 * n * m + S * K * (b + 1)) * 4, ((4.0 * b * chase_ops(n, b) * m, "fp32"),))
+    return Work((2.0 * n * m + S * K * (b + 1)) * 4, ((4.0 * b * chase_ops(n, b) * m, "fp32"),)).times(batch)
 
 
-def syr2k(n: int, k: int, *, with_c: bool = True, itemsize: int = 4) -> Work:
+def syr2k(n: int, k: int, *, with_c: bool = True, itemsize: int = 4, batch: int = 1) -> Work:
     """Kernel D: the lower triangle of C + alpha (A B^T + B A^T), 4 k
     operations an entry; bytes A and B (n, k), C's lower triangle (when
     given) and the (n, n) result, at ``itemsize`` bytes an entry (float32:
     3xTF32; bfloat16: the bf16 tensor cores)."""
     lower = n * (n + 1) / 2
     nbytes = (2.0 * n * k + (lower if with_c else 0.0) + n * n) * itemsize
-    return Work(nbytes, ((4.0 * k * lower, "tf32x3" if itemsize == 4 else "bf16"),))
+    return Work(nbytes, ((4.0 * k * lower, "tf32x3" if itemsize == 4 else "bf16"),)).times(batch)
 
 
 def panel_qr(m: int, b: int) -> Work:

@@ -4,8 +4,9 @@ Port of ``repro.solver.batch``.  The regime that fills an accelerator is
 many matrices at once (Shampoo's preconditioner refresh, EVD serving).  A
 :class:`BatchPlan` freezes one (n, batch, dtype, config, device) stacked
 solve as ``EvdPlan`` freezes one solve, and lives in the same plan cache.
-It runs the bucket executor of ``repro_torch.solver.plan``: the plain
-stages once over the whole stack, the kernels once per matrix.
+It runs the bucket executor of ``repro_torch.solver.plan``: every stage
+once over the whole stack, each kernel once per static step of the solve
+(a chunk at a time past ``kernels.limits.bucket_chunk``).
 
 :class:`PadPolicy` is the executor's contract for making ragged work fit
 rectangular plans: pad matrices up to a bucket size with a ridge-identity

@@ -18,13 +18,18 @@ at odd n), ``"direct"`` and ``"jacobi"``; ``chase="wavefront"|"sequential"``;
 ``backtransform="blocked"|"scan"``; ``tridiag="fused"|"unfused"``.
 
 One executor, :func:`_execute_bucket`, runs a stack of B matrices; a single
-solve is a bucket of one.  The plain stages (symmetrize, bisection, inverse
-iteration, the Q1 merge and apply, the Q2 regroup, and the direct and
-Jacobi methods) take the bucket as a leading dimension, as ``jax.vmap``
-does in the JAX package, so one launch stream serves the whole bucket.
-The kernels run once per matrix: ``band_reduce`` and ``band_to_tridiag``
-(kernels A and B fused; D unfused, with B for eigenvalues only), then
-kernel C's Q2 apply.
+solve is a bucket of one.  Every stage takes the bucket as a leading
+dimension, as ``jax.vmap`` does in the JAX package: the plain stages
+(symmetrize, bisection, inverse iteration, the Q1 merge and apply, the Q2
+regroup, and the direct and Jacobi methods) and the kernels alike, each
+registry op called once per static step for the whole bucket, as the
+batching rule of ``pallas_call`` gives each Pallas kernel a leading grid
+axis: ``band_reduce`` one kernel A a DBR block (kernel D unfused), then
+``band_to_tridiag`` one kernel B, then one kernel C for the Q2 apply.  A
+bucket of more than ``kernels.limits.bucket_chunk(n)`` matrices runs in the
+fewest chunks that fit (``gridDim.y`` and memory), each chunk so.  Only the
+oracles (``chase="sequential"``, ``backtransform="scan"``) run a matrix at
+a time.
 """
 from __future__ import annotations
 
@@ -38,10 +43,11 @@ from repro_torch.backend import probe, registry
 from repro_torch.backend.trace import map_lanes
 from repro_torch.core.backtransform import apply_q2_blocked_many, apply_q_left_blocked
 from repro_torch.core.band_reduction import BandReflectors, apply_q_left, band_reduce
-from repro_torch.core.bulge_chasing import apply_q2, band_to_tridiag, extract_tridiag
+from repro_torch.core.bulge_chasing import ChaseLog, apply_q2, band_to_tridiag, extract_tridiag
 from repro_torch.core.direct_tridiag import apply_q_direct, direct_tridiagonalize
 from repro_torch.core.jacobi import jacobi_eigh
 from repro_torch.core.tridiag_eig import eigvalsh_tridiag_range, eigvecs_inverse_iteration
+from repro_torch.kernels.limits import bucket_chunk
 
 from .autotune import backtransform_group, resolve_blocking
 from .config import EvdConfig
@@ -249,8 +255,8 @@ def _tridiag_bucket(
 ):
     """Symmetric (B, n, n) -> ``d`` (B, n), ``e`` (B, n-1), and with
     ``return_reflectors`` the back-transform data: ``("direct",
-    DirectReflectors)`` stacked over the bucket, or ``("two_stage",
-    ([BandReflectors], [ChaseLog]))`` one pair per matrix."""
+    DirectReflectors)`` or ``("two_stage", (BandReflectors, ChaseLog))``,
+    each stacked over the bucket."""
     mark = on_stage or (lambda name: None)
     if method == "direct":
         T, refl = direct_tridiagonalize(A, return_reflectors=True)
@@ -258,16 +264,22 @@ def _tridiag_bucket(
         d, e = extract_tridiag(T)
         return (d, e, ("direct", refl)) if return_reflectors else (d, e)
     kw = dict(mode=tridiag, backend=backend)
-    bands = map_lanes(lambda Ai: band_reduce(Ai, b, nb, return_reflectors=return_reflectors, **kw), A, A)
+    out = band_reduce(A, b, nb, return_reflectors=return_reflectors, **kw)
     mark("band_reduce")
     if not return_reflectors:
-        T = torch.stack(map_lanes(lambda Bi: band_to_tridiag(Bi, b, method=chase, **kw), bands, A))
+        T = band_to_tridiag(out, b, method=chase, **kw)
         mark("chase")
         return extract_tridiag(T)
-    chased = map_lanes(lambda band: band_to_tridiag(band[0], b, method=chase, return_log=True, **kw), bands, A)
+    band, refl = out
+    T, log = band_to_tridiag(band, b, method=chase, return_log=True, **kw)
     mark("chase")
-    d, e = extract_tridiag(torch.stack([T for T, _ in chased]))
-    return d, e, ("two_stage", ([r for _, r in bands], [log for _, log in chased]))
+    d, e = extract_tridiag(T)
+    return d, e, ("two_stage", (refl, log))
+
+
+def _lane_log(log: ChaseLog, i: int) -> ChaseLog:
+    """Matrix i's log of a bucket's."""
+    return ChaseLog(vs=log.vs[i], taus=log.taus[i], row0=log.row0[i], n=log.n, b=log.b)
 
 
 def _backtransform_bucket(refl, X: torch.Tensor, *, mode: str, group: int, backend: str,
@@ -281,17 +293,13 @@ def _backtransform_bucket(refl, X: torch.Tensor, *, mode: str, group: int, backe
         X = apply_q_direct(data, X)
         mark("q1")
         return X
-    refl1, logs = data
-    Q1 = BandReflectors(
-        V=torch.stack([r.V for r in refl1]), T=torch.stack([r.T for r in refl1]),
-        b=refl1[0].b, blocks=refl1[0].blocks,
-    )
+    Q1, log = data
     if mode == "blocked":
-        X = apply_q2_blocked_many(logs, X, group=group or None, backend=backend, on_stage=on_stage)
+        X = apply_q2_blocked_many(log, X, group=group or None, backend=backend, on_stage=on_stage)
         mark("q2")
         X = apply_q_left_blocked(Q1, X)
     else:
-        X = torch.stack(map_lanes(lambda i: apply_q2(logs[i], X[i]), range(len(logs)), X))
+        X = torch.stack(map_lanes(lambda i: apply_q2(_lane_log(log, i), X[i]), range(X.shape[0]), X))
         mark("q2")
         X = apply_q_left(Q1, X)
     mark("q1")
@@ -301,7 +309,23 @@ def _backtransform_bucket(refl, X: torch.Tensor, *, mode: str, group: int, backe
 def _execute_bucket(A: torch.Tensor, pl: EvdPlan, eigenvectors: bool, on_stage: Stage = None):
     """The executor, on a stack A (B, n, n): ``(w (B, k), V (B, n, k))`` or
     ``w``.  ``on_stage(name)``, when given, is called as each stage ends
-    (``chip_smoke.py`` closes each with a synchronize)."""
+    (``chip_smoke.py`` closes each with a synchronize), once a chunk."""
+    chunk = bucket_chunk(pl.n)
+    if A.shape[0] <= chunk:
+        return _execute_chunk(A, pl, eigenvectors, on_stage)
+    full = A.shape[0] // chunk
+    outs = map_lanes(lambda i: _execute_chunk(A[i * chunk : (i + 1) * chunk], pl, eigenvectors, on_stage),
+                     range(full), A)
+    if A.shape[0] > full * chunk:
+        outs.append(_execute_chunk(A[full * chunk :], pl, eigenvectors, on_stage))
+    if not eigenvectors:
+        return torch.cat(outs)
+    return torch.cat([w for w, _ in outs]), torch.cat([V for _, V in outs])
+
+
+def _execute_chunk(A: torch.Tensor, pl: EvdPlan, eigenvectors: bool, on_stage: Stage = None):
+    """:func:`_execute_bucket` on a bucket of at most ``bucket_chunk(n)``
+    matrices."""
     mark = on_stage or (lambda name: None)
     start, count = pl.spectrum_range
     # Each matrix is scaled by the power of 2 at or above its largest entry
@@ -412,4 +436,6 @@ def tridiagonalize(
     kind, data = out[2]
     if kind == "direct":
         return d, e, (kind, type(data)(*(t[0] for t in data)))
-    return d, e, (kind, (data[0][0], data[1][0]))
+    refl, log = data
+    refl = BandReflectors(V=refl.V[0], T=refl.T[0], b=refl.b, blocks=refl.blocks)
+    return d, e, (kind, (refl, _lane_log(log, 0)))

@@ -3,7 +3,8 @@
 // and run their arithmetic and indexing on the CPU.
 //
 // A launch runs one cluster of CTAs at a time (a plain launch is a cluster of
-// one), with one std::thread per CUDA thread of the cluster.  Each CTA of
+// one; clusters lie along x, and the grid's y and z rows run one after
+// another), with one std::thread per CUDA thread of the cluster.  Each CTA of
 // the running cluster has its own dynamic shared memory, its own block
 // barrier (__syncthreads) and its own warps (__shfl_xor_sync,
 // repro::mma_bf16_16816, repro::mma_tf32_1688); the CTAs of a cluster run together, meet at
@@ -294,19 +295,21 @@ cudaError_t run(K kern, dim3 grid, dim3 block, size_t smem, unsigned cluster, A.
         tIdx = dim3(t);
         cta = &ctas[r];
         cta_rank = r;
-        for (unsigned c0 = 0; c0 < grid.x; c0 += cluster) {
-          bIdx = dim3(c0 + r);
-          kern(args...);
-          all.arrive_and_wait();
-        }
+        for (unsigned z = 0; z < grid.z; ++z)
+          for (unsigned y = 0; y < grid.y; ++y)
+            for (unsigned c0 = 0; c0 < grid.x; c0 += cluster) {
+              bIdx = dim3(c0 + r, y, z);
+              kern(args...);
+              all.arrive_and_wait();
+            }
       });
   for (auto& th : threads) th.join();
   cluster_ctas = nullptr;
   cluster_bar = nullptr;
   return cudaSuccess;
 }
-// A plain launch: its CTAs one after another; a persistent one: all its
-// CTAs together (unless ctas_in_turn).
+// A plain launch: its CTAs one after another; a persistent one (a grid
+// along x): all its CTAs together (unless ctas_in_turn).
 template <class K>
 struct Launch {
   K kern;

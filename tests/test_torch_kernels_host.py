@@ -115,10 +115,10 @@ def _fused(fa, Bv, b, w, qr_smem=SMEM, cluster=None):
     m = Bv.shape[0]
     cluster = ka.cluster_size(m, b) if cluster is None else cluster
     buf = ka.buffers(m, w, b, cluster, "cpu", wa)
-    err = fa(Bv.data_ptr(), Bv.stride(0), m, w, b, *(t.data_ptr() for t in buf.values()),
+    err = fa(Bv.data_ptr(), Bv.stride(0), 0, 1, m, w, b, *(t.data_ptr() for t in buf.values()),
              qr_smem, cluster, None)
     assert err == 0
-    return Bv, buf["V"], buf["Ts"]
+    return Bv, buf["V"][0], buf["Ts"][0]
 
 
 @pytest.mark.parametrize(
@@ -176,9 +176,9 @@ def _chase(host, B, b, ctas, with_log=True):
     vs = torch.full((W, A, b), float("nan"))
     taus = torch.full((W, A), float("nan"))
     row0 = torch.full((W, A), -1, dtype=torch.int32)
-    work = torch.zeros(host[6](n) // 4, dtype=torch.int32)
+    work = torch.zeros(host[6](n, 1) // 4, dtype=torch.int32)
     assert host[1](T.data_ptr(), n, b, A, ctas, vs.data_ptr(), taus.data_ptr(),
-                   row0.data_ptr(), int(with_log), work.data_ptr(), None) == 0
+                   row0.data_ptr(), int(with_log), work.data_ptr(), 1, None) == 0
     assert int(work[-1]) == n - 2 + ctas  # every sweep taken, then one empty ticket per CTA
     return T, ChaseLog(vs, taus, row0, n, b)
 
@@ -231,7 +231,7 @@ def test_backtransform_host(host, m, transpose, in_smem):
     cw = kc.strip_width(n, m)[0] if in_smem else min(32, m)
     work = torch.empty(host[5](n, S, K, b))
     assert host[2](Y.data_ptr(), n, m, vs.data_ptr(), taus.data_ptr(), S, K, b,
-                   int(transpose), cw, int(in_smem), work.data_ptr(), None) == 0
+                   int(transpose), cw, int(in_smem), work.data_ptr(), 1, None) == 0
     assert _rel(Y, backtransform_wy_xla(X, vs, taus, b=b, transpose=transpose)) < 1e-5 * 8
 
 
@@ -263,7 +263,7 @@ def test_backtransform_host_block_order(host, n, b, m, transpose, in_smem):
     cw = kc.strip_width(n, m)[0] if in_smem else min(32, m)
     work = torch.empty(host[5](n, S, K, b))
     assert host[2](Y.data_ptr(), n, m, vs.data_ptr(), taus.data_ptr(), S, K, b,
-                   int(transpose), cw, int(in_smem), work.data_ptr(), None) == 0
+                   int(transpose), cw, int(in_smem), work.data_ptr(), 1, None) == 0
     assert _rel(Y, backtransform_wy_xla(X, vs, taus, b=b, transpose=transpose)) < 1e-5 * 8
 
 
@@ -278,9 +278,9 @@ def test_syr2k_host(host, n, k, alpha, c_view):
     B = torch.tensor(rng.normal(size=(n, k)).astype(np.float32))
     C = None if c_view is None else _sym(n + 3, n)[3:, 3:] if c_view else _sym(n, n)
     out = torch.full((n, n), float("nan"))
-    assert host[3](A.data_ptr(), B.data_ptr(), k, n, k, alpha,
-                   None if C is None else C.data_ptr(), 0 if C is None else C.stride(0),
-                   out.data_ptr(), 0, None) == 0
+    assert host[3](A.data_ptr(), B.data_ptr(), k, 0, n, k, alpha,
+                   None if C is None else C.data_ptr(), 0 if C is None else C.stride(0), 0,
+                   out.data_ptr(), 0, 1, None) == 0
     want = ref.syr2k_ref(A, B, C, alpha=alpha)
     assert torch.equal(out, out.T)
     assert float((out - want).abs().max()) <= 2e-5 * max(float(want.abs().max()), 1.0)
@@ -299,8 +299,8 @@ def test_syr2k_host_3xtf32_accuracy(host, n, c_view):
     B = torch.tensor(rng.normal(size=(n, k)).astype(np.float32))
     C = None if c_view is None else _sym(n + 3, n)[3:, 3:]
     out = torch.full((n, n), float("nan"))
-    assert host[3](A.data_ptr(), B.data_ptr(), k, n, k, -1.0, None if C is None else C.data_ptr(),
-                   0 if C is None else C.stride(0), out.data_ptr(), 0, None) == 0
+    assert host[3](A.data_ptr(), B.data_ptr(), k, 0, n, k, -1.0, None if C is None else C.data_ptr(),
+                   0 if C is None else C.stride(0), 0, out.data_ptr(), 0, 1, None) == 0
     Ad, Bd = A.double(), B.double()
     want = -(Ad @ Bd.T + Bd @ Ad.T)
     if C is not None:
@@ -331,9 +331,9 @@ def test_syr2k_host_bf16(host, n, k, c_view):
     C = None if c_view is None else _sym(n + 3, n)[3:, 3:] if c_view else _sym(n, n)
     C = None if C is None else C.to(torch.bfloat16)
     out = torch.zeros((n, n), dtype=torch.bfloat16)
-    assert host[3](A.data_ptr(), B.data_ptr(), k, n, k, -1.0,
-                   None if C is None else C.data_ptr(), 0 if C is None else C.stride(0),
-                   out.data_ptr(), 1, None) == 0
+    assert host[3](A.data_ptr(), B.data_ptr(), k, 0, n, k, -1.0,
+                   None if C is None else C.data_ptr(), 0 if C is None else C.stride(0), 0,
+                   out.data_ptr(), 1, 1, None) == 0
     want = ref.syr2k_ref(A.float(), B.float(), None if C is None else C.float(), alpha=-1.0)
     assert torch.equal(out, out.T)
     assert float((out.float() - want).abs().max()) <= 2 ** -8 * float(want.abs().max())

@@ -21,8 +21,8 @@ and their work formulas (``repro_torch.kernels.work``), on the CPU.
   raises.
 * A refresh, ``solve_many(..., op="inverse_pth_root")`` of 3 matrices of
   128, on fake CUDA tensors (``tests/torch_fake_cuda.py``: the device probe
-  and Python indexing, a test seam) calls 2 A + 1 B + 1 C a matrix and
-  lists its data-dependent loops.
+  and Python indexing, a test seam) calls 2 A + 1 B + 1 C for the bucket
+  (the work of 3 matrices) and lists its data-dependent loops.
 * On fake tensors a loop of identical trips runs one trip counted once a
   trip (``trace.repeated`` / ``trace.map_lanes``): a refresh of 2 matrices
   of 16, on fake CPU tensors (the plain chase, back-transform, bisection,
@@ -261,9 +261,9 @@ def test_refresh_on_fake_cuda_calls_the_operators():
         out, rec = analyze_step(lambda: solve_many(x, EvdConfig(b=8, nb=64), op="inverse_pth_root"))
     assert out.shape == (B, 128, 128) and out.device.type == "cuda"
     calls = {k: v["count"] for k, v in rec["operators"].items()}
-    assert calls == {"fused_panel_update": 2 * B, "bulge_wavefront": B, "backtransform_wy": B}
-    assert rec["operators"]["fused_panel_update"]["flops"] == B * round(
-        work.fused_panel_update(128, 64, 8).total_flops + work.fused_panel_update(64, 56, 8).total_flops)
+    assert calls == {"fused_panel_update": 2, "bulge_wavefront": 1, "backtransform_wy": 1}  # one call a bucket
+    assert rec["operators"]["fused_panel_update"]["flops"] == sum(
+        round(work.fused_panel_update(m, w, 8, batch=B).total_flops) for m, w in ((128, 64), (64, 56)))
     loops = {d["site"]: d for d in rec["data_dependent"]}
     assert set(loops) == {"core/jacobi.py:jacobi_eigh", "core/tridiag_eig.py:_qr"}
     assert loops["core/jacobi.py:jacobi_eigh"]["trips"] == 8  # _RITZ_SWEEPS, every matrix
