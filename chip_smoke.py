@@ -17,7 +17,10 @@ Phases, each printing its own lines:
    3 x flops over the TF32 rate) with the share of it the kernel reaches.
    Kernels A-C (fused path; A, B and C also split by CUDA kernel with
    ``torch.profiler``; B's time also
-   per dependent step of the chase, with and without its log), D
+   per dependent step of the chase, with and without its log, and its
+   wait counter at n = 4096 and 16384: the share of its CTAs' cycles spent
+   waiting on the previous sweep, cycles an op, T and the log bitwise
+   those of a run without the counter), D
    (``syr2k`` / ``trailing_update``, in float32 and bf16, bf16 with its
    share of the bound beside the bf16 library call) and E (the standalone
    ``panel_qr``: first a sweep of its cluster size at m = 256, 1024 and
@@ -32,9 +35,10 @@ Phases, each printing its own lines:
    as many as its calls make), eigenvalues against
    ``torch.linalg.eigvalsh``, residual and orthogonality, end-to-end time
    beside ``torch.linalg.eigh`` / ``eigvalsh`` (cuSOLVER) and the peak
-   memory.  (Its per-stage times, each stage closed by a synchronize and
-   the Q2 back-transform split into the ``sweep_major_log`` regroup and
-   kernel C, come from phase 5's unfused run of the same executor.)
+   memory.  (Its per-stage times, device time between the CUDA events of
+   the executor's spans, ``repro_torch.backend.trace``, with the Q2
+   back-transform's ``sweep_major_log`` regroup inside Q2, come from phase
+   5's unfused run of the same executor.)
 4. ``inverse_pth_root`` at n = 1024, p = 4 on a seeded PSD matrix, against
    V diag(w^-1/4) V^T from ``torch.linalg.eigh`` in float64.
 5. The unfused first stage at n = 4096: ``plan(4096, float32,
@@ -58,8 +62,11 @@ Phases, each printing its own lines:
    ``kernels.limits.bucket_chunk`` would take one solve's a chunk).  Its
    wall time beside batched
    ``torch.linalg.eigh`` plus the root formula, the peak memory, the stage
-   times of an eigh run of the same bucket beside the kernels' device
-   time, kernel A and ``plan(128)`` bitwise repeatable, and its first 8
+   times of an eigh run of the same bucket (its spans' device times)
+   beside the kernels' device time, the QR polish's re-factors against the
+   matrices it checked, there and on a bucket of rank-deficient blocks
+   G Gᵀ/k (k 16..256, printed beside their orthogonality, not gated),
+   kernel A and ``plan(128)`` bitwise repeatable, and its first 8
    matrices against ``plan(128)`` one by one.
    (b) Heterogeneous stacks (n = 128, 96, 127) with exact buckets (n = 127
    runs ``method="direct"``) and padded into one bucket of 128, every leaf
@@ -616,6 +623,41 @@ def rel_err(x, y) -> float:
     return float((x - y).abs().max() / max(float(y.abs().max()), 1e-30))
 
 
+def kernel_b_waits(torch, band, b, plain=None) -> dict:
+    """Kernel B's wait counter on the chase of ``band`` with its log, read
+    through the recorder: the share of its CTAs' cycles spent waiting on the
+    previous sweep, cycles an op, the ops (exactly the schedule's), T and the
+    log bitwise those of a call without the counter (``plain``, else one made
+    here), and the call's device time with and without the counter."""
+    from repro_torch.backend import trace
+    from repro_torch.kernels import work
+    from repro_torch.kernels.bulge import bulge_wavefront_cuda
+
+    n = band.shape[-1]
+    Tp, lp = plain or bulge_wavefront_cuda(band, b, return_log=True)
+    with trace.recording():
+        Tk, lk = bulge_wavefront_cuda(band, b, return_log=True)
+    c = trace.session().counters
+    wait, op, ops = c["kernel_b.wait_cycles"], c["kernel_b.op_cycles"], c["kernel_b.ops"]
+    same = all(torch.equal(x, y) for x, y in ((Tk, Tp), (lk.vs, lp.vs), (lk.taus, lp.taus), (lk.row0, lp.row0)))
+    require(same, f"kernel B n={n}: T or the log differ with the wait counter on")
+    require(ops == work.chase_ops(n, b), f"kernel B n={n}: counted {ops} ops, the schedule has {work.chase_ops(n, b)}")
+
+    def counted():
+        with trace.recording():
+            bulge_wavefront_cuda(band, b, return_log=True)
+
+    ms_off = cuda_ms(torch, lambda: bulge_wavefront_cuda(band, b, return_log=True), 3)
+    ms_on = cuda_ms(torch, counted, 3)
+    share_w = wait / (wait + op)
+    print(f"phase 2 kernel B wait counter n={n} b={b}: {share_w:.2%} of its CTAs' cycles waiting on the previous "
+          f"sweep; {(wait + op) / ops:.0f} cycles an op ({wait / ops:.0f} waiting, {op / ops:.0f} after the wait), "
+          f"{ops} ops (the schedule's); T and the log bitwise those without the counter; ms {ms_off:.4f} without "
+          f"the counter, {ms_on:.4f} with it")
+    return dict(wait_share=share_w, cycles_per_op=(wait + op) / ops, wait_cycles_per_op=wait / ops,
+                op_cycles_per_op=op / ops, ops=ops, ms=ms_off, ms_counted=ms_on)
+
+
 def phase_kernels(torch, gen):
     """Phase 2: each kernel against its plain version at main-path shapes."""
     from repro_torch.core.backtransform import backtransform_wy_xla, sweep_major_log
@@ -746,6 +788,16 @@ def phase_kernels(torch, gen):
                                    ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                    bound_by=by, library_ms=None, us_per_step=ms / steps * 1e3,
                                    ms_without_log=ms_values)
+    # Its wait counter, at this band and at the band of a seeded random
+    # symmetric matrix of n = 16384 (the benchmark's larger cell).
+    waits = {n: kernel_b_waits(torch, Bband, b, (Tk, lk))}
+    n_big = 4 * n
+    big = torch.randn((n_big, n_big), generator=torch.Generator(device="cuda").manual_seed(SEED + 2),
+                      device="cuda")
+    big = band_reduce((big + big.T) * 0.5, b, resolve_blocking(n_big, device_type="cuda").nb)
+    waits[n_big] = kernel_b_waits(torch, big, b)
+    del big
+    rows["bulge_wavefront"]["waits"] = waits
 
     # --- kernel C: Q2 and Q2^T on a full (n, n) panel ---------------------
     vs, taus = sweep_major_log(lk)
@@ -938,25 +990,30 @@ def check_evd(torch, phase: str, A, w, V):
     return w_ref
 
 
+# The executor's stage spans (repro_torch.backend.trace), each on its own:
+# ``solve`` and ``chunk`` hold them, ``q2_regroup`` lies inside ``q2``.
+STAGES = ("band_reduce", "chase", "direct_tridiag", "jacobi", "bisection", "inverse_iteration", "q2", "q1",
+          "ritz_root")
+
+
+def stage_ms(session) -> dict:
+    """Milliseconds of each stage over a recorder session (device time
+    between each span's CUDA events), summed by stage."""
+    tot = session.totals_ms()
+    return {k: tot[k] for k in STAGES + ("q2_regroup",) if k in tot}
+
+
 def stage_times(torch, phase: str, A, pl):
-    """One EVD through the plan's stages, each closed by a synchronize:
-    ``(w, V, ms)``, ``ms`` the whole run's."""
-    from repro_torch.solver.plan import _execute
+    """One EVD ``pl(A)`` under the recorder: ``(w, V, ms)``, ``ms`` its
+    ``solve`` span's device time; prints its stages."""
+    from repro_torch.backend import trace
 
-    stages = {}
-    last = [time.perf_counter()]
-
-    def mark(name):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        stages[name] = (now - last[0]) * 1e3
-        last[0] = now
-
-    torch.cuda.synchronize()
-    last[0] = t0 = time.perf_counter()
-    w, V = _execute(A, pl, True, on_stage=mark)
-    print(f"{phase} stages ms: " + ", ".join(f"{k}={v:.1f}" for k, v in stages.items()))
-    return w, V, (last[0] - t0) * 1e3
+    with trace.recording():
+        w, V = pl(A)
+    sess = trace.session()
+    print(f"{phase} stages ms (device time between the spans' CUDA events): "
+          + ", ".join(f"{k}={v:.1f}" for k, v in stage_ms(sess).items()))
+    return w, V, sum(sess.ms("solve"))
 
 
 def phase_main_path(torch, gen):
@@ -1046,7 +1103,7 @@ def phase_unfused(torch, gen):
         print(f"phase 5 launches, {label}: {got}")
         require(got == want, f"phase 5 {label}: launches {got}, expected {want}")
 
-    # One run, its stages timed (closed by a synchronize each): the plan's
+    # One run, its stages timed by the recorder's spans: the plan's
     # executor, as plan(A) calls it (a second, untimed run cost ~40 s).
     cuda_lib.reset_launch_counts()
     w, V, e2e_ms = stage_times(torch, "phase 5", A, pl)
@@ -1157,8 +1214,8 @@ def phase_shampoo(torch, gen):
     from repro_torch.kernels.backtransform import backtransform_wy_cuda
     from repro_torch.kernels.bulge import bulge_wavefront_cuda
     from repro_torch.kernels.fused_panel import fused_panel_update_cuda
+    from repro_torch.backend import trace
     from repro_torch.solver import EvdConfig, batch_plan, plan, solve_many
-    from repro_torch.solver.plan import _execute_bucket
 
     n, p, eps = N_BLOCK, 4, 1e-6
     B = SHAMPOO_6A_BLOCKS
@@ -1204,22 +1261,17 @@ def phase_shampoo(torch, gen):
           f"rel err vs float64 eigh {err:.3e} (tol {TOL_ROOT:.0e}); batched torch.linalg.eigh + root "
           f"{lib_ms:.1f} ms; peak memory {peak / 2**20:.0f} MiB")
 
-    # The same bucket as an eigh run, stage by stage (each closed by a
-    # synchronize), beside the device time of its kernels.
-    stages, last = {}, [0.0]
-
-    def mark(name):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        stages[name] = stages.get(name, 0.0) + (now - last[0]) * 1e3
-        last[0] = now
-
-    base = batch_plan(n, B, torch.float32, cfg).base
-    torch.cuda.synchronize()
-    last[0] = time.perf_counter()
-    wb, Vb = _execute_bucket(S, base, True, on_stage=mark)
-    print("phase 6 Shampoo eigh bucket stages ms: " + ", ".join(f"{k}={v:.1f}" for k, v in stages.items())
-          + f"; total {sum(stages.values()):.1f}")
+    # The same bucket as an eigh run under the recorder, its stages' device
+    # times beside the device time of its kernels, and the QR polish's
+    # re-factors against the matrices it checked.
+    with trace.recording():
+        wb, Vb = batch_plan(n, B, torch.float32, cfg)(S)
+    sess = trace.session()
+    stages = stage_ms(sess)
+    print("phase 6 Shampoo eigh bucket stages ms (device time between the spans' CUDA events): "
+          + ", ".join(f"{k}={v:.1f}" for k, v in stages.items()) + f"; solve {sum(sess.ms('solve')):.1f}")
+    qr_polish(torch, "phase 6 Shampoo eigh bucket", sess, S, Vb)
+    rank_deficient_polish(torch, cfg)
     A0 = 0.5 * (S[0] + S[0].T)
     entries = build_stage_schedule(n, pl.b, pl.nb).entries
     a_ms = cuda_ms(torch, lambda M: [fused_panel_update_cuda(M[e.ci:, e.ci:], pl.b, e.w) for e in entries],
@@ -1260,6 +1312,37 @@ def phase_shampoo(torch, gen):
           f"(tol {TOL_LOOP_W:.0e}), sign-aligned eigenvectors {ev:.3e} (tol {TOL_LOOP_V:.0e})")
     require(ew < TOL_LOOP_W and ev < TOL_LOOP_V, "phase 6 bucket vs plan loop")
     return got, got_dev, dict(ms=ms, library_ms=lib_ms, blocks=B, peak_mib=peak / 2**20)
+
+
+def qr_polish(torch, label: str, sess, S, V) -> dict:
+    """Prints the QR polish's re-factors against the matrices it checked
+    (``core/tridiag_eig.py:_qr``, from a recorder session of the solve of
+    the bucket S with eigenvectors V) beside the worst max|VᵀV - I|."""
+    site = "core/tridiag_eig.py:_qr"
+    checked, refactored = sess.counters.get(site + ".checked", 0), sess.counters.get(site + ".trips", 0)
+    eye = torch.eye(V.shape[-1], dtype=torch.float64, device=V.device)
+    orth = (V.double().mT @ V.double() - eye).abs().amax((-2, -1))
+    print(f"{label}: the QR polish re-factored {refactored} of the {checked} matrices it checked; "
+          f"max|V^T V - I| worst {float(orth.max()):.3e}, {int((orth > 1e-3).sum())} of {S.shape[0]} over 1e-3")
+    return dict(checked=checked, refactored=refactored, orth_max=float(orth.max()))
+
+
+def rank_deficient_polish(torch, cfg) -> dict:
+    """The QR polish on a bucket of rank-deficient blocks of 128 (G Gᵀ / k,
+    G 128 x k Gaussian from its own seed, k evenly over 16..256):
+    re-factors against the matrices checked, beside the eigenvectors'
+    orthogonality (PERF.md §7, row 1; printed, not gated)."""
+    from repro_torch.backend import trace
+    from repro_torch.solver import batch_plan
+
+    n, count = N_BLOCK, SHAMPOO_6A_BLOCKS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    ks = torch.linspace(16, 256, count).round().long().tolist()
+    S = torch.stack([(lambda G: G @ G.T / k)(torch.randn((n, k), generator=gen, device="cuda")) for k in ks])
+    with trace.recording():
+        _, V = batch_plan(n, count, torch.float32, cfg)(S)
+    return qr_polish(torch, f"phase 6 rank-deficient eigh bucket ({count} blocks G G^T/k, k 16..256)",
+                     trace.session(), S, V)
 
 
 def phase_bucket_kernels(torch, gen):
@@ -1541,36 +1624,17 @@ def root_errors(torch, stats, pre, idx, eps):
 
 @contextlib.contextmanager
 def _stage_timer(torch, stages: dict):
-    """Time the refresh's stages: every ``solve_many`` bucket's executor
-    stages (each closed by a synchronize) and the Rayleigh-Ritz root, summed
-    into ``stages`` (ms) while the context is open."""
-    from repro_torch.solver import batch as solver_batch
+    """Time the refresh's stages under the recorder: every ``solve_many``
+    bucket's executor stages and the Rayleigh-Ritz root (device time between
+    their spans' CUDA events), summed into ``stages`` (ms) as the context
+    closes."""
+    from repro_torch.backend import trace
 
-    last = [0.0]
-
-    def mark(name):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        stages[name] = stages.get(name, 0.0) + (now - last[0]) * 1e3
-        last[0] = now
-
-    orig, orig_root = solver_batch._execute_bucket, solver_batch._roots_from_window
-
-    def timed(A, base, eigenvectors, on_stage=None):
-        torch.cuda.synchronize()
-        last[0] = time.perf_counter()
-        return orig(A, base, eigenvectors, on_stage=mark)
-
-    def timed_root(*args):
-        X = orig_root(*args)
-        mark("ritz_root")
-        return X
-
-    solver_batch._execute_bucket, solver_batch._roots_from_window = timed, timed_root
-    try:
+    with trace.recording():
         yield
-    finally:
-        solver_batch._execute_bucket, solver_batch._roots_from_window = orig, orig_root
+    for k, v in stage_ms(trace.session()).items():
+        if k != "q2_regroup":  # inside q2
+            stages[k] = stages.get(k, 0.0) + v
 
 
 def _train_run(torch, cfg, opt, params, batch_fn, steps: int, label: str):
@@ -1694,8 +1758,8 @@ def shampoo_training(torch, phase: str, cfg, batch: int, seq: int, steps: int, r
         print(f"{phase} {cfg.name} step 1 repeated from the same state: {repeat_s:.2f} s, bitwise identical: {same}")
         require(same, f"{phase} {cfg.name} step 1 is not bitwise repeatable")
     refresh_s = sum(stages.values()) / 1e3
-    print(f"{phase} {cfg.name} the refresh's stages (2 solve_many buckets of {share}, each stage closed by a "
-          f"synchronize) ms: " + ", ".join(f"{k}={v:.1f}" for k, v in stages.items())
+    print(f"{phase} {cfg.name} the refresh's stages (2 solve_many buckets of {share}, device time between the "
+          f"spans' CUDA events) ms: " + ", ".join(f"{k}={v:.1f}" for k, v in stages.items())
           + f"; {refresh_s:.2f} s in all, {refresh_s * 1e3 / (2 * share):.3f} ms a block")
     record = dict(
         layers=cfg.n_layers, batch=batch, seq=seq, blocks_a_side=NB, step1_s=times[0], steady_ms=steady_ms,

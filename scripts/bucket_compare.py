@@ -9,7 +9,9 @@ card's name and power limit, one JSON object a line:
 
 * ``refresh_6a``: chip_smoke.py phase 6a's bucket, 1536 Shampoo blocks of
   128 (G G^T / 256 + 1e-3 I, seeded), ``EvdConfig(b=8, nb=64)``: the
-  executor's stages as an eigh run (each closed by a synchronize, ms), the
+  executor's stages as an eigh run (ms, device time between the CUDA
+  events of the checkout's spans, ``repro_torch.backend.trace``; null
+  for a checkout without them), the
   ``solve_many(op="inverse_pth_root")`` wall time and its kernel launches;
 * ``refresh_8``: phase 8's refresh shapes, 2 ``solve_many`` buckets of
   6192 blocks of 128 (synthetic statistics as above, not trained ones):
@@ -24,7 +26,8 @@ card's name and power limit, one JSON object a line:
   where that outlasts the spin).
 
 A checkout's stages swing by about 25 % from run to run (the plain stages
-are host-bound), so two checkouts are compared within one call: unpack the
+are host-bound), so two checkouts are compared within one call (a
+checkout older than the recorder's spans reports no stages): unpack the
 parent with ``git archive`` into ``build/parent`` and run parent, change,
 change, parent, each as its own process.  With ``--out DIR`` each record
 is also written to ``DIR/<label>.json``.
@@ -32,6 +35,7 @@ is also written to ``DIR/<label>.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import sys
@@ -70,8 +74,8 @@ def main() -> int:
     from repro_torch.kernels.backtransform import backtransform_wy_cuda
     from repro_torch.kernels.bulge import bulge_wavefront_cuda
     from repro_torch.kernels.fused_panel import fused_panel_update_cuda
+    from repro_torch.backend import trace
     from repro_torch.solver import EvdConfig, batch_plan, solve_many
-    from repro_torch.solver import batch as solver_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cuda_lib.build()
@@ -86,56 +90,37 @@ def main() -> int:
         print(json.dumps(rec), flush=True)
         records.append(rec)
 
-    stages = {}
-    last = [0.0]
+    spans = hasattr(trace, "recording")  # the checkout records its stages' spans
 
-    def mark(name):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        stages[name] = stages.get(name, 0.0) + (now - last[0]) * 1e3
-        last[0] = now
-
-    orig, orig_root = solver_batch._execute_bucket, solver_batch._roots_from_window
-
-    def timed(A, base, eigenvectors, on_stage=None):
-        torch.cuda.synchronize()
-        last[0] = time.perf_counter()
-        return orig(A, base, eigenvectors, on_stage=mark)
-
-    def timed_root(*a):
-        X = orig_root(*a)
-        mark("ritz_root")
-        return X
+    def stages_of(fn):
+        """``fn()``'s stages, ms summed by stage (the executor's, the root's)."""
+        with trace.recording() if spans else contextlib.nullcontext():
+            fn()
+        if not spans:
+            return None
+        return {k: v for k, v in here.stage_ms(trace.session()).items() if k != "q2_regroup"}
 
     # Phase 6a's bucket: stages as an eigh run, then the refresh's wall time.
     S = _stats(torch, gen, B6A)
-    base = batch_plan(N, B6A, torch.float32, cfg).base
-    solver_batch._execute_bucket(S[:2], base, True)  # warm the plan and the kernels
-    torch.cuda.synchronize()
-    last[0] = time.perf_counter()
-    solver_batch._execute_bucket(S, base, True, on_stage=mark)
-    eigh_stages = dict(stages)
+    batch_plan(N, 2, torch.float32, cfg)(S[:2])  # warm the plan and the kernels
+    eigh_stages = stages_of(lambda: batch_plan(N, B6A, torch.float32, cfg)(S))
     cuda_lib.reset_launch_counts()
     ms = here.wall_ms(torch, lambda: solve_many(S, cfg, op="inverse_pth_root", p=4, eps=1e-6))
-    emit(dict(cell="refresh_6a", blocks=B6A, stages_ms=eigh_stages, stages_total_ms=sum(eigh_stages.values()),
+    emit(dict(cell="refresh_6a", blocks=B6A, stages_ms=eigh_stages,
+              stages_total_ms=None if eigh_stages is None else sum(eigh_stages.values()),
               inverse_root_ms=ms, launches=cuda_lib.launch_counts(),
               device_launches=cuda_lib.device_launch_counts()))
     del S
 
     # Phase 8's refresh shapes: two buckets of 6192 and the roots.
     sides = [_stats(torch, gen, B8) for _ in range(2)]
-    stages.clear()
     cuda_lib.reset_launch_counts()
-    solver_batch._execute_bucket, solver_batch._roots_from_window = timed, timed_root
-    try:
-        t0 = time.perf_counter()
-        for Sx in sides:
-            solve_many(Sx, cfg, op="inverse_pth_root", p=4, eps=1e-6)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    finally:
-        solver_batch._execute_bucket, solver_batch._roots_from_window = orig, orig_root
-    emit(dict(cell="refresh_8", blocks=2 * B8, stages_ms=dict(stages), stages_total_ms=sum(stages.values()),
+    t0 = time.perf_counter()
+    stages = stages_of(lambda: [solve_many(Sx, cfg, op="inverse_pth_root", p=4, eps=1e-6) for Sx in sides])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    emit(dict(cell="refresh_8", blocks=2 * B8, stages_ms=stages,
+              stages_total_ms=None if stages is None else sum(stages.values()),
               wall_ms=wall, launches=cuda_lib.launch_counts(), device_launches=cuda_lib.device_launch_counts()))
     del sides
 

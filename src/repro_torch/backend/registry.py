@@ -27,6 +27,11 @@ lapack_sign=False)``, the very recurrence kernel E runs, so the kernel is
 held to its plain version entry by entry (V, T, taus and R).  The plain
 ``syr2k`` / ``trailing_update`` mirror their lower triangle, as kernel D
 and JAX's ``ops.syr2k`` do, so both backends are exactly symmetric.
+
+:func:`resolve` hands out each op wrapped in a span ``op.<op>``
+(``backend.trace.traced_op``; the op itself is its ``__wrapped__``), so
+every call of a registry op shows in a profiler's trace and in the
+recorder's session while recording is on.
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ import os
 from typing import Callable, Dict, Tuple
 
 import torch
+
+from .trace import traced_op
 
 __all__ = [
     "ENV_VAR",
@@ -107,7 +114,7 @@ def _build_impls() -> None:
     def torch_panel_qr(panel):
         return panel_qr_body(panel, panel.shape[1], lapack_sign=False)
 
-    _IMPLS.update({
+    impls = {
         ("trailing_update", "torch"): torch_trailing_update,
         ("syr2k", "torch"): ref.syr2k_ref,
         ("fused_panel_update", "torch"): ref.fused_panel_update_ref,
@@ -122,7 +129,8 @@ def _build_impls() -> None:
         ("bulge_wavefront", "cuda"): library.bulge_wavefront,
         ("panel_qr", "cuda"): library.panel_qr,
         ("backtransform_wy", "cuda"): library.backtransform_wy,
-    })
+    }
+    _IMPLS.update({key: traced_op(key[0], fn) for key, fn in impls.items()})
 
 
 def resolve(op: str, backend: str) -> Callable:

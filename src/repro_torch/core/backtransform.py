@@ -19,13 +19,13 @@ regrouped and applied in one pass (:func:`apply_q2_blocked_many`), with one
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.backend import registry
-from repro_torch.backend.trace import repeated
+from repro_torch.backend.trace import repeated, span
 
 from .band_reduction import BandReflectors, apply_q_left
 from .bulge_chasing import ChaseLog, _kmax_table
@@ -176,15 +176,10 @@ def apply_q2_blocked(
     *,
     group: Optional[int] = None,
     backend: Optional[str] = None,
-    on_stage: Optional[Callable[[str], None]] = None,
 ) -> torch.Tensor:
-    """Q2 @ X (or Q2^T @ X) through the ``backtransform_wy`` registry op.
-    ``on_stage("q2_regroup")``, when given, is called once the log is
-    regrouped sweep-major, before the op runs."""
+    """Q2 @ X (or Q2^T @ X) through the ``backtransform_wy`` registry op."""
     bucket = ChaseLog(vs=log.vs[None], taus=log.taus[None], row0=log.row0[None], n=log.n, b=log.b)
-    return apply_q2_blocked_many(
-        bucket, X[None], transpose, group=group, backend=backend, on_stage=on_stage
-    )[0]
+    return apply_q2_blocked_many(bucket, X[None], transpose, group=group, backend=backend)[0]
 
 
 def apply_q2_blocked_many(
@@ -194,19 +189,18 @@ def apply_q2_blocked_many(
     *,
     group: Optional[int] = None,
     backend: Optional[str] = None,
-    on_stage: Optional[Callable[[str], None]] = None,
 ) -> torch.Tensor:
     """:func:`apply_q2_blocked` for a bucket: matrix i's log applied to
     ``X[i]`` (X is (B, n, m)); ``log`` is the bucket's (leading dimension
     B, as ``band_to_tridiag`` returns it for a bucket).  The log is
-    regrouped sweep-major in one pass, and the op runs once for the bucket."""
+    regrouped sweep-major in one pass (a span ``q2_regroup``), and the op
+    runs once for the bucket."""
     n, b = log.n, log.b
     S, K = _sweep_shape(n, b)
     if S == 0 or K == 0:
         return X.clone()  # n < 3: the chase made no reflectors, Q2 == I
     # A sequential log is (B, L, b), a wavefront log (B, W, A, b).
-    vs, taus = _sweep_major(log.vs, log.taus, n, b, log.vs.ndim == X.ndim)
-    if on_stage is not None:
-        on_stage("q2_regroup")
+    with span("q2_regroup", X):
+        vs, taus = _sweep_major(log.vs, log.taus, n, b, log.vs.ndim == X.ndim)
     fn = registry.resolve("backtransform_wy", backend or registry.default_backend(X.device))
     return fn(X, vs, taus, b=b, group=group, transpose=transpose)

@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.backend.trace import data_dependent, is_fake, repeated
+from repro_torch.backend.trace import count, data_dependent, is_fake, repeated
 
 __all__ = [
     "sturm_count",
@@ -177,7 +177,9 @@ def _qr(X: torch.Tensor):
     statistics block of rank 4 in 128 gets roots far off; measured by
     scripts/batched_qr_check.py), so on CUDA each matrix whose Q is not
     orthogonal to 1e-4 is factored again on its own (on fake tensors, which
-    have no values, none is: the loop is listed as data-dependent)."""
+    have no values, none is: the loop is listed as data-dependent).  While
+    recording, the matrices checked count beside the loop's trips (the
+    re-factors): ``core/tridiag_eig.py:_qr.checked`` and ``.trips``."""
     Q, R = torch.linalg.qr(X)
     if not X.is_cuda or X.ndim < 3:
         return Q, R
@@ -185,6 +187,7 @@ def _qr(X: torch.Tensor):
     Qf, Rf, Xf = Q.reshape(-1, *Q.shape[-2:]), R.reshape(-1, k, k), X.reshape(-1, *X.shape[-2:])
     eye = torch.eye(k, dtype=Q.dtype, device=Q.device)
     bad = (Qf.mT @ Qf - eye).abs().amax((-2, -1)) > 1e-4
+    count("core/tridiag_eig.py:_qr.checked", Qf.shape[0])
     with data_dependent("core/tridiag_eig.py:_qr", "no re-factor") as loop:
         for i in [] if is_fake(bad) else bad.nonzero().flatten().tolist():
             loop.trip()

@@ -65,6 +65,13 @@
 // writes that op (s, k+1) reads) in the flag was slower on the H100: its
 // op grew by more than the load it hid.  The log's inactive slots are
 // written by the grid after its sweeps, so one call is one CUDA launch.
+//
+// Its wait counter: with `stats` set (kStats), thread 0 of each CTA sums the
+// clock64() cycles it spends in flag_wait before each op, the cycles from
+// the end of that wait to the end of chase_op (the CTA's barrier after the
+// op included), and the ops it ran, and adds each sum to stats[0..2] with one
+// atomicAdd as the CTA leaves.  Without it (stats null) the kernel is the
+// instantiation that reads no clock.  T and the log are the same either way.
 #include <algorithm>
 
 #include "common.cuh"
@@ -189,12 +196,14 @@ __device__ __forceinline__ void chase_op(float* __restrict__ T, int n, int b_in,
 // done[z * (n-2) + s]: finished ops of sweep s of matrix z;
 // done[batch * (n-2)]: the ticket.  Zero before the launch.  Thread 0 waits
 // on sweep s-1 while thread 32 publishes the op before, so the two round
-// trips to L2 overlap.  T (batch, n, n), the log (batch, W, A, b | -).
-template <int kB>
+// trips to L2 overlap.  T (batch, n, n), the log (batch, W, A, b | -);
+// stats (3: wait cycles, op cycles, ops), read with kStats only.
+template <int kB, bool kStats>
 __global__ void __launch_bounds__(kThreads)
     bulge_chase_kernel(float* __restrict__ T, int n, int b_in, int A, float* __restrict__ vs,
                        float* __restrict__ taus, int* __restrict__ row0, int with_log,
-                       int* __restrict__ done, int batch, int group) {
+                       int* __restrict__ done, int batch, int group,
+                       unsigned long long* __restrict__ stats) {
   const int b = kB > 0 ? kB : b_in;
   REPRO_DYNAMIC_SMEM(sm);
   int* s_sweep = reinterpret_cast<int*>(sm + smem_floats(b) - 1);
@@ -202,6 +211,7 @@ __global__ void __launch_bounds__(kThreads)
   const int sweeps = n - 2;
   const long long tickets = (long long)batch * sweeps;
   const long long slots = (long long)(3 * (n - 3) + 1) * A;  // log slots a matrix
+  unsigned long long wait_cycles = 0, op_cycles = 0, op_count = 0;  // thread 0's, with kStats
   for (;;) {
     if (tid == 0) *s_sweep = atomicAdd(done + tickets, 1);
     __syncthreads();
@@ -223,13 +233,26 @@ __global__ void __launch_bounds__(kThreads)
     int seen = 0;                              // thread 0: done[z][s-1] as last read
     for (int k = 0; k < ops; ++k) {
       const int target = min(k + 3, prev_ops);
+      long long c0 = 0, c1 = 0;
+      if (kStats && tid == 0) c0 = clock64();
       if (s > 0 && tid == 0 && seen < target) seen = repro::flag_wait(dz + s - 1, target);
+      if (kStats && tid == 0) c1 = clock64();
       if (k > 0 && tid == 32) repro::flag_publish(dz + s, k);
       __syncthreads();
       chase_op<kB>(Tz, n, b, s, k, A, sm, vs + z * slots * b, taus + z * slots, row0 + z * slots,
                    with_log);
+      if (kStats && tid == 0) {
+        wait_cycles += (unsigned long long)(c1 - c0);
+        op_cycles += (unsigned long long)(clock64() - c1);
+        op_count += 1;
+      }
     }
     if (tid == 32) repro::flag_publish(dz + s, ops);
+  }
+  if (kStats && tid == 0) {
+    atomicAdd(stats, wait_cycles);
+    atomicAdd(stats + 1, op_cycles);
+    atomicAdd(stats + 2, op_count);
   }
   if (!with_log) return;
   // Inactive slots: slot (wf, a) holds op (s, k) = (wf/3 - a, wf - 3s).
@@ -248,14 +271,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int kB>
+template <int kB, bool kStats>
 int launch(float* T, int n, int b, int A, int ctas, float* vs, float* taus, int* row0,
-           int with_log, int* work, int batch, void* stream) {
+           int with_log, int* work, int batch, unsigned long long* stats, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int smem = smem_floats(b) * (int)sizeof(float);
+  auto* kernel = bulge_chase_kernel<kB, kStats>;
   cudaError_t err;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(bulge_chase_kernel<kB>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
@@ -264,8 +288,7 @@ int launch(float* T, int n, int b, int A, int ctas, float* vs, float* taus, int*
     if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
       return (int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bulge_chase_kernel<kB>,
-                                                        kThreads, (size_t)smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, (size_t)smem);
     if (err != cudaSuccess) return (int)err;
     ctas = (int)std::min<long long>(per_sm * sms, (long long)batch * std::min(A, n - 2));
     if (ctas < 1) return (int)cudaErrorInvalidValue;
@@ -274,8 +297,8 @@ int launch(float* T, int n, int b, int A, int ctas, float* vs, float* taus, int*
   // min(A, n-2) sweeps in flight.
   const int inflight = std::min(A, n - 2);
   const int group = std::max(1, std::min(batch, (ctas + inflight - 1) / inflight));
-  REPRO_LAUNCH_PERSISTENT(bulge_chase_kernel<kB>, (unsigned)ctas, kThreads, smem, st)
-  (T, n, b, A, vs, taus, row0, with_log, work, batch, group);
+  REPRO_LAUNCH_PERSISTENT(kernel, (unsigned)ctas, kThreads, smem, st)
+  (T, n, b, A, vs, taus, row0, with_log, work, batch, group, stats);
   REPRO_CHECK_LAUNCH();
   return 0;
 }
@@ -293,13 +316,17 @@ extern "C" long long bulge_wavefront_workspace(int n, int batch) {
 // ctas: CTAs of the persistent grid, or 0 for as many as the card keeps
 // resident, at most batch x min(A, n-2), the sweeps that can be in flight
 // (the ticket groups follow from it, see above);
-// work: bulge_wavefront_workspace(n, batch) zeroed bytes.
+// work: bulge_wavefront_workspace(n, batch) zeroed bytes; stats: null, or
+// 3 zeroed counters the grid adds its wait cycles, op cycles and ops to.
 extern "C" int bulge_wavefront_launch(float* T, int n, int b, int A, int ctas, float* vs,
                                       float* taus, int* row0, int with_log, int* work, int batch,
-                                      void* stream) {
+                                      unsigned long long* stats, void* stream) {
   if (n < 3 || b < 2 || A < 1 || ctas < 0 || batch < 1 ||
       (long long)batch * (n - 2) > (1LL << 30))
     return (int)cudaErrorInvalidValue;
-  return b == 8 ? launch<8>(T, n, b, A, ctas, vs, taus, row0, with_log, work, batch, stream)
-                : launch<0>(T, n, b, A, ctas, vs, taus, row0, with_log, work, batch, stream);
+  if (stats)
+    return b == 8 ? launch<8, true>(T, n, b, A, ctas, vs, taus, row0, with_log, work, batch, stats, stream)
+                  : launch<0, true>(T, n, b, A, ctas, vs, taus, row0, with_log, work, batch, stats, stream);
+  return b == 8 ? launch<8, false>(T, n, b, A, ctas, vs, taus, row0, with_log, work, batch, stats, stream)
+                : launch<0, false>(T, n, b, A, ctas, vs, taus, row0, with_log, work, batch, stats, stream);
 }

@@ -7,6 +7,13 @@ hand them on through flags.  A bucket of bands (B, n, n) is one launch too
 (one grid over every matrix's sweeps), as ``jax.vmap`` makes the Pallas
 kernel one call.  The log comes out in the plain version's (W, A, b)
 layout with A = ``max_active_sweeps``, one a matrix.
+
+While ``backend.trace`` records, a call also passes the kernel 3 zeroed
+counters (``trace.device_counters``, kept with the span of the op that
+called it): the cycles its CTAs spent waiting on the previous sweep, the
+cycles of their ops after the wait, and the ops, as
+``kernel_b.wait_cycles``, ``kernel_b.op_cycles`` and ``kernel_b.ops``.
+T and the log are the same with them or without.
 """
 from __future__ import annotations
 
@@ -14,14 +21,17 @@ import ctypes
 
 import torch
 
+from repro_torch.backend import trace
+
 from . import cuda_lib
 from .limits import limit
 
-__all__ = ["bulge_wavefront_cuda"]
+__all__ = ["STATS", "bulge_wavefront_cuda"]
 
+STATS = ("kernel_b.wait_cycles", "kernel_b.op_cycles", "kernel_b.ops")
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             _P, _P, _P, ctypes.c_int, _P, ctypes.c_int, _P]
+             _P, _P, _P, ctypes.c_int, _P, ctypes.c_int, _P, _P]
 _WORKSPACE_ARGTYPES = [ctypes.c_int, ctypes.c_int]
 
 
@@ -74,10 +84,12 @@ def bulge_wavefront_cuda(B: torch.Tensor, b: int, *, return_log: bool = False):
     fn, ws = _lib()
     # Scratch: every matrix's sweep progress counters and the ticket, zeroed.
     work = torch.zeros((ws(n, batch) // 4,), dtype=torch.int32, **kw)
+    stats = trace.device_counters(STATS, B.device)
     with torch.cuda.device(B.device):
         err = fn(
             T.data_ptr(), n, b, A, 0, vs.data_ptr(), taus.data_ptr(),
             row0.data_ptr(), int(return_log), work.data_ptr(), batch,
+            None if stats is None else stats.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     cuda_lib.check(err, "bulge_wavefront")

@@ -30,17 +30,23 @@ bucket of more than ``kernels.limits.bucket_chunk(n)`` matrices runs in the
 fewest chunks that fit (``gridDim.y`` and memory), each chunk so.  Only the
 oracles (``chase="sequential"``, ``backtransform="scan"``) run a matrix at
 a time.
+
+Each stage runs in a span of ``backend.trace`` (``solve`` a bucket,
+``chunk`` a chunk, then ``band_reduce``, ``chase`` or ``direct_tridiag``,
+``jacobi``, ``bisection``, ``inverse_iteration``, ``q2``, ``q1``;
+``tridiagonalize`` and ``ritz_root`` around those calls), which records
+while a profiler or ``trace.recording()`` is on.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.backend import probe, registry
-from repro_torch.backend.trace import map_lanes
+from repro_torch.backend.trace import map_lanes, span
 from repro_torch.core.backtransform import apply_q2_blocked_many, apply_q_left_blocked
 from repro_torch.core.band_reduction import BandReflectors, apply_q_left, band_reduce
 from repro_torch.core.bulge_chasing import ChaseLog, apply_q2, band_to_tridiag, extract_tridiag
@@ -62,7 +68,6 @@ __all__ = [
 ]
 
 _DEFAULT_BISECT_ITERS = 48
-Stage = Optional[Callable[[str], None]]
 
 
 def _dtype_name(dtype) -> str:
@@ -251,28 +256,26 @@ def _tridiag_bucket(
     tridiag: Optional[str],
     backend: Optional[str],
     return_reflectors: bool,
-    on_stage: Stage = None,
 ):
     """Symmetric (B, n, n) -> ``d`` (B, n), ``e`` (B, n-1), and with
     ``return_reflectors`` the back-transform data: ``("direct",
     DirectReflectors)`` or ``("two_stage", (BandReflectors, ChaseLog))``,
     each stacked over the bucket."""
-    mark = on_stage or (lambda name: None)
     if method == "direct":
-        T, refl = direct_tridiagonalize(A, return_reflectors=True)
-        mark("tridiag")
+        with span("direct_tridiag", A):
+            T, refl = direct_tridiagonalize(A, return_reflectors=True)
         d, e = extract_tridiag(T)
         return (d, e, ("direct", refl)) if return_reflectors else (d, e)
     kw = dict(mode=tridiag, backend=backend)
-    out = band_reduce(A, b, nb, return_reflectors=return_reflectors, **kw)
-    mark("band_reduce")
+    with span("band_reduce", A):
+        out = band_reduce(A, b, nb, return_reflectors=return_reflectors, **kw)
     if not return_reflectors:
-        T = band_to_tridiag(out, b, method=chase, **kw)
-        mark("chase")
+        with span("chase", A):
+            T = band_to_tridiag(out, b, method=chase, **kw)
         return extract_tridiag(T)
     band, refl = out
-    T, log = band_to_tridiag(band, b, method=chase, return_log=True, **kw)
-    mark("chase")
+    with span("chase", A):
+        T, log = band_to_tridiag(band, b, method=chase, return_log=True, **kw)
     d, e = extract_tridiag(T)
     return d, e, ("two_stage", (refl, log))
 
@@ -282,86 +285,79 @@ def _lane_log(log: ChaseLog, i: int) -> ChaseLog:
     return ChaseLog(vs=log.vs[i], taus=log.taus[i], row0=log.row0[i], n=log.n, b=log.b)
 
 
-def _backtransform_bucket(refl, X: torch.Tensor, *, mode: str, group: int, backend: str,
-                          on_stage: Stage = None) -> torch.Tensor:
+def _backtransform_bucket(refl, X: torch.Tensor, *, mode: str, group: int, backend: str) -> torch.Tensor:
     """X_A = Q X_T for a bucket, X (B, n, k).  ``mode="blocked"`` merges Q1
     per DBR block and applies Q2 sweep-major through ``backtransform_wy``;
     ``"scan"`` applies the logs and panels one by one (the oracle)."""
-    mark = on_stage or (lambda name: None)
     kind, data = refl
     if kind == "direct":
-        X = apply_q_direct(data, X)
-        mark("q1")
-        return X
+        with span("q1", X):
+            return apply_q_direct(data, X)
     Q1, log = data
-    if mode == "blocked":
-        X = apply_q2_blocked_many(log, X, group=group or None, backend=backend, on_stage=on_stage)
-        mark("q2")
-        X = apply_q_left_blocked(Q1, X)
-    else:
-        X = torch.stack(map_lanes(lambda i: apply_q2(_lane_log(log, i), X[i]), range(X.shape[0]), X))
-        mark("q2")
-        X = apply_q_left(Q1, X)
-    mark("q1")
-    return X
+    with span("q2", X):
+        if mode == "blocked":
+            X = apply_q2_blocked_many(log, X, group=group or None, backend=backend)
+        else:
+            X = torch.stack(map_lanes(lambda i: apply_q2(_lane_log(log, i), X[i]), range(X.shape[0]), X))
+    with span("q1", X):
+        return apply_q_left_blocked(Q1, X) if mode == "blocked" else apply_q_left(Q1, X)
 
 
-def _execute_bucket(A: torch.Tensor, pl: EvdPlan, eigenvectors: bool, on_stage: Stage = None):
+def _execute_bucket(A: torch.Tensor, pl: EvdPlan, eigenvectors: bool):
     """The executor, on a stack A (B, n, n): ``(w (B, k), V (B, n, k))`` or
-    ``w``.  ``on_stage(name)``, when given, is called as each stage ends
-    (``chip_smoke.py`` closes each with a synchronize), once a chunk."""
-    chunk = bucket_chunk(pl.n)
-    if A.shape[0] <= chunk:
-        return _execute_chunk(A, pl, eigenvectors, on_stage)
-    full = A.shape[0] // chunk
-    outs = map_lanes(lambda i: _execute_chunk(A[i * chunk : (i + 1) * chunk], pl, eigenvectors, on_stage),
-                     range(full), A)
-    if A.shape[0] > full * chunk:
-        outs.append(_execute_chunk(A[full * chunk :], pl, eigenvectors, on_stage))
-    if not eigenvectors:
-        return torch.cat(outs)
-    return torch.cat([w for w, _ in outs]), torch.cat([V for _, V in outs])
+    ``w``; in a span ``solve``, each chunk in a span ``chunk``."""
+    with span("solve", A):
+        chunk = bucket_chunk(pl.n)
+        if A.shape[0] <= chunk:
+            return _execute_chunk(A, pl, eigenvectors)
+        full = A.shape[0] // chunk
+        outs = map_lanes(lambda i: _execute_chunk(A[i * chunk : (i + 1) * chunk], pl, eigenvectors),
+                         range(full), A)
+        if A.shape[0] > full * chunk:
+            outs.append(_execute_chunk(A[full * chunk :], pl, eigenvectors))
+        if not eigenvectors:
+            return torch.cat(outs)
+        return torch.cat([w for w, _ in outs]), torch.cat([V for _, V in outs])
 
 
-def _execute_chunk(A: torch.Tensor, pl: EvdPlan, eigenvectors: bool, on_stage: Stage = None):
+def _execute_chunk(A: torch.Tensor, pl: EvdPlan, eigenvectors: bool):
     """:func:`_execute_bucket` on a bucket of at most ``bucket_chunk(n)``
     matrices."""
-    mark = on_stage or (lambda name: None)
-    start, count = pl.spectrum_range
-    # Each matrix is scaled by the power of 2 at or above its largest entry
-    # (exact), and its eigenvalues scaled back: the Householder norms and the
-    # pivots square entries, which in float32 underflow below max|A| ~ 1e-16
-    # (Shampoo's statistics of clipped gradients reach that).
-    A = 0.5 * (A + A.mT)
-    scale = torch.ldexp(torch.ones_like(A[..., 0, 0]), torch.frexp(A.abs().amax((-2, -1)))[1])
-    A = A / scale[..., None, None]
-    if pl.method == "jacobi":
-        w, V = jacobi_eigh(A, max_sweeps=pl.config.max_sweeps)
-        mark("jacobi")
-        w = w[..., start : start + count] * scale[..., None]
-        return (w, V[..., start : start + count]) if eigenvectors else w
-    mode = pl.config.backtransform if pl.method == "two_stage" else "scan"
-    out = _tridiag_bucket(
-        A, b=pl.b, nb=pl.nb, method=pl.method, chase=pl.config.chase, tridiag=pl.tridiag,
-        backend=pl.backend, return_reflectors=eigenvectors, on_stage=on_stage,
-    )
-    d, e = out[:2]
-    w = eigvalsh_tridiag_range(d, e, start=start, count=count, max_iter=pl.bisect_iters)
-    mark("bisection")
-    if not eigenvectors:
-        return w * scale[..., None]
-    # Partial spectrum: one inverse-iteration lane per selected eigenvalue,
-    # so the eigenvector phase costs O(k), not O(n).
-    VT = eigvecs_inverse_iteration(d, e, w)
-    mark("inverse_iteration")
-    V = _backtransform_bucket(out[2], VT, mode=mode, group=pl.bt_group, backend=pl.backend,
-                              on_stage=on_stage)
-    return w * scale[..., None], V
+    with span("chunk", A):
+        start, count = pl.spectrum_range
+        # Each matrix is scaled by the power of 2 at or above its largest entry
+        # (exact), and its eigenvalues scaled back: the Householder norms and the
+        # pivots square entries, which in float32 underflow below max|A| ~ 1e-16
+        # (Shampoo's statistics of clipped gradients reach that).
+        A = 0.5 * (A + A.mT)
+        scale = torch.ldexp(torch.ones_like(A[..., 0, 0]), torch.frexp(A.abs().amax((-2, -1)))[1])
+        A = A / scale[..., None, None]
+        if pl.method == "jacobi":
+            with span("jacobi", A):
+                w, V = jacobi_eigh(A, max_sweeps=pl.config.max_sweeps)
+            w = w[..., start : start + count] * scale[..., None]
+            return (w, V[..., start : start + count]) if eigenvectors else w
+        mode = pl.config.backtransform if pl.method == "two_stage" else "scan"
+        out = _tridiag_bucket(
+            A, b=pl.b, nb=pl.nb, method=pl.method, chase=pl.config.chase, tridiag=pl.tridiag,
+            backend=pl.backend, return_reflectors=eigenvectors,
+        )
+        d, e = out[:2]
+        with span("bisection", d):
+            w = eigvalsh_tridiag_range(d, e, start=start, count=count, max_iter=pl.bisect_iters)
+        if not eigenvectors:
+            return w * scale[..., None]
+        # Partial spectrum: one inverse-iteration lane per selected eigenvalue,
+        # so the eigenvector phase costs O(k), not O(n).
+        with span("inverse_iteration", d):
+            VT = eigvecs_inverse_iteration(d, e, w)
+        V = _backtransform_bucket(out[2], VT, mode=mode, group=pl.bt_group, backend=pl.backend)
+        return w * scale[..., None], V
 
 
-def _execute(A: torch.Tensor, pl: EvdPlan, eigenvectors: bool, on_stage: Stage = None):
+def _execute(A: torch.Tensor, pl: EvdPlan, eigenvectors: bool):
     """One matrix (n, n): the bucket executor on a bucket of one."""
-    out = _execute_bucket(A[None], pl, eigenvectors, on_stage)
+    out = _execute_bucket(A[None], pl, eigenvectors)
     return (out[0][0], out[1][0]) if eigenvectors else out[0]
 
 
@@ -401,11 +397,12 @@ def _roots_from_window(A: torch.Tensor, V: torch.Tensor, p: int, eps: float) -> 
     makes ``w^-1/p`` vary most.  Pairing bisection's eigenvalues with those
     vectors put the roots tens of percent off; the Ritz pairs are
     consistent, so the root is as good as A and V's span."""
-    theta, V = _rayleigh_ritz(A, V)
-    wmax = torch.clamp(theta.amax(-1), min=0.0)
-    ridge = eps * torch.clamp(wmax, min=1e-30)
-    root = torch.pow(torch.clamp(theta, min=0.0) + ridge[..., None], -1.0 / p)
-    return ((V * root[..., None, :]) @ V.mT).to(A.dtype)
+    with span("ritz_root", A):
+        theta, V = _rayleigh_ritz(A, V)
+        wmax = torch.clamp(theta.amax(-1), min=0.0)
+        ridge = eps * torch.clamp(wmax, min=1e-30)
+        root = torch.pow(torch.clamp(theta, min=0.0) + ridge[..., None], -1.0 / p)
+        return ((V * root[..., None, :]) @ V.mT).to(A.dtype)
 
 
 def tridiagonalize(
@@ -419,23 +416,25 @@ def tridiagonalize(
 ):
     """Symmetric A (n, n) -> ``(d, e)`` or ``(d, e, data)``, blocking from
     the table of A's device.  ``data`` is ``("direct", DirectReflectors)``
-    or ``("two_stage", (BandReflectors, ChaseLog))``."""
+    or ``("two_stage", (BandReflectors, ChaseLog))``; in a span
+    ``tridiagonalize``."""
     if method not in ("two_stage", "direct"):
         raise ValueError(f"unknown tridiagonalization method: {method}")
-    if method == "two_stage":
-        dec = resolve_blocking(A.shape[-1], b=b, nb=nb, device_type=A.device.type)
-        b, nb = dec.b, dec.nb
-        method = "direct" if b <= 1 else method
-    out = _tridiag_bucket(
-        A[None], b=b, nb=nb, method=method, chase=chase, tridiag=None, backend=None,
-        return_reflectors=return_reflectors,
-    )
-    d, e = out[0][0], out[1][0]
-    if not return_reflectors:
-        return d, e
-    kind, data = out[2]
-    if kind == "direct":
-        return d, e, (kind, type(data)(*(t[0] for t in data)))
-    refl, log = data
-    refl = BandReflectors(V=refl.V[0], T=refl.T[0], b=refl.b, blocks=refl.blocks)
-    return d, e, (kind, (refl, _lane_log(log, 0)))
+    with span("tridiagonalize", A):
+        if method == "two_stage":
+            dec = resolve_blocking(A.shape[-1], b=b, nb=nb, device_type=A.device.type)
+            b, nb = dec.b, dec.nb
+            method = "direct" if b <= 1 else method
+        out = _tridiag_bucket(
+            A[None], b=b, nb=nb, method=method, chase=chase, tridiag=None, backend=None,
+            return_reflectors=return_reflectors,
+        )
+        d, e = out[0][0], out[1][0]
+        if not return_reflectors:
+            return d, e
+        kind, data = out[2]
+        if kind == "direct":
+            return d, e, (kind, type(data)(*(t[0] for t in data)))
+        refl, log = data
+        refl = BandReflectors(V=refl.V[0], T=refl.T[0], b=refl.b, blocks=refl.blocks)
+        return d, e, (kind, (refl, _lane_log(log, 0)))

@@ -13,7 +13,8 @@
 // what one cluster computes, not races between clusters.  A persistent
 // grid (REPRO_LAUNCH_PERSISTENT) runs as one group of all its CTAs, which
 // hand work to each other through repro::flag_wait / flag_publish and int
-// atomicAdd; emu_run_ctas_in_turn(1) runs its CTAs one after another
+// atomicAdd (clock64() is a steady-clock count, so kernel B's wait counter
+// runs too); emu_run_ctas_in_turn(1) runs its CTAs one after another
 // instead.  `__shared__` variables are process-wide statics here: a kernel
 // whose CTAs run together keeps its shared state in dynamic shared memory
 // (REPRO_DYNAMIC_SMEM).
@@ -21,6 +22,7 @@
 #include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cmath>
 #include <cstring>
 #include <memory>
@@ -102,6 +104,14 @@ inline float atomicAdd(float* p, float v) {
   return old;
 }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
+// clock64(): a steady-clock count in ns (the card counts SM cycles).
+inline long long clock64() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch()).count();
+}
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 template <class T>
 inline T __ldcg(const T* p) { return *p; }

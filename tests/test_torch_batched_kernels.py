@@ -151,7 +151,7 @@ def _kernel_b(host, B, b, ctas, with_log=True):
     row0 = torch.full((count, W, A), -1, dtype=torch.int32)
     work = torch.zeros(host["b_ws"](n, count) // 4, dtype=torch.int32)
     assert host["b"](T.data_ptr(), n, b, A, ctas, vs.data_ptr(), taus.data_ptr(), row0.data_ptr(),
-                     int(with_log), work.data_ptr(), count, None) == 0
+                     int(with_log), work.data_ptr(), count, None, None) == 0
     assert int(work[-1]) == count * (n - 2) + ctas  # every sweep taken, then one empty ticket a CTA
     assert bool((work[:-1].view(count, n - 2) == torch.tensor(
         [(n - 3 - s) // b + 1 for s in range(n - 2)], dtype=torch.int32)).all())  # every op published

@@ -167,19 +167,25 @@ def test_fused_panel_host_schedule_on_views(host):
     assert _rel(Bk, Bp) < 1e-4
 
 
-def _chase(host, B, b, ctas, with_log=True):
-    """Kernel B's launcher on a copy of ``B`` with a grid of ``ctas`` CTAs."""
-    n = B.shape[0]
+def _chase(host, B, b, ctas, with_log=True, stats=None):
+    """Kernel B's launcher on a copy of the band ``B`` (n, n), or of a
+    bucket of bands (count, n, n), with a grid of ``ctas`` CTAs
+    (``stats``: its 3 counters, or None)."""
+    n = B.shape[-1]
+    lead = tuple(B.shape[:-2])
+    count = B.shape[0] if lead else 1
     A, W = max_active_sweeps(n, b), num_wavefronts(n, b)
     T = B.clone()
     # NaN in every log slot: the kernel must write the inactive ones too.
-    vs = torch.full((W, A, b), float("nan"))
-    taus = torch.full((W, A), float("nan"))
-    row0 = torch.full((W, A), -1, dtype=torch.int32)
-    work = torch.zeros(host[6](n, 1) // 4, dtype=torch.int32)
-    assert host[1](T.data_ptr(), n, b, A, ctas, vs.data_ptr(), taus.data_ptr(),
-                   row0.data_ptr(), int(with_log), work.data_ptr(), 1, None) == 0
-    assert int(work[-1]) == n - 2 + ctas  # every sweep taken, then one empty ticket per CTA
+    vs = torch.full(lead + (W, A, b), float("nan"))
+    taus = torch.full(lead + (W, A), float("nan"))
+    row0 = torch.full(lead + (W, A), -1, dtype=torch.int32)
+    work = torch.zeros(host[6](n, count) // 4, dtype=torch.int32)
+    assert host[1](T.data_ptr(), n, b, A, ctas, vs.data_ptr(), taus.data_ptr(), row0.data_ptr(),
+                   int(with_log), work.data_ptr(), count, None if stats is None else stats.data_ptr(),
+                   None) == 0
+    # every sweep taken, then one empty ticket per CTA
+    assert int(work[-1]) == count * (n - 2) + ctas
     return T, ChaseLog(vs, taus, row0, n, b)
 
 
@@ -197,15 +203,20 @@ def _chase(host, B, b, ctas, with_log=True):
 def test_bulge_host(host, n, b, ctas, together):
     """The persistent chase against the plain wavefront chase, its CTAs run
     one after another or together (then sweep s waits on sweep s-1's flag);
-    twice, bitwise equal: each op is computed by one CTA in a fixed order."""
+    twice, bitwise equal: each op is computed by one CTA in a fixed order.
+    The second run counts its waits (kernel B's stats): every chase op
+    once, and the same bits as the first."""
     host[7](int(not together))
     try:
         B = _band(n, b, n)
+        stats = torch.zeros(3, dtype=torch.int64)
         T, log = _chase(host, B, b, ctas)
-        T2, log2 = _chase(host, B, b, ctas)
+        T2, log2 = _chase(host, B, b, ctas, stats=stats)
         T3 = _chase(host, B, b, ctas, with_log=False)[0]
     finally:
         host[7](0)
+    wait, op, ops = stats.tolist()
+    assert ops == sum((n - 3 - s) // b + 1 for s in range(n - 2)) and wait > 0 and op > 0
     assert torch.equal(T, T2) and torch.equal(T, T3)
     assert all(torch.equal(x, y) for x, y in zip((log.vs, log.taus, log.row0),
                                                  (log2.vs, log2.taus, log2.row0)))
@@ -218,6 +229,23 @@ def test_bulge_host(host, n, b, ctas, together):
     vsw, tw = sweep_major_log(log)
     QT = backtransform_wy_xla(T, vsw, tw, b=b)
     assert _rel(backtransform_wy_xla(QT.T.contiguous(), vsw, tw, b=b), B) < 3e-4
+
+
+def test_bulge_host_wait_counter_on_a_bucket(host):
+    """Kernel B's counters on a bucket of 3 bands, its CTAs run together:
+    one op a chase op of every matrix, sum over s of (n-3-s)//b + 1 each;
+    wait and op cycles (the emulation's clock64() counts ns) above 0; T
+    and the log bitwise those of the launch without them."""
+    count, n, b, ctas = 3, 12, 4, 2
+    B = torch.stack([_band(n, b, n + i) for i in range(count)])
+    stats = torch.zeros(3, dtype=torch.int64)
+    T0, log0 = _chase(host, B, b, ctas)
+    T1, log1 = _chase(host, B, b, ctas, stats=stats)
+    wait, op, ops = stats.tolist()
+    assert ops == count * sum((n - 3 - s) // b + 1 for s in range(n - 2))
+    assert wait > 0 and op > 0
+    assert torch.equal(T0, T1)
+    assert all(torch.equal(x, y) for x, y in zip((log0.vs, log0.taus, log0.row0), (log1.vs, log1.taus, log1.row0)))
 
 
 @pytest.mark.parametrize("m,transpose,in_smem", [(33, False, True), (5, True, True), (33, True, False), (7, False, False)])

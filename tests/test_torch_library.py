@@ -241,8 +241,8 @@ def test_cuda_backend_resolves_to_the_operators_and_refuses_cpu():
              "syr2k": library.syr2k, "trailing_update": library.trailing_update, "panel_qr": library.panel_qr}
     assert set(pairs) == set(registry.OPS)
     for op, fn in pairs.items():
-        assert registry.resolve(op, "cuda") is fn
-        assert registry.resolve(op, "torch") is not fn
+        assert registry.resolve(op, "cuda").__wrapped__ is fn  # in its span ``op.<op>``
+        assert registry.resolve(op, "torch").__wrapped__ is not fn
     A = _sym(64, 0)
     with pytest.raises(NotImplementedError, match="repro_torch::fused_panel_update.*CPU"):
         registry.resolve("fused_panel_update", "cuda")(A, 8, 16)

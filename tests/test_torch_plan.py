@@ -122,13 +122,15 @@ def test_registry_ops():
     for op in registry.OPS:
         for backend in registry.BACKENDS:
             assert callable(registry.resolve(op, backend)), (op, backend)
-    assert registry.resolve("fused_panel_update", "torch") is ref.fused_panel_update_ref
-    assert registry.resolve("syr2k", "torch") is ref.syr2k_ref
+    # Each op is handed out in its span (backend.trace.traced_op), the op
+    # itself its __wrapped__.
+    assert registry.resolve("fused_panel_update", "torch").__wrapped__ is ref.fused_panel_update_ref
+    assert registry.resolve("syr2k", "torch").__wrapped__ is ref.syr2k_ref
     # The cuda backend is each kernel's repro_torch operator (kernels/library.py).
-    assert registry.resolve("bulge_wavefront", "cuda") is library.bulge_wavefront
-    assert registry.resolve("syr2k", "cuda") is library.syr2k
-    assert registry.resolve("trailing_update", "cuda") is library.trailing_update
-    assert registry.resolve("panel_qr", "cuda") is library.panel_qr
+    assert registry.resolve("bulge_wavefront", "cuda").__wrapped__ is library.bulge_wavefront
+    assert registry.resolve("syr2k", "cuda").__wrapped__ is library.syr2k
+    assert registry.resolve("trailing_update", "cuda").__wrapped__ is library.trailing_update
+    assert registry.resolve("panel_qr", "cuda").__wrapped__ is library.panel_qr
     with pytest.raises(ValueError):
         registry.resolve("backtransform_wy", "pallas")
 
