@@ -179,7 +179,9 @@ def band_reduce(
     Kernel E factors one panel a call, so a bucket with ``"kernel"`` raises
     ``ValueError`` too (no batched solve reaches it).
 
-    ``A`` is not modified.  Returns ``Bband`` and, with
+    ``A`` is not modified; the fused mode reads only its lower triangle (an
+    A symmetric only to rounding is taken as its lower triangle and that
+    triangle's mirror).  Returns ``Bband`` and, with
     ``return_reflectors``, the :class:`BandReflectors` of Q1 (``merge_ts``
     also fills ``Tm``), with A's leading dimension.
     """
@@ -209,7 +211,14 @@ def band_reduce(
         panel_qr_fn = resolve_panel_qr(panel_method, backend)
         syr2k_update = syr2k_update or registry.resolve("trailing_update", backend)
 
-    B = A.contiguous().clone()
+    if mode == "fused":
+        # Kernel A's GEMV reads only the lower triangle of the view it is
+        # given and relies on the view being symmetric bit for bit: the
+        # matrix reduced is A's lower triangle and its mirror.
+        B = A.tril().contiguous()
+        B += A.tril(-1).mT
+    else:
+        B = A.contiguous().clone()
     schedule = build_stage_schedule(n, b, nb)
     p = schedule.num_panels
     Vall = torch.zeros(lead + (n, p * b), dtype=A.dtype, device=A.device)

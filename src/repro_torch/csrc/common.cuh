@@ -97,6 +97,22 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
+// kBytes (4, 8 or 16; dst and src aligned to it) of which only the first
+// src_bytes are read from src; the rest of dst is zero-filled.  A thread
+// that refills a ring slot it has just read issues the copy after the read
+// (the "memory" clobber), and the copy lands only once its global read has
+// returned, long after the shared-memory read.
+template <int kBytes>
+__device__ __forceinline__ void cp_async_zfill(float* dst, const float* src, int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src), "n"(kBytes),
+                 "r"(src_bytes)
+                 : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {

@@ -12,6 +12,8 @@ import ctypes
 
 import torch
 
+from repro_torch.backend import trace
+
 from . import cuda_lib
 from .limits import grid_rows, limit
 
@@ -33,7 +35,10 @@ def _lib():
     ws = lib.fused_panel_update_workspace
     ws.argtypes = _WORKSPACE_ARGTYPES
     ws.restype = ctypes.c_longlong
-    return fn, ws
+    rows = lib.fused_panel_gemv_rows
+    rows.argtypes = [ctypes.c_int]
+    rows.restype = ctypes.c_int
+    return fn, ws, rows
 
 
 def buffers(m: int, w: int, b: int, cluster: int, device, workspace, batch: int = 1) -> dict:
@@ -69,7 +74,14 @@ def fused_panel_update_cuda(Bv: torch.Tensor, b: int, w: int):
 
     ``Bv`` must be a float32 CUDA tensor with unit column stride (a view
     ``B[..., ci:, ci:]`` of row-major matrices is fine), at most
-    :func:`~repro_torch.kernels.limits.grid_rows` matrices.  Returns
+    :func:`~repro_torch.kernels.limits.grid_rows` matrices, and symmetric
+    bit for bit: the kernel's GEMV reads only the lower triangle of the
+    rows it multiplies (a symmetric product) outside the row walk's range
+    of m, where its panels are counted as ``kernel_a.gemv_rowwalk_panels``
+    while tracing.  Every caller passes such a view: ``band_reduce`` (so
+    ``plan``, ``solve_many`` and ``tridiagonalize``) reduces its input's
+    lower triangle and that triangle's mirror, and the trailing view a call
+    leaves (``Bv[..., w:, w:]``) is written with its mirror.  Returns
     ``(Bv, V (..., m, w), Ts (..., w//b, b, b))``, the contract of the plain
     ``repro_torch.kernels.ref.fused_panel_update_ref``.
     """
@@ -90,7 +102,7 @@ def fused_panel_update_cuda(Bv: torch.Tensor, b: int, w: int):
         raise ValueError(f"a call takes 1 to {grid_rows()} matrices, got {batch}")
     q = w // b
     cluster = cluster_size(m, b)
-    fn, workspace = _lib()
+    fn, workspace, gemv_rows = _lib()
     buf = buffers(m, w, b, cluster, Bv.device, workspace, batch)
     with torch.cuda.device(Bv.device):
         err = fn(
@@ -100,6 +112,8 @@ def fused_panel_update_cuda(Bv: torch.Tensor, b: int, w: int):
         )
     cuda_lib.check(err, "fused_panel_update")
     cuda_lib.count("fused_panel_update", 4 * q + 1)
+    if gemv_rows(m):
+        trace.count("kernel_a.gemv_rowwalk_panels", q)
     if one:
         return Bv, buf["V"][0], buf["Ts"][0]
     return Bv, buf["V"], buf["Ts"]

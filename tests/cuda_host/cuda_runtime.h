@@ -118,6 +118,7 @@ inline T __ldcg(const T* p) { return *p; }
 struct alignas(16) float4 {
   float x, y, z, w;
 };
+inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
 struct alignas(16) uint4 {
   unsigned x, y, z, w;
 };
@@ -165,6 +166,10 @@ inline T* cluster_peer(T* p, unsigned rank) {
 // cp.async copies at once here.
 inline void cp_async16(float* dst, const float* src) {
   for (int i = 0; i < 4; ++i) dst[i] = src[i];
+}
+template <int kBytes>
+inline void cp_async_zfill(float* dst, const float* src, int src_bytes) {
+  for (int i = 0; i < kBytes / 4; ++i) dst[i] = 4 * i < src_bytes ? src[i] : 0.f;
 }
 inline void cp_async_commit() {}
 template <int N>

@@ -104,6 +104,21 @@ def test_band_reduce_leaves_input_and_is_banded():
     )
 
 
+def test_band_reduce_fused_reads_the_lower_triangle():
+    """The fused mode reduces A's lower triangle and its mirror: an upper
+    triangle off by rounding changes no bit, and A is left as it was."""
+    n, b, nb = 48, 4, 16
+    a = random_symmetric(np.random.default_rng(14), n)
+    lower = torch.as_tensor(a)
+    A = lower.clone()
+    A.triu_(1).mul_(1.0 + 2.0 ** -20).add_(lower.tril())
+    A0 = A.clone()
+    B, r = tbr.band_reduce(A, b, nb, return_reflectors=True, mode="fused")
+    Bm, rm = tbr.band_reduce(lower, b, nb, return_reflectors=True, mode="fused")
+    assert torch.equal(A, A0) and not torch.equal(A, A.mT)
+    assert torch.equal(B, Bm) and torch.equal(r.V, rm.V) and torch.equal(r.T, rm.T)
+
+
 @pytest.mark.parametrize("transpose", [False, True])
 def test_q1_from_jax_reflectors_via_interop(transpose):
     """Feed the JAX-made BandReflectors into the port's Q1 appliers."""

@@ -59,10 +59,15 @@ def host(tmp_path_factory):
         pytest.skip("needs g++ to compile the kernels for host emulation")
     out = tmp_path_factory.mktemp("cuda_host_bucket")
     procs = {}
-    for name in ("fused_panel", "bulge", "backtransform", "syr2k"):
+    # fused_panel_tiles: kernel A with its GEMV the symmetric product at every
+    # m (the row walk's range of m empty), to reach the product's tiles.
+    for name in ("fused_panel", "bulge", "backtransform", "syr2k", "fused_panel_tiles"):
         so = out / f"{name}.so"
+        src = CSRC / f"{name.replace('_tiles', '')}.cu"
         cmd = [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
-               f"-I{SHIM}", f"-I{CSRC}", "-x", "c++", str(CSRC / f"{name}.cu"), "-o", str(so)]
+               f"-I{SHIM}", f"-I{CSRC}", "-x", "c++", str(src), "-o", str(so)]
+        if name == "fused_panel_tiles":
+            cmd.insert(1, "-DREPRO_GEMV_ROWS_MAX=0")
         procs[name] = (subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True), so)
     libs = {}
     for name, (proc, so) in procs.items():
@@ -78,6 +83,9 @@ def host(tmp_path_factory):
     return dict(
         a=bind("fused_panel", "fused_panel_update_launch", ka._ARGTYPES, ctypes.c_int),
         a_ws=bind("fused_panel", "fused_panel_update_workspace", ka._WORKSPACE_ARGTYPES, ctypes.c_longlong),
+        a_tiles=bind("fused_panel_tiles", "fused_panel_update_launch", ka._ARGTYPES, ctypes.c_int),
+        a_tiles_ws=bind("fused_panel_tiles", "fused_panel_update_workspace", ka._WORKSPACE_ARGTYPES,
+                        ctypes.c_longlong),
         b=bind("bulge", "bulge_wavefront_launch", kb._ARGTYPES, ctypes.c_int),
         b_ws=bind("bulge", "bulge_wavefront_workspace", kb._WORKSPACE_ARGTYPES, ctypes.c_longlong),
         in_turn=bind("bulge", "emu_run_ctas_in_turn", [ctypes.c_int], None),
@@ -103,34 +111,41 @@ def _rel(x, y):
     return float((x.double() - y.double()).abs().max() / max(float(y.abs().max()), 1.0))
 
 
-def _kernel_a(host, Bv, b, w, cluster):
-    """Kernel A's launcher on the views Bv (B, m, m) in one call."""
+def _kernel_a(host, Bv, b, w, cluster, lib="a"):
+    """Kernel A's launcher on the views Bv (B, m, m) in one call (``lib``
+    "a_tiles": the build whose GEMV is the symmetric product at every m)."""
     batch, m = Bv.shape[0], Bv.shape[-1]
-    buf = ka.buffers(m, w, b, cluster, "cpu", host["a_ws"], batch)
-    err = host["a"](Bv.data_ptr(), Bv.stride(1), Bv.stride(0), batch, m, w, b,
+    buf = ka.buffers(m, w, b, cluster, "cpu", host[f"{lib}_ws"], batch)
+    err = host[lib](Bv.data_ptr(), Bv.stride(1), Bv.stride(0), batch, m, w, b,
                     *(t.data_ptr() for t in buf.values()), SMEM, cluster, None)
     assert err == 0
     return buf["V"], buf["Ts"]
 
 
+_BUCKET_CASES = [
+    (3, 48, 0, 16, 8, 1, "a"),       # the first block of 3 matrices
+    (3, 56, 8, 32, 8, 2, "a"),       # a strided trailing view, the QR over 2 CTAs a matrix
+    (5, 40, 4, 12, 4, 3, "a"),       # 5 views, 3-CTA clusters
+    (2, 136, 0, 8, 8, 2, "a"),       # panel_gemv the row walk (128 < m)
+    (2, 136, 0, 8, 8, 2, "a_tiles"),  # panel_gemv on 3 x 3 tiles of 64, the last ragged
+]
+
+
 @pytest.mark.parametrize(
-    "count,n,ci,w,b,cluster",
-    [
-        (3, 48, 0, 16, 8, 1),   # the first block of 3 matrices
-        (3, 56, 8, 32, 8, 2),   # a strided trailing view, the QR over 2 CTAs a matrix
-        (5, 40, 4, 12, 4, 3),   # 5 views, 3-CTA clusters
-    ],
+    "count,n,ci,w,b,cluster,lib",
+    _BUCKET_CASES,
+    ids=["-".join(map(str, c[:6])) + ("" if c[6] == "a" else "-tiles") for c in _BUCKET_CASES],
 )
-def test_kernel_a_bucket_bitwise(host, count, n, ci, w, b, cluster):
+def test_kernel_a_bucket_bitwise(host, count, n, ci, w, b, cluster, lib):
     """One call on B trailing views B[:, ci:, ci:] equals one call a view
     bit for bit (its buffers and tickets are the view's own), and the
     batched plain version at tests/test_torch_kernels_host.py's tolerance."""
     A = _syms(count, n, n + ci)
     Bk = A.clone()
-    Vk, Tk = _kernel_a(host, Bk[:, ci:, ci:], b, w, cluster)
+    Vk, Tk = _kernel_a(host, Bk[:, ci:, ci:], b, w, cluster, lib)
     for i in range(count):
         Bi = A[i : i + 1].clone()
-        Vi, Ti = _kernel_a(host, Bi[:, ci:, ci:], b, w, cluster)
+        Vi, Ti = _kernel_a(host, Bi[:, ci:, ci:], b, w, cluster, lib)
         assert torch.equal(Bk[i], Bi[0]) and torch.equal(Vk[i], Vi[0]) and torch.equal(Tk[i], Ti[0])
     Bp = A.clone()
     _, Vp, Tp = ref.fused_panel_update_ref(Bp[:, ci:, ci:], b, w)

@@ -65,6 +65,10 @@ def _band(n, b, seed, device):
         (72, 32, 8, 0),         # panel QR in global memory
         (1024, 128, 8, None),
         (4096, 256, 8, None),   # first block of the n = 4096 main path
+        (1001, 64, 8, None),    # rows not 16-byte aligned: panel_gemv's 4-byte copies
+        (700, 320, 8, None),    # c0 past 256: panel_gemv's compensation in two chunks
+        (600, 128, 32, None),   # b = 32
+        (9000, 256, 8, None),   # panel_gemv's strips of two tiles of 256 (m > 8192)
     ],
 )
 def test_fused_panel_update_matches_plain(cuda_device, monkeypatch, m, w, b, qr_smem):
@@ -126,6 +130,31 @@ def test_fused_panel_update_bitwise_repeatable(cuda_device, m, w, b):
     torch.cuda.synchronize()
     for x, y in zip(*runs):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("m,w,b", [(4096, 256, 8), (1000, 64, 8), (300, 48, 16), (264, 256, 8)])
+def test_fused_panel_update_leaves_a_symmetric_view(cuda_device, m, w, b):
+    """Kernel A's GEMV reads only the lower triangle of the view it is
+    given, so the next block's trailing view ``Bv[w:, w:]`` must come out
+    bitwise equal to its transpose."""
+    A = torch.as_tensor(_sym(m, 11), device=cuda_device)
+    Bk, _, _ = ops.fused_panel_update(A.clone(), b, w)
+    nxt = Bk[w:, w:]
+    assert torch.equal(nxt, nxt.mT)
+
+
+def test_band_reduce_reads_the_lower_triangle_on_card(cuda_device):
+    """An input symmetric only to rounding (a Gram matrix from cuBLAS):
+    ``band_reduce`` reduces its lower triangle and that triangle's mirror,
+    bit for bit, as kernel A's GEMV reads only the lower triangle."""
+    n, b, nb = 1024, 8, 256
+    G = torch.as_tensor(np.random.default_rng(13).normal(size=(n, n)).astype(np.float32),
+                        device=cuda_device)
+    A = G @ G.mT / n
+    lower = A.tril() + A.tril(-1).mT
+    B, r = band_reduce(A, b, nb, return_reflectors=True)
+    Bm, rm = band_reduce(lower, b, nb, return_reflectors=True)
+    assert torch.equal(B, Bm) and torch.equal(r.V, rm.V) and torch.equal(r.T, rm.T)
 
 
 def test_plan_bitwise_repeatable(cuda_device):

@@ -51,10 +51,15 @@ def host(tmp_path_factory):
     sources = {name: CSRC / f"{name}.cu" for name in ("fused_panel", "bulge", "backtransform", "syr2k", "panel")}
     sources["mma_probe"] = SHIM / "mma_probe.cu"
     sources["mma_tf32_probe"] = SHIM / "mma_tf32_probe.cu"
+    # Kernel A with its GEMV the symmetric product at every m (the row walk's
+    # range of m empty), to reach the product's tile edges at small m.
+    sources["fused_panel_tiles"] = CSRC / "fused_panel.cu"
     for name, src in sources.items():
         so = out / f"{name}.so"
         cmd = [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
                f"-I{SHIM}", f"-I{CSRC}", "-x", "c++", str(src), "-o", str(so)]
+        if name == "fused_panel_tiles":
+            cmd.insert(1, "-DREPRO_GEMV_ROWS_MAX=0")
         procs[name] = (subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True), so)
     libs = {}
     for name, (proc, so) in procs.items():
@@ -90,7 +95,13 @@ def host(tmp_path_factory):
     plan = libs["panel"].panel_qr_plan
     plan.argtypes = ke._PLAN_ARGTYPES
     plan.restype = ctypes.c_int
-    return fa, fb, fc, fd, fe, ws, wb, in_turn, mma, tf32, plan
+    ft = libs["fused_panel_tiles"].fused_panel_update_launch
+    ft.argtypes = ka._ARGTYPES
+    ft.restype = ctypes.c_int
+    wt = libs["fused_panel_tiles"].fused_panel_update_workspace
+    wt.argtypes = ka._WORKSPACE_ARGTYPES
+    wt.restype = ctypes.c_longlong
+    return fa, fb, fc, fd, fe, ws, wb, in_turn, mma, tf32, plan, (ft, wt)
 
 
 def _sym(n, seed):
@@ -121,18 +132,38 @@ def _fused(fa, Bv, b, w, qr_smem=SMEM, cluster=None):
     return Bv, buf["V"][0], buf["Ts"][0]
 
 
+_FUSED_CASES = [
+    (48, 16, 8, SMEM, "launched"), (40, 32, 8, SMEM, "launched"), (36, 12, 4, SMEM, "launched"),
+    (72, 32, 8, 0, "launched"), (48, 32, 16, SMEM, "launched"),
+    # panel_xred over 2 column chunks and 3 row chunks; panel_gemv the row
+    # walk (128 < m), then the symmetric product on 5 x 5 tiles of 64, the
+    # last one ragged (300 = 4 x 64 + 44), r0 inside tile 0 and the rows of
+    # M above r0 from the column products alone
+    (300, 48, 8, SMEM, "launched"), (300, 48, 8, SMEM, "tiles"),
+    # b = 16 on 3 x 3 tiles of 64 (m ragged)
+    (150, 32, 16, SMEM, "launched"), (150, 32, 16, SMEM, "tiles"),
+    # b = 4 on the 8-wide instantiation, rows not 16-byte aligned (m odd):
+    # Bv read by 4-byte copies
+    (133, 16, 4, SMEM, "launched"), (133, 16, 4, SMEM, "tiles"),
+]
+
+
 @pytest.mark.parametrize(
-    "m,w,b,qr_smem",
-    [(48, 16, 8, SMEM), (40, 32, 8, SMEM), (36, 12, 4, SMEM), (72, 32, 8, 0), (48, 32, 16, SMEM),
-     # panel_xred over 2 column chunks and 3 row chunks, panel_gemv over 9 CTAs
-     (300, 48, 8, SMEM)],
+    "m,w,b,qr_smem,gemv",
+    _FUSED_CASES,
+    # "launched": kernel A as built for the card (its GEMV the row walk for
+    # 128 < m <= 4096); "tiles": the symmetric product at every m.
+    ids=[f"{m}-{w}-{b}-{q}" + ("" if g == "launched" else f"-{g}") for m, w, b, q, g in _FUSED_CASES],
 )
-def test_fused_panel_host(host, m, w, b, qr_smem):
+def test_fused_panel_host(host, m, w, b, qr_smem, gemv):
     A = _sym(m, m)
-    Bk, Vk, Tk = _fused(host[0], A.clone(), b, w, qr_smem)
+    Bk, Vk, Tk = _fused(host[0] if gemv == "launched" else host[11], A.clone(), b, w, qr_smem)
     Bp, Vp, Tp = ref.fused_panel_update_ref(A.clone(), b, w)
     tol = 1e-5 * max(8.0, m ** 0.5)
     assert _rel(Bk, Bp) < tol and _rel(Vk, Vp) < tol and _rel(Tk, Tp) < tol
+    # Kernel A's GEMV reads only the lower triangle of the view it is given,
+    # so the next block's trailing view must come out bitwise symmetric.
+    assert torch.equal(Bk[w:, w:], Bk[w:, w:].mT)
 
 
 @pytest.mark.parametrize(

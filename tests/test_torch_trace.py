@@ -306,3 +306,22 @@ def test_kernel_b_wait_counter_on_the_card(cuda_device, count, n, b):
     assert c["kernel_b.wait_cycles"] > 0 and c["kernel_b.op_cycles"] > 0
     assert torch.equal(T0, T1) and torch.equal(T0, T2)
     assert torch.equal(l0.vs, l1.vs) and torch.equal(l0.taus, l1.taus) and torch.equal(l0.row0, l1.row0)
+
+
+@pytest.mark.cuda
+def test_kernel_a_row_walk_counter_on_the_card(cuda_device):
+    """Kernel A counts the panels whose GEMV walks whole rows (the range of m
+    where the symmetric product is slower): one count a panel of each such
+    call of a solve, none outside a recording."""
+    from repro_torch.kernels import fused_panel
+
+    n = 1024
+    A = _sym(n, 10, cuda_device)
+    dec = resolve_blocking(n, device_type="cuda")
+    rows = fused_panel._lib()[2]
+    want = sum(e.q for e in build_stage_schedule(n, dec.b, dec.nb).entries if rows(e.m))
+    tridiagonalize(A)
+    with trace.recording():
+        tridiagonalize(A)
+    assert trace.session().counters.get("kernel_a.gemv_rowwalk_panels", 0) == want
+    assert not rows(128) and not rows(1 << 14)
